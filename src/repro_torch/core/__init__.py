@@ -1,0 +1,62 @@
+"""Matrix-PIC core on PyTorch: counterpart of `repro.core` for the main path."""
+
+from repro_torch.core.binning import (  # noqa: F401
+    INVALID,
+    BinnedLayout,
+    BinSlab,
+    bin_slab_staging,
+    bin_slab_values,
+    build_bin_slab,
+    build_bins,
+    cell_coords,
+    cell_index,
+    choose_capacity,
+    permute_tree,
+    slot_gather,
+    sort_permutation,
+)
+from repro_torch.core.deposition import (  # noqa: F401
+    CURRENT_STAGGER,
+    NO_STAGGER,
+    STAGGER_X,
+    STAGGER_Y,
+    STAGGER_Z,
+    deposit_current_matrix_fused,
+    deposit_scatter,
+    fused_bin_slab,
+    fused_deposit_grids,
+)
+from repro_torch.core.gather import (  # noqa: F401
+    EB_STAGGERS,
+    extract_neighborhoods,
+    fused_gather_bins,
+    gather_fields_fused,
+    gather_scatter,
+    pack_neighborhoods,
+)
+from repro_torch.core.gpma import GPMAStats, gpma_update  # noqa: F401
+from repro_torch.core.resort_policy import (  # noqa: F401
+    REASON_NAMES,
+    SortPolicyConfig,
+    SortPolicyState,
+    perf_proxy,
+    policy_init,
+    policy_reset,
+    policy_update,
+)
+from repro_torch.core.rhocell import (  # noqa: F401
+    fold_guards,
+    reduce_rhocell,
+    reduce_rhocell_separable,
+    reduce_rhocell_tail,
+    unfold_guards,
+)
+from repro_torch.core.shape_functions import (  # noqa: F401
+    bspline,
+    max_guard,
+    packed_axis_weights,
+    shape_weights,
+    shape_weights_window,
+    support,
+    unified_support,
+)

@@ -1,0 +1,84 @@
+"""Wrappers of the fused deposition kernels: the functions the rest of the
+package calls. Counterpart of `repro.kernels.deposition.ops`.
+
+  fused_bin_deposit          the ``cuda`` rung of the ``deposit_fused`` op
+  fused_bin_deposit_reduced  the ``cuda_reduced`` rung (top of ``auto``);
+                             finish with `core.rhocell.reduce_rhocell_tail`
+
+Each checks its arguments and raises on what the kernel does not take. A
+tensor on the CPU runs the plain PyTorch version (`ref.py`); a CUDA tensor
+launches the kernel, and nothing else: a failed build or launch raises.
+``LAUNCHES`` counts kernel launches, and only those.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.shape_functions import max_guard, unified_support
+from repro_torch.kernels.deposition import kernel
+from repro_torch.kernels.deposition.ref import fused_bin_deposit_reduced_ref, fused_bin_deposit_ref
+
+LAUNCHES = {"fused_bin_deposit": 0, "fused_bin_deposit_reduced": 0}
+
+#: shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232_448
+
+
+def _check_slab(d: torch.Tensor, val: torch.Tensor, order: int) -> None:
+    if order not in (1, 2, 3):
+        raise ValueError(f"order must be 1, 2 or 3, got {order}")
+    if d.dim() != 3 or d.shape[2] != 3 or d.shape[0] < 1 or d.shape[1] < 1:
+        raise ValueError(f"d must be (C, cap, 3) with C, cap >= 1, got {tuple(d.shape)}")
+    if val.shape != d.shape:
+        raise ValueError(f"val {tuple(val.shape)} must match d {tuple(d.shape)}")
+    if d.dtype != torch.float32 or val.dtype != torch.float32:
+        raise TypeError(f"d and val must be float32, got {d.dtype} and {val.dtype}")
+    if d.device != val.device:
+        raise ValueError(f"d and val on different devices: {d.device}, {val.device}")
+    if d.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {d.device}")
+    if d.device.type == "cuda" and not (d.is_contiguous() and val.is_contiguous()):
+        raise ValueError("d and val must be contiguous")
+
+
+def fused_bin_deposit(d: torch.Tensor, val: torch.Tensor, *, order: int) -> torch.Tensor:
+    """Fused Jx/Jy/Jz contraction: d, val (C, cap, 3) float32, val 0 on gap
+    slots -> (C, 3, T, T*T) packed rhocell tiles on the unified window."""
+    _check_slab(d, val, order)
+    if d.device.type == "cpu":
+        return fused_bin_deposit_ref(d, val, order=order)
+    t, _ = unified_support(order)
+    cap = d.shape[1]
+    smem = 4 * (6 * t + 3) * cap
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"capacity {cap} needs {smem} B of shared memory per block, over {SMEM_LIMIT}")
+    out = torch.empty((d.shape[0], 3, t, t * t), dtype=torch.float32, device=d.device)
+    kernel.fused_deposition_cuda(d, val, out, order=order)
+    LAUNCHES["fused_bin_deposit"] += 1
+    return out
+
+
+def fused_bin_deposit_reduced(d: torch.Tensor, val: torch.Tensor, *, order: int, grid_shape,
+                              guard: int) -> torch.Tensor:
+    """Fused deposition with the rhocell z pass in the kernel:
+    d, val (nx*ny*nz, cap, 3) -> (nx*ny, 3, nz+2g, T, T)."""
+    _check_slab(d, val, order)
+    nx, ny, nz = (int(s) for s in grid_shape)
+    if d.shape[0] != nx * ny * nz:
+        raise ValueError(f"{d.shape[0]} cells do not fill grid {(nx, ny, nz)}")
+    if guard < max_guard(order):
+        raise ValueError(f"guard {guard} is below max_guard({order}) = {max_guard(order)}")
+    if d.device.type == "cpu":
+        return fused_bin_deposit_reduced_ref(d, val, order=order, grid_shape=(nx, ny, nz), guard=guard)
+    t, _ = unified_support(order)
+    cap = d.shape[1]
+    smem = 4 * (3 * (nz + 2 * guard) * t * t + (6 * t + 3) * cap)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"nz={nz}, capacity {cap} need {smem} B of shared memory per column block, over {SMEM_LIMIT}"
+        )
+    out = torch.empty((nx * ny, 3, nz + 2 * guard, t, t), dtype=torch.float32, device=d.device)
+    kernel.fused_deposition_reduced_cuda(d, val, out, order=order, nz=nz, guard=guard)
+    LAUNCHES["fused_bin_deposit_reduced"] += 1
+    return out

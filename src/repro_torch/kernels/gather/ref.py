@@ -1,0 +1,35 @@
+"""Plain PyTorch versions of the fused gather kernel.
+
+`fused_bin_gather_ref` is the counterpart of
+`repro.kernels.gather.ref.fused_bin_gather_ref` on the packed (C, 6, T, T*T)
+neighbourhoods; `fused_gather_ref` is the plain version of the CUDA kernel,
+which takes the stacked guard-padded grids: it packs the neighbourhoods,
+then contracts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.gather import EB_STAGGERS, pack_neighborhoods
+from repro_torch.core.shape_functions import packed_axis_weights
+
+
+def fused_bin_gather_ref(d: torch.Tensor, g: torch.Tensor, *, order: int) -> torch.Tensor:
+    """d (C, cap, 3), g (C, 6, T, T*T) packed neighbourhoods -> (C, cap, 6)
+    in EB_STAGGERS order."""
+    w = packed_axis_weights(d, order)
+    outs = []
+    for comp, stagger in enumerate(EB_STAGGERS):
+        wy = w[(1, stagger[1])]
+        wz = w[(2, stagger[2])]
+        byz = (wy[..., :, None] * wz[..., None, :]).reshape(d.shape[0], d.shape[1], -1)
+        h = torch.einsum("cpn,cmn->cpm", byz, g[:, comp])
+        outs.append(torch.sum(w[(0, stagger[0])] * h, dim=-1))
+    return torch.stack(outs, dim=-1)
+
+
+def fused_gather_ref(d: torch.Tensor, padded: torch.Tensor, *, grid_shape, order: int, guard: int) -> torch.Tensor:
+    """d (C, cap, 3), padded (6, nx+2g, ny+2g, nz+2g) -> (C, cap, 6)."""
+    g = pack_neighborhoods(padded, grid_shape=grid_shape, order=order, guard=guard)
+    return fused_bin_gather_ref(d, g, order=order)

@@ -1,0 +1,137 @@
+"""PIC simulation launcher of the port (counterpart of `repro.launch.pic_run`).
+
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario uniform --steps 50
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario lwfa --order 2
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario uniform --device cpu --grid 8 8 8
+
+Runs on the CUDA device unless ``--device`` names another. One warm-up
+window (kernel build, allocator warm-up) runs first, then the timed run;
+the launcher prints particle-steps/s, the sort counters, the host reads and
+the energies. ``--profile`` then runs one more window under
+`torch.profiler` and prints where its time went: device time per step
+phase (the ``pic.*`` ranges of `repro_torch.pic.simulation`), the top
+kernels, and the device's busy and idle share of the window's wall time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from collections import defaultdict
+
+import torch
+
+from repro_torch.api import make_simulation, scenario, scenario_names
+
+
+def build_spec(args):
+    overrides = {}
+    for name in ("steps", "window", "order", "ppc", "backend"):
+        value = getattr(args, name)
+        if value is not None:
+            overrides[name] = value
+    if args.grid is not None:
+        overrides["grid"] = tuple(args.grid)
+    return scenario(args.scenario, **overrides)
+
+
+def profile_window(sim, window: int) -> None:
+    """Run one window of a simulation on a CUDA device under the profiler
+    and print its breakdown. A range's
+    device time is the profiler's device-side span of it (first kernel start
+    to last kernel end); its host time includes any wait on a device read.
+    The busy share sums kernel, copy and fill times, not the spans."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = sim.device
+    steps0 = sim.state.step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(window, window=window)
+        torch.cuda.synchronize(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    steps = max(sim.state.step - steps0, 1)
+    busy_us = 0.0
+    by_kernel: dict[str, list] = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("pic."):  # not a range's span
+            busy_us += e.time_range.elapsed_us()
+            by_kernel[e.name][0] += 1
+            by_kernel[e.name][1] += e.time_range.elapsed_us()
+    # each range is listed twice, host side and device side: keep the larger of each time
+    ranges: dict[str, list] = defaultdict(lambda: [0, 0.0, 0.0])
+    for e in prof.key_averages():
+        if e.key.startswith("pic."):
+            r = ranges[e.key]
+            r[:] = [max(r[0], e.count), max(r[1], e.device_time_total), max(r[2], e.cpu_time_total)]
+    launches = sum(calls for calls, _ in by_kernel.values())
+    print(f"profile: {steps} steps, wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"({busy_us / wall_us:.1%}; idle share {1 - busy_us / wall_us:.1%}), "
+          f"{launches / steps:.0f} device operations/step")
+    print(f"  {'range':<18}{'calls':>7}{'device ms/step':>16}{'host ms/step':>14}")
+    for key, (calls, dev_us, host_us) in sorted(ranges.items()):
+        print(f"  {key:<18}{calls:>7}{dev_us / 1e3 / steps:>16.3f}{host_us / 1e3 / steps:>14.3f}")
+    print(f"  {'kernel':<60}{'calls':>7}{'ms/step':>10}")
+    for name, (calls, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]:
+        print(f"  {name[:60]:<60}{calls:>7}{us / 1e3 / steps:>10.3f}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--scenario", default="uniform", choices=scenario_names())
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--window", type=int, default=None, help="steps per window (one bundle read per window)")
+    ap.add_argument("--order", type=int, default=None, choices=[1, 2, 3])
+    ap.add_argument("--grid", type=int, nargs=3, default=None)
+    ap.add_argument("--ppc", type=int, default=None, help="particles per cell per dim")
+    ap.add_argument("--backend", default=None,
+                    choices=["auto", "torch", "cuda", "cuda_reduced", "xla", "pallas", "pallas_reduced"],
+                    help="kernel backend of the bin contractions (reference names map onto the port's)")
+    ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--profile", action="store_true", help="profile one more window and print its breakdown")
+    args = ap.parse_args(argv)
+    try:
+        spec = build_spec(args)
+    except (ValueError, TypeError, KeyError, NotImplementedError) as e:
+        ap.error(str(e))
+
+    # float32 products stay float32 (cuDNN would otherwise default to TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sim = make_simulation(spec, device=args.device)
+    dev = sim.device
+    if args.profile and dev.type != "cuda":
+        ap.error("--profile measures the CUDA device; it does not run on the CPU")
+    n_steps, window = spec.run.steps, spec.run.window
+    n_parts = sim.diagnostics()["n_alive"]
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(
+        f"{spec.name}: grid {spec.grid.shape}, {n_parts} particles, order {spec.deposition.order}, "
+        f"backend {spec.deposition.backend}, window {window}, device {dev} ({name})"
+    )
+    sim.run(min(window, n_steps), window=window)  # warm-up
+    reads0, windows0 = sim.host_reads, sim.windows
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    sim.run(n_steps, window=window)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    d = sim.diagnostics()
+    windows = max(sim.windows - windows0, 1)
+    print(
+        f"{n_steps} steps in {dt:.2f}s ({d['n_alive'] * n_steps / dt:.3e} particle-steps/s); "
+        f"sorts={sim.sorts} rebuilds={sim.rebuilds} growths={sim.growths['capacity']} "
+        f"host reads/window={(sim.host_reads - reads0) / windows:.1f}"
+    )
+    print(f"energies: field={d['field_energy']:.4e} kinetic={d['kinetic_energy']:.4e} total={d['total_energy']:.4e}")
+    if dev.type == "cuda":
+        print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    if args.profile:
+        profile_window(sim, window)
+
+
+if __name__ == "__main__":
+    main()
