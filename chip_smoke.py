@@ -7,18 +7,27 @@ Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi) — no CUDA, no run;
 2. build: the CUDA kernels of src/repro_torch/csrc, from source;
-3. kernels against their plain PyTorch versions, at orders 1-3 on a small
-   grid and at the main path's shapes (order 3, 128^3 cells, capacity 32),
-   with each one's time, its plain version's, a one-call PyTorch
-   yardstick's and the least time the card could take (its bound);
+3. all six kernels against their plain PyTorch versions: (a) at orders
+   1-3 on a small grid, the unfused kernels at the M and N of every stagger
+   on an awkward cell count, in float32 and, for `bin_outer_product` and
+   `segment_accumulate`, bfloat16; (b) at the main path's shapes (order 3,
+   128^3 cells, capacity 32; `segment_accumulate` at the MoE combine of
+   mixtral_8x22b and the embedding gradient of phi3_mini_3p8b), with each
+   one's time, its plain version's, a one-call PyTorch yardstick's and the
+   least time the card could take (its bound);
 4. the main path at full size: `make_simulation(scenario("uniform",
    grid=(128,)*3, ppc=2, order=3, steps=32, window=16)).run()` — 16.8 M
    macro-particles, third-order (QSP) shapes — with launch counts, step
-   time, peak memory, host reads, energies and charge conservation; then
-   the same path with backend "cuda" (the packed deposition kernel);
-5. the other backends at 32^3 ("cuda" and "torch" on the card) against the
-   default "cuda_reduced" run;
-6. lwfa at its registry size: laser, density step, dead particles, cap 48.
+   time, peak memory, host reads per window (one: each window replays the
+   step's CUDA graph), energies and charge conservation; then the same path
+   with backend "cuda" (the packed deposition kernel);
+5. the unfused path (`deposition="matrix_unfused"`, `gather=
+   "matrix_unfused"`: 3 + 6 kernel launches a step) and the paper's scatter
+   baseline at the same size;
+6. the other backends and modes at 32^3 ("cuda" and "torch"; matrix_unfused,
+   scatter, rhocell) against the default "cuda_reduced" run;
+7. lwfa at its registry size: laser, density step, dead particles, cap 48;
+8. `matrix_scatter_add` at the two language-model shapes of phase 3b.
 
 It prints the `kernels` JSON line, then, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -42,6 +51,15 @@ FLOPS_PER_TAP = 8            # one B-spline tap: offset, |u|, branch, polynomial
 
 RTOL = ATOL = 1e-5           # kernel vs plain version: float32, different summation order
 MAIN = dict(grid=(128, 128, 128), ppc=2, order=3, steps=32, window=16)
+UNFUSED = dict(MAIN, steps=8, window=8, deposition="matrix_unfused", gather="matrix_unfused")
+SCATTER = dict(MAIN, steps=4, window=4, deposition="scatter", gather="scatter")
+# segment_accumulate at two language-model shapes (src/repro/configs):
+# the MoE combine of mixtral_8x22b (8192 tokens, top-2 experts, d_model
+# 6144: one bin per token, capacity 2) and the embedding gradient of
+# phi3_mini_3p8b (8192 token ids, Zipf-like over its 32064-entry vocabulary,
+# capacity 16, d_model 3072: the most frequent ids overflow their bins)
+MOE = dict(tokens=8192, top_k=2, d=6144)
+EMBED = dict(tokens=8192, vocab=32064, capacity=16, d=3072)
 
 
 def say(*args):
@@ -68,6 +86,7 @@ def time_ms(torch, fn, reps: int) -> float:
 
 def max_err(torch, got, want) -> float:
     """Largest |got - want|; fails beyond atol + rtol * |want|."""
+    got, want = got.float(), want.float()
     diff = (got - want).abs()
     if not bool(torch.isfinite(got).all()):
         fail("kernel output is not finite")
@@ -82,7 +101,40 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def run_path(torch, kernels, sim, label: str, n_steps: int | None = None) -> dict:
+    """Run a simulation from launch counts at 0, print its step time (with
+    and without the CUDA graph's one-time set-up: a warm-up step and the
+    capture), rate, peak memory, host reads and launches, and fail unless
+    every window made one host read (two more per capacity growth)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = sim.diagnostics()["n_alive"]
+    kernels.reset_launch_counts()
+    reads0, windows0, setup0 = sim.host_reads, sim.windows, sim.graph_setup_seconds
+    t0 = time.perf_counter()
+    sim.run(n_steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    steps = sim.state.step
+    setup_s = sim.graph_setup_seconds - setup0
+    windows, reads = sim.windows - windows0, sim.host_reads - reads0
+    out = dict(run_s=run_s, setup_s=setup_s, steps=steps, n0=n0, counts=counts, captures=sim.graph_captures,
+               ms_step=1e3 * (run_s - setup_s) / steps, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say(f"{label}: {n0} particles, {steps} steps in {run_s:.3f} s: {1e3 * run_s / steps:.2f} ms/step with the "
+        f"graph's set-up ({setup_s:.3f} s, {sim.graph_captures} capture(s)), {out['ms_step']:.2f} ms/step without, "
+        f"{n0 * steps / (run_s - setup_s):.4e} particle-steps/s")
+    say(f"  peak memory {out['peak_gb']:.2f} GB, host reads {reads} in {windows} windows "
+        f"({reads / max(windows, 1):.2f}/window), sorts {sim.sorts}, rebuilds {sim.rebuilds}, "
+        f"growths {sim.growths['capacity']}, launches {counts} (each capture's warm-up step launches once more)")
+    if reads != windows + 2 * sim.growths["capacity"]:
+        fail(f"{label}: {reads} host reads in {windows} windows with {sim.growths['capacity']} growths: "
+             "expected one a window, two more a growth")
+    return out
+
+
 def main() -> None:
+    import numpy as np
     import torch
 
     # -- 1. device -----------------------------------------------------------
@@ -102,12 +154,31 @@ def main() -> None:
 
     from repro_torch import kernels
     from repro_torch.api import make_simulation, scenario
-    from repro_torch.core import bin_slab_staging, build_bins, cell_index, max_guard, unified_support
+    from repro_torch.core import (
+        CURRENT_STAGGER,
+        EB_STAGGERS,
+        NO_STAGGER,
+        bin_items,
+        bin_slab_staging,
+        binned_shape_factors,
+        build_bins,
+        cell_coords,
+        cell_index,
+        extract_neighborhoods,
+        matrix_scatter_add,
+        max_guard,
+        shape_weights,
+        slot_gather,
+        support,
+        unified_support,
+    )
     from repro_torch.kernels import build
     from repro_torch.kernels.deposition import ops as dep
     from repro_torch.kernels.deposition import ref as dep_ref
     from repro_torch.kernels.gather import ops as gat
     from repro_torch.kernels.gather import ref as gat_ref
+    from repro_torch.kernels.scatter_matrix import ops as seg
+    from repro_torch.kernels.scatter_matrix import ref as seg_ref
     from repro_torch.pic import lorentz_gamma
 
     # -- 2. build ------------------------------------------------------------
@@ -145,6 +216,39 @@ def main() -> None:
         say(f"order {order}, grid {grid}: max |kernel - plain| packed {errs[0]:.2e}, reduced {errs[1]:.2e}, "
             f"gather {errs[2]:.2e} (tolerance {ATOL} + {RTOL}*|plain|)")
 
+    # the unfused kernels at the M x N of every stagger, on 1001 cells (no
+    # block holds a whole number of them), random operands
+    def taps(order, stagger):
+        t3 = [support(order, s)[0] for s in stagger]
+        return t3[0], t3[1] * t3[2]
+
+    n_awk, cap_awk = 1001, 32
+    for order in (1, 2, 3):
+        worst = {"bin_outer_product f32": 0.0, "bin_outer_product bf16": 0.0, "bin_gather": 0.0}
+        for stagger in (NO_STAGGER,) + CURRENT_STAGGER:
+            m, n = taps(order, stagger)
+            a = torch.randn((n_awk, cap_awk, m), generator=gen, device=dev)
+            b = torch.randn((n_awk, cap_awk, n), generator=gen, device=dev)
+            for dtype, key in ((torch.float32, "bin_outer_product f32"), (torch.bfloat16, "bin_outer_product bf16")):
+                ad, bd = a.to(dtype), b.to(dtype)
+                worst[key] = max(worst[key], max_err(torch, dep.bin_outer_product(ad, bd),
+                                                     dep_ref.bin_outer_product_ref(ad, bd)))
+        for stagger in (NO_STAGGER,) + EB_STAGGERS:
+            m, n = taps(order, stagger)
+            wx = torch.rand((n_awk, cap_awk, m), generator=gen, device=dev)
+            byz = torch.rand((n_awk, cap_awk, n), generator=gen, device=dev)
+            gn = torch.randn((n_awk, m, n), generator=gen, device=dev)
+            worst["bin_gather"] = max(worst["bin_gather"], max_err(torch, gat.bin_gather(wx, byz, gn),
+                                                                   gat_ref.bin_gather_ref(wx, byz, gn)))
+        say(f"order {order}, {n_awk} cells x cap {cap_awk}, every stagger: max |kernel - plain| "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    for v_, cap_, d_ in ((1001, 2, 333), (1001, 16, 1000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            w_ = torch.randn((v_, cap_), generator=gen, device=dev).to(dtype)
+            u_ = torch.randn((v_, cap_, d_), generator=gen, device=dev).to(dtype)
+            err = max_err(torch, seg.segment_accumulate(w_, u_), seg_ref.segment_accumulate_ref(w_, u_))
+            say(f"segment_accumulate ({v_}, {cap_}, {d_}) {str(dtype)[6:]}: max |kernel - plain| {err:.2e}")
+
     # -- 3b. kernels at the main path's shapes ---------------------------------
     spec = scenario("uniform", **MAIN)
     order, shape = spec.deposition.order, spec.grid.shape
@@ -157,6 +261,9 @@ def main() -> None:
     slab, val = bin_slab_staging(p.pos, v, spec.charge * p.w * p.alive.float(), state.layout, grid_shape=shape)
     d, val = slab.d, val.contiguous()
     n_occ = int(slab.valid.sum())
+    # what the unfused kernels' operands are built from
+    main_pos, main_layout = p.pos, state.layout
+    main_qwv = (spec.charge * p.w * p.alive.float())[:, None] * v
     del sim0, state, p, v, slab
     padded = torch.randn((6, *(k + 2 * g for k in shape)), generator=gen, device=dev)
     c, cap, _ = d.shape
@@ -250,30 +357,124 @@ def main() -> None:
     del d, val, padded
     torch.cuda.empty_cache()
 
+    def record_sum(name, builders, reps, source, replaces):
+        """A kernel's row summed over several calls (a step's launches, or
+        the shapes of a path): each builder makes one call's operands and
+        returns (kernel, plain, library, bytes, flops, label)."""
+        row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=None, max_abs_err=0.0,
+                   ms=0.0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        t_bytes = t_ops = 0.0
+        for build_call in builders:
+            fn, plain, library, n_bytes, flops, label = build_call()
+            got, want = fn(), plain()
+            err = max_err(torch, got, want)
+            del got, want
+            torch.cuda.empty_cache()
+            ms, plain_ms, lib_ms = time_ms(torch, fn, reps), time_ms(torch, plain, 2), time_ms(torch, library, reps)
+            b_ms, b_by = bound(n_bytes, flops)
+            say(f"  {name} {label}: {ms:.3f} ms (plain {plain_ms:.3f}, library {lib_ms:.3f}, bound {b_ms:.3f} by "
+                f"{b_by}), max |kernel - plain| {err:.2e}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+            row["library_ms"] += lib_ms
+            t_bytes, t_ops = t_bytes + n_bytes, t_ops + flops
+            del fn, plain, library
+            torch.cuda.empty_cache()
+        row["kernel_ms"] = row["ms"]
+        row["bound_ms"], row["bound_by"] = bound(t_bytes, t_ops)
+        results[name] = row
+        say(f"{name}, {len(builders)} calls: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f} ms, library "
+            f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms by {row['bound_by']}), "
+            f"max |kernel - plain| {row['max_abs_err']:.2e}")
+
+    # the unfused deposition: one bin_outer_product per current component
+    def outer_case(k):
+        def make():
+            stagger = CURRENT_STAGGER[k]
+            a, b = binned_shape_factors(main_pos, main_qwv[:, k].contiguous(), main_layout, grid_shape=shape,
+                                        order=order, stagger=stagger)
+            a, b = a.contiguous(), b.contiguous()
+            m, n = a.shape[2], b.shape[2]
+            return (lambda: dep.bin_outer_product(a, b), lambda: dep_ref.bin_outer_product_ref(a, b),
+                    lambda: torch.bmm(a.transpose(1, 2), b), 4 * (a.numel() + b.numel() + c * m * n),
+                    n_occ * 2 * m * n, f"J{'xyz'[k]} (M {m}, N {n})")
+        return make
+
+    say(f"unfused kernels at the main path's shapes ({c} cells x cap {cap}, order {order}):")
+    record_sum("bin_outer_product", [outer_case(k) for k in range(3)], 3,
+               "src/repro_torch/csrc/bin_outer_product.cu", "src/repro/kernels/deposition/kernel.py:70")
+
+    # the unfused gather: one bin_gather per field component
+    fields_m = torch.randn((6, *(k + 2 * g for k in shape)), generator=gen, device=dev)
+    cells_m = cell_coords(c, shape, device=dev)
+    d_m = slot_gather(main_pos, main_layout.slots) - cells_m[:, None, :].float()
+
+    def gather_case(k):
+        def make():
+            stagger = EB_STAGGERS[k]
+            (tx, ty, tz), bases = zip(*(support(order, st) for st in stagger))
+            neigh = extract_neighborhoods(fields_m[k], shape, taps=(tx, ty, tz), bases=bases, guard=g)
+            neigh = neigh.reshape(c, tx, ty * tz).contiguous()
+            wx = shape_weights(d_m[..., 0], order, stagger[0]).contiguous()
+            wy, wz = (shape_weights(d_m[..., ax], order, stagger[ax]) for ax in (1, 2))
+            byz = (wy[..., :, None] * wz[..., None, :]).reshape(c, cap, ty * tz).contiguous()
+            del wy, wz
+            m, n = tx, ty * tz
+            return (lambda: gat.bin_gather(wx, byz, neigh), lambda: gat_ref.bin_gather_ref(wx, byz, neigh),
+                    lambda: torch.sum(wx * torch.bmm(byz, neigh.transpose(1, 2)), dim=-1),
+                    4 * (wx.numel() + byz.numel() + neigh.numel() + c * cap), n_occ * 2 * m * (n + 1),
+                    f"{('Ex', 'Ey', 'Ez', 'Bx', 'By', 'Bz')[k]} (M {m}, N {n})")
+        return make
+
+    record_sum("bin_gather", [gather_case(k) for k in range(6)], 3,
+               "src/repro_torch/csrc/bin_gather.cu", "src/repro/kernels/gather/kernel.py:67")
+    del fields_m, cells_m, d_m, main_pos, main_layout, main_qwv
+    torch.cuda.empty_cache()
+
+    # segment_accumulate at the two language-model shapes, bfloat16
+    def lm_items():
+        """(label, indices, updates, weights, capacity, n_bins) of the MoE
+        combine and the embedding gradient, made from seed 0."""
+        rng = np.random.default_rng(0)
+        t_moe = MOE["tokens"] * MOE["top_k"]
+        moe = ("MoE combine, mixtral_8x22b", torch.arange(MOE["tokens"], device=dev).repeat_interleave(MOE["top_k"]),
+               torch.randn((t_moe, MOE["d"]), generator=gen, device=dev).to(torch.bfloat16),
+               torch.rand((t_moe,), generator=gen, device=dev).to(torch.bfloat16), MOE["top_k"], MOE["tokens"])
+        zipf = 1.0 / np.arange(1, EMBED["vocab"] + 1)   # rank-frequency of word ids
+        ids = rng.choice(EMBED["vocab"], size=EMBED["tokens"], p=zipf / zipf.sum())
+        emb = ("embedding gradient, phi3_mini_3p8b", torch.from_numpy(ids).to(dev),
+               torch.randn((EMBED["tokens"], EMBED["d"]), generator=gen, device=dev).to(torch.bfloat16), None,
+               EMBED["capacity"], EMBED["vocab"])
+        return moe, emb
+
+    def segment_case(item):
+        def make():
+            label, idx, upd, wts, capacity, n_bins = item
+            w, u, _, _ = bin_items(idx, upd, n_bins=n_bins, capacity=capacity, weights=wts)
+            w, u = w.contiguous(), u.contiguous()
+            v_, cap_, d_ = u.shape
+            return (lambda: seg.segment_accumulate(w, u), lambda: seg_ref.segment_accumulate_ref(w, u),
+                    lambda: torch.einsum("vc,vcd->vd", w, u), 2 * (w.numel() + u.numel() + v_ * d_),
+                    2 * v_ * cap_ * d_, f"{label} ({v_} bins x cap {cap_} x D {d_}, bf16)")
+        return make
+
+    items = lm_items()
+    record_sum("segment_accumulate", [segment_case(it) for it in items], 5,
+               "src/repro_torch/csrc/segment_accumulate.cu", "src/repro/kernels/scatter_matrix/kernel.py:37")
+    torch.cuda.empty_cache()
+
     # -- 4. the main path at full size -----------------------------------------
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
     sim = make_simulation(scenario("uniform", **MAIN))
     charge0 = float(torch.sum(sim.state.particles.w * sim.state.particles.alive))
-    n0 = sim.diagnostics()["n_alive"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sim.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    main = run_path(torch, kernels, sim, f"main path: uniform {MAIN['grid']}, order {MAIN['order']}")
+    counts, steps, n0 = main["counts"], main["steps"], main["n0"]
     diag = sim.diagnostics()
     charge1 = float(torch.sum(sim.state.particles.w * sim.state.particles.alive))
-    steps = MAIN["steps"]
-    say(f"main path: uniform {MAIN['grid']}, {n0} particles, order {MAIN['order']}, {steps} steps in {run_s:.3f} s: "
-        f"{1e3 * run_s / steps:.2f} ms/step, {n0 * steps / run_s:.4e} particle-steps/s")
-    say(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, host reads {sim.host_reads} in "
-        f"{sim.windows} windows ({sim.host_reads / sim.windows:.1f}/window), sorts {sim.sorts}, "
-        f"rebuilds {sim.rebuilds}, growths {sim.growths['capacity']}")
-    say(f"  launches {counts}")
     say(f"  energies: field {diag['field_energy']:.6e} kinetic {diag['kinetic_energy']:.6e} "
         f"total {diag['total_energy']:.6e}; charge {charge0:.7e} -> {charge1:.7e}")
-    if counts["fused_bin_deposit_reduced"] != steps or counts["fused_bin_gather"] != steps:
+    per_run = steps + main["captures"]  # each capture's warm-up step launches too
+    if counts.get("fused_bin_deposit_reduced") != per_run or counts.get("fused_bin_gather") != per_run:
         fail(f"the main path did not launch the kernels once per step: {counts}")
     if not all(math.isfinite(diag[k]) for k in ("field_energy", "kinetic_energy")) or diag["field_energy"] <= 0:
         fail(f"energies not finite and positive: {diag}")
@@ -285,59 +486,110 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # the same path through the packed deposition kernel (backend "cuda")
-    kernels.reset_launch_counts()
     sim = make_simulation(scenario("uniform", **{**MAIN, "steps": 16}, backend="cuda"))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sim.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    say(f"main path, backend cuda: 16 steps in {run_s:.3f} s ({1e3 * run_s / 16:.2f} ms/step), launches {counts}")
-    if counts["fused_bin_deposit"] != 16 or counts["fused_bin_deposit_reduced"] != 0:
-        fail(f"backend cuda did not run the packed deposition kernel once per step: {counts}")
-    results["fused_bin_deposit"]["launches"] = counts["fused_bin_deposit"]
+    out = run_path(torch, kernels, sim, "main path, backend cuda")
+    if out["counts"].get("fused_bin_deposit") != 16 + out["captures"] or out["counts"].get("fused_bin_deposit_reduced"):
+        fail(f"backend cuda did not run the packed deposition kernel once per step: {out['counts']}")
+    results["fused_bin_deposit"]["launches"] = out["counts"]["fused_bin_deposit"]
     del sim
     torch.cuda.empty_cache()
 
-    # -- 5. the other backends at 32^3 against the default --------------------
-    fields = {}
-    for backend in ("cuda_reduced", "cuda", "torch"):
-        kernels.reset_launch_counts()
-        sim = make_simulation(scenario("uniform", grid=(32, 32, 32), ppc=2, order=3, steps=8, window=4, backend=backend))
-        sim.run()
-        fields[backend] = [f.clone() for f in sim.state.fields.all()]
-        say(f"32^3 backend {backend}: sorts {sim.sorts}, launches {kernels.launch_counts()}, "
-            f"energies {sim.diagnostics()['total_energy']:.6e}")
-    worst = 0.0
-    for backend in ("cuda", "torch"):
-        for a, b in zip(fields[backend], fields["cuda_reduced"]):
-            scale = float(b.abs().max())
-            rel = float((a - b).abs().max()) / max(scale, 1e-30)
-            worst = max(worst, rel)
-    say(f"32^3 fields, cuda and torch against cuda_reduced after 8 steps: max |diff| / max |field| = {worst:.2e} "
-        f"(tolerance 1e-4: the kernels and cuBLAS sum in different orders, compounded over the steps)")
-    if worst > 1e-4:
-        fail("backends disagree")
+    # -- 5. the unfused path and the scatter baseline at full size -------------
+    sim = make_simulation(scenario("uniform", **UNFUSED))
+    out = run_path(torch, kernels, sim, "unfused path: matrix_unfused deposition and gather")
+    per_run = out["steps"] + out["captures"]
+    if out["counts"].get("bin_outer_product") != 3 * per_run or out["counts"].get("bin_gather") != 6 * per_run:
+        fail(f"the unfused path did not launch bin_outer_product 3 and bin_gather 6 times a step: {out['counts']}")
+    diag = sim.diagnostics()
+    if not (math.isfinite(diag["total_energy"]) and diag["n_alive"] == out["n0"] and diag["field_energy"] > 0):
+        fail(f"unfused run not sane: {diag}")
+    results["bin_outer_product"]["launches"] = out["counts"]["bin_outer_product"]
+    results["bin_gather"]["launches"] = out["counts"]["bin_gather"]
+    say(f"  against the fused main path: {out['ms_step'] / main['ms_step']:.2f}x its step time, "
+        f"{out['peak_gb'] / main['peak_gb']:.2f}x its peak memory")
+    del sim
+    torch.cuda.empty_cache()
 
-    # -- 6. lwfa at its registry size -------------------------------------------
-    kernels.reset_launch_counts()
+    sim = make_simulation(scenario("uniform", **SCATTER))
+    out = run_path(torch, kernels, sim, "scatter baseline: scatter deposition and gather")
+    if out["counts"]:
+        fail(f"the scatter baseline launched a bin kernel: {out['counts']}")
+    diag = sim.diagnostics()
+    if not (math.isfinite(diag["total_energy"]) and diag["n_alive"] == out["n0"] and diag["field_energy"] > 0):
+        fail(f"scatter run not sane: {diag}")
+    say(f"  the fused main path against this baseline: {out['ms_step'] / main['ms_step']:.2f}x faster a step")
+    del sim
+    torch.cuda.empty_cache()
+
+    # -- 6. the other backends and modes at 32^3 against the default -----------
+    fields = {}
+    runs = {"cuda_reduced": {}, "cuda": dict(backend="cuda"), "torch": dict(backend="torch"),
+            "matrix_unfused": dict(deposition="matrix_unfused", gather="matrix_unfused"),
+            "scatter": dict(deposition="scatter", gather="scatter"),
+            "rhocell": dict(deposition="rhocell", gather="scatter")}
+    for label, kw in runs.items():
+        kernels.reset_launch_counts()
+        sim = make_simulation(scenario("uniform", grid=(32, 32, 32), ppc=2, order=3, steps=8, window=4, **kw))
+        sim.run()
+        fields[label] = [f.clone() for f in sim.state.fields.all()]
+        say(f"32^3 {label}: sorts {sim.sorts}, host reads {sim.host_reads} in {sim.windows} windows, launches "
+            f"{ {k: v for k, v in kernels.launch_counts().items() if v} }, energies {sim.diagnostics()['total_energy']:.6e}")
+        if sim.host_reads != sim.windows + 2 * sim.growths["capacity"]:
+            fail(f"32^3 {label}: not one host read a window")
+    for label in runs:
+        if label == "cuda_reduced":
+            continue
+        worst = 0.0
+        for a, b in zip(fields[label], fields["cuda_reduced"]):
+            worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+        say(f"32^3 fields, {label} against cuda_reduced after 8 steps: max |diff| / max |field| = {worst:.2e} "
+            f"(tolerance 1e-4: the routes sum in different orders, compounded over the steps)")
+        if worst > 1e-4:
+            fail(f"{label} disagrees with the default path")
+
+    # -- 7. lwfa at its registry size -------------------------------------------
     sim = make_simulation(scenario("lwfa"))
     p = sim.state.particles
-    charge0, n0 = float(torch.sum(p.w * p.alive)), sim.diagnostics()["n_alive"]
-    sim.run(20)
+    charge0 = float(torch.sum(p.w * p.alive))
+    out = run_path(torch, kernels, sim, f"lwfa {sim.config.grid.shape}, capacity {sim.config.capacity}", 20)
     diag = sim.diagnostics()
     p = sim.state.particles
     charge1 = float(torch.sum(p.w * p.alive))
-    say(f"lwfa {sim.config.grid.shape}: capacity {sim.config.capacity}, {n0} live of {p.n} particles, 20 steps, "
-        f"sorts {sim.sorts} rebuilds {sim.rebuilds} growths {sim.growths['capacity']}, launches {kernels.launch_counts()}, "
-        f"energies field {diag['field_energy']:.6e} kinetic {diag['kinetic_energy']:.6e}")
-    if not (math.isfinite(diag["total_energy"]) and diag["n_alive"] == n0 and n0 < p.n
+    say(f"  {out['n0']} live of {p.n} particles, energies field {diag['field_energy']:.6e} "
+        f"kinetic {diag['kinetic_energy']:.6e}")
+    if not (math.isfinite(diag["total_energy"]) and diag["n_alive"] == out["n0"] and out["n0"] < p.n
             and abs(charge1 - charge0) <= 1e-5 * abs(charge0) and diag["field_energy"] > 0):
         fail(f"lwfa run not sane: {diag}")
+    del sim
+    torch.cuda.empty_cache()
+
+    # -- 8. matrix_scatter_add at the language-model shapes ----------------------
+    # in float32 (the kernel rows above are bfloat16), against a float32
+    # scatter-add of the same items: the two sum in different orders
+    kernels.reset_launch_counts()
+    for label, idx, upd, wts, capacity, n_bins in items:
+        upd32 = upd.float()
+        w32 = None if wts is None else wts.float()
+        got = matrix_scatter_add(idx, upd32, n_bins=n_bins, capacity=capacity, weights=w32)
+        ones = torch.ones(idx.shape, device=dev)
+        want = torch.zeros((n_bins, upd.shape[1]), device=dev).index_add_(
+            0, idx, (ones if w32 is None else w32)[:, None] * upd32)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        n_over = int((torch.bincount(idx, minlength=n_bins) > capacity).sum())
+        say(f"matrix_scatter_add, {label}: {n_over} bins overflow capacity {capacity}, "
+            f"max |path - scatter-add| {err:.3e} of max |out| {scale:.3e}")
+        if not math.isfinite(err) or err > RTOL * scale:
+            fail(f"matrix_scatter_add disagrees with the scatter-add: {label}")
+        del got, want, upd32
+    n_seg = kernels.launch_counts()["segment_accumulate"]
+    if n_seg != len(items):
+        fail(f"matrix_scatter_add did not launch segment_accumulate once per call: {n_seg}")
+    results["segment_accumulate"]["launches"] = n_seg
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
-    order_of = ("fused_bin_deposit", "fused_bin_deposit_reduced", "fused_bin_gather")
+    order_of = ("fused_bin_deposit", "fused_bin_deposit_reduced", "fused_bin_gather", "bin_outer_product",
+                "bin_gather", "segment_accumulate")
     say(json.dumps({"kernels": [results[k] for k in order_of]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

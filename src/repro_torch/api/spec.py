@@ -1,7 +1,7 @@
-"""Declarative simulation specification, trimmed to the single-device main
-path. Counterpart of `repro.api.spec`: the same frozen dataclasses and
+"""Declarative simulation specification, trimmed to the single-device
+driver. Counterpart of `repro.api.spec`: the same frozen dataclasses and
 field names for the parts this port runs (grid, plasma with profile, drift
-and perturbation, laser, deposition, sort, run). The mesh, communication,
+and perturbation, laser, deposition with every mode, sort, run). The mesh, communication,
 health and fault nodes, ensembles and the JSON round trip wait for later
 slices.
 """
@@ -101,28 +101,31 @@ class PlasmaSpec:
 @dataclasses.dataclass(frozen=True)
 class DepositionSpec:
     """Deposition order and mode, the gather pairing, and the kernel backend
-    of both bin contractions: ``auto`` | ``torch`` | ``cuda`` |
+    of the bin contractions: ``auto`` | ``torch`` | ``cuda`` |
     ``cuda_reduced``; the reference's ``xla`` | ``pallas`` |
-    ``pallas_reduced`` map onto them. Only the fused matrix modes are
-    ported."""
+    ``pallas_reduced`` map onto them."""
 
     order: int = 1
-    mode: str = "matrix"
+    mode: str = "matrix"  # matrix (fused) | matrix_unfused | scatter | rhocell
     backend: str = "auto"
-    gather: str = ""      # "" (auto, = matrix) | matrix
+    gather: str = ""      # "" (auto) | matrix (fused) | matrix_unfused | scatter
 
     def __post_init__(self):
-        if self.mode != "matrix":
-            raise NotImplementedError(f"deposition mode {self.mode!r} is not ported (only 'matrix')")
-        if self.gather not in ("", "matrix"):
-            raise NotImplementedError(f"gather mode {self.gather!r} is not ported (only 'matrix')")
+        if self.mode not in ("matrix", "matrix_unfused", "scatter", "rhocell"):
+            raise ValueError(f"unknown deposition mode {self.mode!r}")
+        if self.gather not in ("", "matrix", "matrix_unfused", "scatter"):
+            raise ValueError(f"unknown gather mode {self.gather!r}")
         if self.order not in (1, 2, 3):
             raise ValueError(f"deposition order must be 1, 2 or 3, got {self.order}")
         object.__setattr__(self, "backend", dispatch.canonical(self.backend))
 
     @property
     def resolved_gather(self) -> str:
-        return self.gather or "matrix"
+        """The gather mode; by default the fused matrix gather beside a
+        matrix deposition, the scatter gather beside the others."""
+        if self.gather:
+            return self.gather
+        return "matrix" if self.mode in ("matrix", "matrix_unfused") else "scatter"
 
 
 @dataclasses.dataclass(frozen=True)

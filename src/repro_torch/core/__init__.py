@@ -1,4 +1,5 @@
-"""Matrix-PIC core on PyTorch: counterpart of `repro.core` for the main path."""
+"""Matrix-PIC core on PyTorch: counterpart of `repro.core` for the
+single-device simulation and the generalized matrix scatter."""
 
 from repro_torch.core.binning import (  # noqa: F401
     INVALID,
@@ -21,7 +22,10 @@ from repro_torch.core.deposition import (  # noqa: F401
     STAGGER_X,
     STAGGER_Y,
     STAGGER_Z,
+    binned_shape_factors,
     deposit_current_matrix_fused,
+    deposit_matrix,
+    deposit_rhocell,
     deposit_scatter,
     fused_bin_slab,
     fused_deposit_grids,
@@ -31,10 +35,12 @@ from repro_torch.core.gather import (  # noqa: F401
     extract_neighborhoods,
     fused_gather_bins,
     gather_fields_fused,
+    gather_matrix,
     gather_scatter,
     pack_neighborhoods,
 )
 from repro_torch.core.gpma import GPMAStats, gpma_update  # noqa: F401
+from repro_torch.core.matrix_scatter import bin_items, matrix_scatter_add, scatter_add_ref  # noqa: F401
 from repro_torch.core.resort_policy import (  # noqa: F401
     REASON_NAMES,
     SortPolicyConfig,

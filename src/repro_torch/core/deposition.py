@@ -1,10 +1,20 @@
-"""Current deposition: the Matrix-PIC fused path and the scatter oracle.
+"""Current deposition: the Matrix-PIC fused path, its comparison modes and
+the scatter oracle.
 
-Counterpart of `repro.core.deposition` for the main path:
+Counterpart of `repro.core.deposition`:
 
   deposit_scatter                 — per-particle scatter-add of the
                                     (order+1)^3 nodal contributions; the
-                                    oracle the tests hold the others to.
+                                    ``deposition="scatter"`` baseline and
+                                    the oracle the tests hold the others to.
+  deposit_rhocell                 — per-particle taps scatter into per-cell
+                                    rhocell rows, then one dense reduction
+                                    (``deposition="rhocell"``).
+  deposit_matrix                  — one current component per call: the
+                                    bin operands A (C, cap, Tx) and
+                                    B (C, cap, Ty*Tz) are built in device
+                                    memory, then contracted per cell
+                                    (``deposition="matrix_unfused"``).
   deposit_current_matrix_fused    — all three Yee-staggered current
                                     components in one fused pass over the
                                     step's bin slab (paper Alg. 2).
@@ -27,8 +37,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import shape_functions as sf
-from repro_torch.core.binning import BinnedLayout, BinSlab, bin_slab_values, build_bin_slab
-from repro_torch.core.rhocell import reduce_rhocell_separable, reduce_rhocell_tail
+from repro_torch.core.binning import BinnedLayout, BinSlab, bin_slab_values, build_bin_slab, cell_coords, slot_gather
+from repro_torch.core.rhocell import reduce_rhocell, reduce_rhocell_separable, reduce_rhocell_tail
 
 Stagger = tuple[bool, bool, bool]
 
@@ -74,9 +84,73 @@ def deposit_scatter(pos, values, *, grid_shape, order: int, stagger: Stagger = N
     return grid.reshape(nxp, nyp, nzp)
 
 
+def deposit_rhocell(pos, values, cell_ids, *, grid_shape, order: int, stagger: Stagger = NO_STAGGER,
+                    guard: int | None = None):
+    """Per-particle taps scatter into the per-cell rhocell row, then one
+    dense reduction (Eq. 5). Conflicts are confined to a cell's row.
+    ``cell_ids``: (Np,) flattened cell of each particle."""
+    nx, ny, nz = grid_shape
+    g = sf.max_guard(order) if guard is None else guard
+    n_cells = nx * ny * nz
+    cells = torch.floor(pos).long()
+    wx, wy, wz = _per_dim_weights(pos, cells, order, stagger)
+    (tx, ty, tz), bases = _taps_and_bases(order, stagger)
+    w3 = wx[:, :, None, None] * wy[:, None, :, None] * wz[:, None, None, :]
+    contrib = (values[:, None, None, None] * w3).reshape(-1, tx * ty * tz)
+    rho = torch.zeros((n_cells, tx * ty * tz), dtype=values.dtype, device=values.device)
+    rho.index_add_(0, cell_ids.long(), contrib)
+    return reduce_rhocell(rho.reshape(n_cells, tx, ty, tz), grid_shape, bases, g)
+
+
+def binned_shape_factors(pos, values, layout: BinnedLayout, *, grid_shape, order: int, stagger: Stagger):
+    """Stage 1 of the unfused deposition (Alg. 2, "VPU preprocessing"):
+    gather the bins' particle data and build the contraction operands on the
+    component's true support.
+
+    Returns ``A`` (C, cap, Tx) = w * s_x (exactly 0 on gap slots) and
+    ``B`` (C, cap, Ty*Tz) = s_y (x) s_z."""
+    slots = layout.slots
+    n_cells, cap = slots.shape
+    valid = slots >= 0
+    pos_b = slot_gather(pos, slots)
+    val_b = torch.where(valid, slot_gather(values, slots), torch.zeros((), dtype=values.dtype, device=values.device))
+    cells = cell_coords(n_cells, grid_shape, device=pos.device)
+    d = pos_b - cells[:, None, :].to(pos.dtype)
+    wx = sf.shape_weights(d[..., 0], order, stagger[0])
+    wy = sf.shape_weights(d[..., 1], order, stagger[1])
+    wz = sf.shape_weights(d[..., 2], order, stagger[2])
+    a = wx * val_b[..., None]
+    b = (wy[..., :, None] * wz[..., None, :]).reshape(n_cells, cap, -1)
+    return a, b
+
+
 def _bin_matmul(a, b):
     """rhocell[c] = A_c^T B_c — the sum of outer products."""
     return torch.einsum("cpm,cpn->cmn", a, b)
+
+
+def deposit_matrix(pos, values, layout: BinnedLayout, *, grid_shape, order: int, stagger: Stagger = NO_STAGGER,
+                   guard: int | None = None, separable_reduce: bool = True, backend: str = "auto"):
+    """Matrix-PIC deposition of one current component (the
+    ``deposition="matrix_unfused"`` mode): build A and B
+    (`binned_shape_factors`), contract them per cell through the dispatcher
+    op ``deposit_unfused`` (``cuda``: the `bin_outer_product` kernel;
+    ``torch``: an einsum), reduce the rhocell tiles. Returns the
+    guard-padded grid."""
+    from repro_torch.kernels import dispatch
+
+    grid_shape = tuple(grid_shape)
+    g = sf.max_guard(order) if guard is None else guard
+    (tx, ty, tz), bases = _taps_and_bases(order, stagger)
+    a, b = binned_shape_factors(pos, values, layout, grid_shape=grid_shape, order=order, stagger=stagger)
+    if dispatch.resolve("deposit_unfused", backend, device=pos.device) == "cuda":
+        from repro_torch.kernels.deposition.ops import bin_outer_product
+
+        rho = bin_outer_product(a.contiguous(), b.contiguous())
+    else:
+        rho = _bin_matmul(a, b)
+    reduce = reduce_rhocell_separable if separable_reduce else reduce_rhocell
+    return reduce(rho.reshape(-1, tx, ty, tz), grid_shape, bases, g)
 
 
 def fused_bin_slab(pos, vel, qw, layout: BinnedLayout, *, grid_shape):

@@ -1,6 +1,6 @@
 """Field gather (grid -> particles), the inverse of deposition.
 
-Counterpart of `repro.core.gather` for the main path. Per cell, the node
+Counterpart of `repro.core.gather`. Per cell, the node
 neighbourhood is shared by every particle in the bin; each particle's value
 is a small contraction against its tap weights,
 
@@ -8,10 +8,14 @@ is a small contraction against its tap weights,
 
 `gather_fields_fused` gathers all six components in one pass over the
 step's `BinSlab` and scatters them back to particle order through one
-slot-map gather. Its contraction has two routes, chosen by the kernel
-dispatcher: ``torch`` (`_fused_gather_torch_bins`, each component on its
-true support) and ``cuda`` (the fused CUDA kernel, which reads the six
-guard-padded grids directly). `gather_scatter` is the oracle.
+slot-map gather (``gather="matrix"``). Its contraction has two routes,
+chosen by the kernel dispatcher: ``torch`` (`_fused_gather_torch_bins`, each
+component on its true support) and ``cuda`` (the fused CUDA kernel, which
+reads the six guard-padded grids directly). `gather_matrix` gathers one
+component per call, re-staging the slab and its weights each time
+(``gather="matrix_unfused"``, the six-call ablation; dispatcher op
+``bin_gather``). `gather_scatter` is the per-particle baseline
+(``gather="scatter"``) and the oracle.
 
 Field grids travel as one stacked ``(6, nx+2g, ny+2g, nz+2g)`` tensor in
 `EB_STAGGERS` order (Ex, Ey, Ez, Bx, By, Bz).
@@ -22,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import shape_functions as sf
-from repro_torch.core.binning import BinnedLayout, BinSlab
+from repro_torch.core.binning import BinnedLayout, BinSlab, cell_coords, slot_gather
 from repro_torch.core.deposition import NO_STAGGER, Stagger, _per_dim_weights, _taps_and_bases
 
 EB_STAGGERS: tuple[Stagger, ...] = (
@@ -60,6 +64,45 @@ def extract_neighborhoods(grid_padded, grid_shape, *, taps, bases, guard: int):
         for a in range(tx) for b in range(ty) for c in range(tz)
     ]
     return torch.stack(blocks, dim=-1).reshape(nx * ny * nz, tx, ty, tz)
+
+
+def gather_matrix(pos, grid_padded, layout: BinnedLayout, *, grid_shape, order: int, stagger: Stagger = NO_STAGGER,
+                  guard: int | None = None, backend: str = "auto"):
+    """Binned matrix gather of one component: stage the particles into bin
+    order, build their weights on the component's true support, contract
+    against each cell's neighbourhood through the dispatcher op
+    ``bin_gather`` (``cuda``: the `bin_gather` kernel; ``torch``: an einsum
+    and a tap sum), scatter back through the slot map. Returns (Np,) values,
+    0 for unslotted particles."""
+    from repro_torch.kernels import dispatch
+
+    grid_shape = tuple(grid_shape)
+    g = sf.max_guard(order) if guard is None else guard
+    taps, bases = _taps_and_bases(order, stagger)
+    tx, ty, tz = taps
+    slots = layout.slots
+    n_cells, cap = slots.shape
+    neigh = extract_neighborhoods(grid_padded, grid_shape, taps=taps, bases=bases, guard=g).reshape(n_cells, tx, ty * tz)
+    valid = slots >= 0
+    pos_b = slot_gather(pos, slots)
+    cells = cell_coords(n_cells, grid_shape, device=pos.device)
+    d = pos_b - cells[:, None, :].to(pos.dtype)
+    wx = sf.shape_weights(d[..., 0], order, stagger[0])
+    wy = sf.shape_weights(d[..., 1], order, stagger[1])
+    wz = sf.shape_weights(d[..., 2], order, stagger[2])
+    byz = (wy[..., :, None] * wz[..., None, :]).reshape(n_cells, cap, ty * tz)
+    if dispatch.resolve("bin_gather", backend, device=pos.device) == "cuda":
+        from repro_torch.kernels.gather.ops import bin_gather
+
+        e_bins = bin_gather(wx.contiguous(), byz.contiguous(), neigh.contiguous()) * valid
+    else:
+        # H[c,p,m] = sum_n B[c,p,n] G[c,m,n]; E[c,p] = sum_m wx[c,p,m] H[c,p,m]
+        h = torch.einsum("cpn,cmn->cpm", byz, neigh)
+        e_bins = torch.sum(wx * h, dim=-1) * valid
+    e_flat = e_bins.reshape(-1)
+    pslot = layout.particle_slot
+    return torch.where(pslot >= 0, e_flat[torch.clamp_min(pslot, 0).long()],
+                       torch.zeros((), dtype=e_flat.dtype, device=e_flat.device))
 
 
 def pack_neighborhoods(padded, *, grid_shape, order: int, guard: int):

@@ -57,7 +57,7 @@ def gpma_update(layout: BinnedLayout, new_cell: torch.Tensor, alive: torch.Tenso
     free_src = moved | died
     dump = n_cells * cap
     flat = torch.cat([layout.slots.reshape(-1), layout.slots.new_zeros(1)])
-    flat[torch.where(free_src, old_slot, dump)] = INVALID
+    flat.index_fill_(0, torch.where(free_src, old_slot, dump), INVALID)
     slots = flat[:-1].reshape(n_cells, cap)
 
     # insert: rank pending moves within their target bin

@@ -108,7 +108,14 @@ def load_library() -> ctypes.CDLL:
     lib.mpic_fused_deposit.argtypes = [p, p, p, i, i, i, i, p]
     lib.mpic_fused_deposit_reduced.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.mpic_fused_gather.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    for fn in (lib.mpic_fused_deposit, lib.mpic_fused_deposit_reduced, lib.mpic_fused_gather):
+    lib.mpic_bin_outer_product.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.mpic_bin_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.mpic_segment_accumulate.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.mpic_graph_if_begin.argtypes = [p, p, p]
+    lib.mpic_graph_if_end.argtypes = [p]
+    for fn in (lib.mpic_fused_deposit, lib.mpic_fused_deposit_reduced, lib.mpic_fused_gather,
+               lib.mpic_bin_outer_product, lib.mpic_bin_gather, lib.mpic_segment_accumulate,
+               lib.mpic_graph_if_begin, lib.mpic_graph_if_end):
         fn.restype = ctypes.c_int
     lib.mpic_error_string.argtypes = [i]
     lib.mpic_error_string.restype = ctypes.c_char_p

@@ -1,11 +1,13 @@
 """Launchers of the fused deposition CUDA kernels (`csrc/fused_deposition.cu`).
 
-Counterpart of `repro.kernels.deposition.kernel` (the Pallas megakernels):
+Counterpart of `repro.kernels.deposition.kernel` (the Pallas kernels):
 
   fused_deposition_cuda          <- fused_deposition_pallas
   fused_deposition_reduced_cuda  <- fused_deposition_reduced_pallas
+  bin_outer_product_cuda         <- bin_outer_product_pallas
+                                    (`csrc/bin_outer_product.cu`)
 
-Each takes checked, contiguous float32 CUDA tensors and a preallocated
+Each takes checked, contiguous CUDA tensors and a preallocated
 output, launches on the current stream and raises if the launch failed. The
 checks, allocation and launch counting live in `ops.py`.
 """
@@ -36,3 +38,14 @@ def fused_deposition_reduced_cuda(d: torch.Tensor, val: torch.Tensor, out: torch
         d.device.index, torch.cuda.current_stream(d.device).cuda_stream,
     )
     check(rc, "fused_deposition_reduced_cuda")
+
+
+def bin_outer_product_cuda(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, cells_per_block: int) -> None:
+    """a (C, cap, M), b (C, cap, N), both float32 or both bfloat16 -> out
+    (C, M, N) float32; one block per ``cells_per_block`` cells."""
+    n_cells, cap, m = a.shape
+    rc = load_library().mpic_bin_outer_product(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), n_cells, cap, m, b.shape[2], cells_per_block,
+        int(a.dtype == torch.bfloat16), a.device.index, torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    check(rc, "bin_outer_product_cuda")

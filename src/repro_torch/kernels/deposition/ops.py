@@ -1,9 +1,11 @@
-"""Wrappers of the fused deposition kernels: the functions the rest of the
+"""Wrappers of the deposition kernels: the functions the rest of the
 package calls. Counterpart of `repro.kernels.deposition.ops`.
 
   fused_bin_deposit          the ``cuda`` rung of the ``deposit_fused`` op
   fused_bin_deposit_reduced  the ``cuda_reduced`` rung (top of ``auto``);
                              finish with `core.rhocell.reduce_rhocell_tail`
+  bin_outer_product          the ``cuda`` rung of the ``deposit_unfused`` op
+                             (``deposition="matrix_unfused"``)
 
 Each checks its arguments and raises on what the kernel does not take. A
 tensor on the CPU runs the plain PyTorch version (`ref.py`); a CUDA tensor
@@ -17,9 +19,13 @@ import torch
 
 from repro_torch.core.shape_functions import max_guard, unified_support
 from repro_torch.kernels.deposition import kernel
-from repro_torch.kernels.deposition.ref import fused_bin_deposit_reduced_ref, fused_bin_deposit_ref
+from repro_torch.kernels.deposition.ref import (
+    bin_outer_product_ref,
+    fused_bin_deposit_reduced_ref,
+    fused_bin_deposit_ref,
+)
 
-LAUNCHES = {"fused_bin_deposit": 0, "fused_bin_deposit_reduced": 0}
+LAUNCHES = {"fused_bin_deposit": 0, "fused_bin_deposit_reduced": 0, "bin_outer_product": 0}
 
 #: shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
@@ -81,4 +87,35 @@ def fused_bin_deposit_reduced(d: torch.Tensor, val: torch.Tensor, *, order: int,
     out = torch.empty((nx * ny, 3, nz + 2 * guard, t, t), dtype=torch.float32, device=d.device)
     kernel.fused_deposition_reduced_cuda(d, val, out, order=order, nz=nz, guard=guard)
     LAUNCHES["fused_bin_deposit_reduced"] += 1
+    return out
+
+
+def bin_outer_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-cell contraction out[c] = A_c^T B_c: a (C, cap, M), b (C, cap, N),
+    both float32 or both bfloat16 -> (C, M, N) float32, accumulated in
+    float32. The reference's ``mode`` (MXU or VPU, a TPU unit) has no
+    counterpart: the kernel has one route."""
+    if a.dim() != 3 or b.dim() != 3 or a.shape[:2] != b.shape[:2] or min(a.shape) < 1 or b.shape[2] < 1:
+        raise ValueError(f"a must be (C, cap, M) and b (C, cap, N), got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"a and b must both be float32 or both bfloat16, got {a.dtype} and {b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"a and b on different devices: {a.device}, {b.device}")
+    if a.device.type == "cpu":
+        return bin_outer_product_ref(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous")
+    cap, m, n = a.shape[1], a.shape[2], b.shape[2]
+    if m * n > 1024:
+        raise ValueError(f"an M x N tile of {m} x {n} is over the kernel's 1024 threads")
+    per_cell = 4 * cap * (m + n)  # shared memory of one cell's staged operands
+    if per_cell > SMEM_LIMIT:
+        raise ValueError(f"capacity {cap} needs {per_cell} B of shared memory per block, over {SMEM_LIMIT}")
+    # as many cells as fill 256 threads, as far as their operands fit
+    cells_per_block = max(1, min(256 // (m * n), SMEM_LIMIT // per_cell))
+    out = torch.empty((a.shape[0], m, n), dtype=torch.float32, device=a.device)
+    kernel.bin_outer_product_cuda(a, b, out, cells_per_block=cells_per_block)
+    LAUNCHES["bin_outer_product"] += 1
     return out

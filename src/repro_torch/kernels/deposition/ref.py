@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the fused deposition kernels.
+"""Plain PyTorch versions of the deposition kernels.
 
-The same math as `csrc/fused_deposition.cu` in tensor ops; the counterpart
-of `repro.kernels.deposition.ref`. A CPU tensor given to a kernel wrapper
-runs these; the tests and `chip_smoke.py` hold the kernels to them.
+The same math as `csrc/fused_deposition.cu` and `csrc/bin_outer_product.cu`
+in tensor ops; the counterpart of `repro.kernels.deposition.ref`. A CPU
+tensor given to a kernel wrapper runs these; the tests and `chip_smoke.py`
+hold the kernels to them.
 """
 
 from __future__ import annotations
@@ -10,6 +11,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.shape_functions import shape_weights_window, unified_support
+
+
+def bin_outer_product_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """out[c] = A_c^T B_c: a (C, cap, M), b (C, cap, N) -> (C, M, N)
+    float32 (bfloat16 operands are widened first, as the kernel does)."""
+    return torch.einsum("cpm,cpn->cmn", a.float(), b.float())
 
 
 def fused_bin_deposit_ref(d: torch.Tensor, val: torch.Tensor, *, order: int) -> torch.Tensor:

@@ -1,19 +1,22 @@
-"""Logical-op -> backend dispatch for the fused bin contractions.
+"""Logical-op -> backend dispatch for the bin contractions.
 
 Counterpart of `repro.kernels.dispatch`, minimal:
 
-    op              backends (priority)
-    --------------  ------------------------------------------
-    deposit_fused   cuda_reduced (30) > cuda (20) > torch (10)
-    gather_fused    cuda (20) > torch (10)
+    op                  backends (priority)                         mode
+    ------------------  ------------------------------------------  ------------------------
+    deposit_fused       cuda_reduced (30) > cuda (20) > torch (10)  deposition="matrix"
+    gather_fused        cuda (20) > torch (10)                      gather="matrix"
+    deposit_unfused     cuda (20) > torch (10)                      deposition="matrix_unfused"
+    bin_gather          cuda (20) > torch (10)                      gather="matrix_unfused"
+    segment_accumulate  cuda (20) > torch (10)                      core.matrix_scatter_add
 
 The backend names map one to one from the reference's: ``xla`` ->
 ``torch``, ``pallas`` -> ``cuda``, ``pallas_reduced`` -> ``cuda_reduced``
 (`canonical` applies the map wherever a name is read).
 
 ``auto`` resolves by the tensor's device: on a CUDA tensor to the top of
-the op's ladder (``cuda_reduced`` for the deposition, ``cuda`` for the
-gather), on a CPU tensor to ``torch``. A forced name resolves to itself, or
+the op's ladder (``cuda_reduced`` for the fused deposition, ``cuda`` for
+every other op), on a CPU tensor to ``torch``. A forced name resolves to itself, or
 to the best backend below it that the op has (``cuda_reduced`` on the
 gather runs ``cuda``). A ``cuda`` backend given a CPU tensor runs the
 kernel's plain PyTorch version (see the kernel wrappers in `ops.py`).
@@ -31,6 +34,9 @@ REFERENCE_NAMES = {"xla": "torch", "pallas": "cuda", "pallas_reduced": "cuda_red
 _OPS = {
     "deposit_fused": ("cuda_reduced", "cuda", "torch"),
     "gather_fused": ("cuda", "torch"),
+    "deposit_unfused": ("cuda", "torch"),
+    "bin_gather": ("cuda", "torch"),
+    "segment_accumulate": ("cuda", "torch"),
 }
 
 

@@ -1,8 +1,13 @@
-"""Launcher of the fused gather CUDA kernel (`csrc/fused_gather.cu`).
+"""Launchers of the gather CUDA kernels.
 
-Counterpart of `repro.kernels.gather.kernel`: ``fused_gather_cuda`` <-
-``fused_gather_pallas``. It reads the six guard-padded field grids directly
-instead of the packed (C, 6, T, T*T) neighbourhoods the Pallas kernel takes.
+Counterpart of `repro.kernels.gather.kernel`:
+
+  fused_gather_cuda  <- fused_gather_pallas (`csrc/fused_gather.cu`); it
+                        reads the six guard-padded field grids directly
+                        instead of the packed (C, 6, T, T*T) neighbourhoods
+                        the Pallas kernel takes
+  bin_gather_cuda    <- bin_gather_pallas (`csrc/bin_gather.cu`)
+
 The checks, allocation and launch counting live in `ops.py`.
 """
 
@@ -22,3 +27,15 @@ def fused_gather_cuda(d: torch.Tensor, padded: torch.Tensor, out: torch.Tensor, 
         d.device.index, torch.cuda.current_stream(d.device).cuda_stream,
     )
     check(rc, "fused_gather_cuda")
+
+
+def bin_gather_cuda(wx: torch.Tensor, byz: torch.Tensor, g: torch.Tensor, out: torch.Tensor, *,
+                    cells_per_block: int, row_threads: int) -> None:
+    """wx (C, cap, M), byz (C, cap, N), g (C, M, N) -> out (C, cap); a
+    block takes ``cells_per_block`` cells of ``row_threads`` threads each."""
+    n_cells, cap, m = wx.shape
+    rc = load_library().mpic_bin_gather(
+        wx.data_ptr(), byz.data_ptr(), g.data_ptr(), out.data_ptr(), n_cells, cap, m, byz.shape[2],
+        cells_per_block, row_threads, wx.device.index, torch.cuda.current_stream(wx.device).cuda_stream,
+    )
+    check(rc, "bin_gather_cuda")

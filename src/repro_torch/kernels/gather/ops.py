@@ -1,7 +1,10 @@
-"""Wrapper of the fused gather kernel: the ``cuda`` rung of the
-``gather_fused`` op. Counterpart of `repro.kernels.gather.ops`.
+"""Wrappers of the gather kernels. Counterpart of `repro.kernels.gather.ops`.
 
-It checks its arguments and raises on what the kernel does not take. A
+  fused_bin_gather  the ``cuda`` rung of the ``gather_fused`` op
+  bin_gather        the ``cuda`` rung of the ``bin_gather`` op
+                    (``gather="matrix_unfused"``)
+
+Each checks its arguments and raises on what the kernel does not take. A
 tensor on the CPU runs the plain PyTorch version (`ref.py`); a CUDA tensor
 launches the kernel, and nothing else. ``LAUNCHES`` counts kernel launches,
 and only those.
@@ -12,10 +15,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.shape_functions import max_guard
+from repro_torch.kernels.deposition.ops import SMEM_LIMIT
 from repro_torch.kernels.gather import kernel
-from repro_torch.kernels.gather.ref import fused_gather_ref
+from repro_torch.kernels.gather.ref import bin_gather_ref, fused_gather_ref
 
-LAUNCHES = {"fused_bin_gather": 0}
+LAUNCHES = {"fused_bin_gather": 0, "bin_gather": 0}
 
 
 def fused_bin_gather(d: torch.Tensor, padded: torch.Tensor, *, grid_shape, order: int, guard: int) -> torch.Tensor:
@@ -45,4 +49,36 @@ def fused_bin_gather(d: torch.Tensor, padded: torch.Tensor, *, grid_shape, order
     out = torch.empty((d.shape[0], d.shape[1], 6), dtype=torch.float32, device=d.device)
     kernel.fused_gather_cuda(d, padded, out, grid_shape=(nx, ny, nz), order=order, guard=guard)
     LAUNCHES["fused_bin_gather"] += 1
+    return out
+
+
+def bin_gather(wx: torch.Tensor, byz: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """One component's per-bin gather: wx (C, cap, M), byz (C, cap, N) and
+    the cells' neighbourhoods g (C, M, N), float32 -> (C, cap) float32."""
+    if wx.dim() != 3 or byz.dim() != 3 or g.dim() != 3 or wx.shape[:2] != byz.shape[:2] or min(wx.shape) < 1:
+        raise ValueError(f"wx must be (C, cap, M) and byz (C, cap, N), got {tuple(wx.shape)}, {tuple(byz.shape)}")
+    c, cap, m = wx.shape
+    n = byz.shape[2]
+    if tuple(g.shape) != (c, m, n):
+        raise ValueError(f"g must be {(c, m, n)}, got {tuple(g.shape)}")
+    if not wx.dtype == byz.dtype == g.dtype == torch.float32:
+        raise TypeError(f"wx, byz and g must be float32, got {wx.dtype}, {byz.dtype}, {g.dtype}")
+    if not wx.device == byz.device == g.device:
+        raise ValueError(f"wx, byz and g on different devices: {wx.device}, {byz.device}, {g.device}")
+    if wx.device.type == "cpu":
+        return bin_gather_ref(wx, byz, g)
+    if wx.device.type != "cuda":
+        raise ValueError(f"unsupported device {wx.device}")
+    if not (wx.is_contiguous() and byz.is_contiguous() and g.is_contiguous()):
+        raise ValueError("wx, byz and g must be contiguous")
+    per_cell = 4 * (m * n + cap * ((m | 1) + (n | 1)))  # rows padded to odd strides
+    if per_cell > SMEM_LIMIT:
+        raise ValueError(f"capacity {cap} needs {per_cell} B of shared memory per block, over {SMEM_LIMIT}")
+    # one warp-rounded row of threads per cell, as many cells as fill 256
+    # threads and fit in shared memory
+    row_threads = min(256, (cap + 31) // 32 * 32)
+    cells_per_block = max(1, min(256 // row_threads, SMEM_LIMIT // per_cell))
+    out = torch.empty((c, cap), dtype=torch.float32, device=wx.device)
+    kernel.bin_gather_cuda(wx, byz, g, out, cells_per_block=cells_per_block, row_threads=row_threads)
+    LAUNCHES["bin_gather"] += 1
     return out

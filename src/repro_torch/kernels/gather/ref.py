@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the fused gather kernel.
+"""Plain PyTorch versions of the gather kernels.
 
+`bin_gather_ref` is the plain version of `csrc/bin_gather.cu`, the
+counterpart of `repro.kernels.gather.ref.bin_gather_ref`.
 `fused_bin_gather_ref` is the counterpart of
 `repro.kernels.gather.ref.fused_bin_gather_ref` on the packed (C, 6, T, T*T)
 neighbourhoods; `fused_gather_ref` is the plain version of the CUDA kernel,
@@ -13,6 +15,13 @@ import torch
 
 from repro_torch.core.gather import EB_STAGGERS, pack_neighborhoods
 from repro_torch.core.shape_functions import packed_axis_weights
+
+
+def bin_gather_ref(wx: torch.Tensor, byz: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """e[c,p] = sum_{m,n} wx[c,p,m] byz[c,p,n] g[c,m,n]: wx (C, cap, M),
+    byz (C, cap, N), g (C, M, N) -> (C, cap)."""
+    h = torch.einsum("cpn,cmn->cpm", byz, g)
+    return torch.sum(wx * h, dim=-1)
 
 
 def fused_bin_gather_ref(d: torch.Tensor, g: torch.Tensor, *, order: int) -> torch.Tensor:

@@ -3,14 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario uniform --steps 50
     PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario lwfa --order 2
     PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario uniform --device cpu --grid 8 8 8
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --deposition matrix_unfused --gather matrix_unfused
 
 Runs on the CUDA device unless ``--device`` names another. One warm-up
-window (kernel build, allocator warm-up) runs first, then the timed run;
-the launcher prints particle-steps/s, the sort counters, the host reads and
-the energies. ``--profile`` then runs one more window under
-`torch.profiler` and prints where its time went: device time per step
-phase (the ``pic.*`` ranges of `repro_torch.pic.simulation`), the top
-kernels, and the device's busy and idle share of the window's wall time.
+window (kernel build, the step's CUDA graph capture) runs first, then the
+timed run; the launcher prints particle-steps/s, the sort counters, the
+host reads and the energies. ``--deposition`` and ``--gather`` pick the
+comparison modes of the reference. ``--profile`` then runs two more
+windows under `torch.profiler` and prints where the time went: first one
+window as it runs, replays of the captured step; then one window run
+eagerly, which reads the step's decisions on the host, because the
+``pic.*`` ranges of `repro_torch.pic.simulation` are recorded only when the
+step's Python runs: device time per step phase, the top kernels, and the
+device's busy and idle share of each window's wall time.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from repro_torch.api import make_simulation, scenario, scenario_names
 
 def build_spec(args):
     overrides = {}
-    for name in ("steps", "window", "order", "ppc", "backend"):
+    for name in ("steps", "window", "order", "ppc", "backend", "deposition", "gather"):
         value = getattr(args, name)
         if value is not None:
             overrides[name] = value
@@ -35,23 +40,30 @@ def build_spec(args):
     return scenario(args.scenario, **overrides)
 
 
-def profile_window(sim, window: int) -> None:
+def profile_window(sim, window: int, *, graphs: bool) -> None:
     """Run one window of a simulation on a CUDA device under the profiler
-    and print its breakdown. A range's
-    device time is the profiler's device-side span of it (first kernel start
-    to last kernel end); its host time includes any wait on a device read.
-    The busy share sums kernel, copy and fill times, not the spans."""
+    and print its breakdown: as replays of the captured step (``graphs``),
+    or eagerly. A range's device time is the profiler's device-side span of
+    it (first kernel start to last kernel end); its host time includes any
+    wait on a device read. The busy share sums kernel, copy and fill times,
+    not the spans."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev = sim.device
     steps0 = sim.state.step
+    use_graphs, sim.use_graphs = sim.use_graphs, graphs
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reads0 = sim.host_reads
         t0 = time.perf_counter()
         sim.run(window, window=window)
         torch.cuda.synchronize(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
+        reads = sim.host_reads - reads0
+    sim.use_graphs = use_graphs
     steps = max(sim.state.step - steps0, 1)
+    print(f"profile, {'replays of the captured step' if graphs else 'eager window (its phase ranges exist only here)'}: "
+          f"{reads} host reads")
     busy_us = 0.0
     by_kernel: dict[str, list] = defaultdict(lambda: [0, 0.0])
     for e in prof.events():
@@ -88,8 +100,14 @@ def main(argv=None) -> None:
     ap.add_argument("--backend", default=None,
                     choices=["auto", "torch", "cuda", "cuda_reduced", "xla", "pallas", "pallas_reduced"],
                     help="kernel backend of the bin contractions (reference names map onto the port's)")
+    ap.add_argument("--deposition", default=None, choices=["matrix", "matrix_unfused", "scatter", "rhocell"],
+                    help="deposition mode (default: the scenario's, the fused matrix deposition)")
+    ap.add_argument("--gather", default=None, choices=["matrix", "matrix_unfused", "scatter"],
+                    help="field-gather mode (default: paired with the deposition, the fused matrix gather "
+                         "beside a matrix deposition, the scatter gather beside the others)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
-    ap.add_argument("--profile", action="store_true", help="profile one more window and print its breakdown")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile two more windows, captured and eager, and print their breakdowns")
     args = ap.parse_args(argv)
     try:
         spec = build_spec(args)
@@ -108,6 +126,7 @@ def main(argv=None) -> None:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(
         f"{spec.name}: grid {spec.grid.shape}, {n_parts} particles, order {spec.deposition.order}, "
+        f"deposition {spec.deposition.mode}, gather {spec.deposition.resolved_gather}, "
         f"backend {spec.deposition.backend}, window {window}, device {dev} ({name})"
     )
     sim.run(min(window, n_steps), window=window)  # warm-up
@@ -122,7 +141,8 @@ def main(argv=None) -> None:
     d = sim.diagnostics()
     windows = max(sim.windows - windows0, 1)
     print(
-        f"{n_steps} steps in {dt:.2f}s ({d['n_alive'] * n_steps / dt:.3e} particle-steps/s); "
+        f"{n_steps} steps in {dt:.3f}s ({1e3 * dt / n_steps:.3f} ms/step, "
+        f"{d['n_alive'] * n_steps / dt:.3e} particle-steps/s); "
         f"sorts={sim.sorts} rebuilds={sim.rebuilds} growths={sim.growths['capacity']} "
         f"host reads/window={(sim.host_reads - reads0) / windows:.1f}"
     )
@@ -130,7 +150,8 @@ def main(argv=None) -> None:
     if dev.type == "cuda":
         print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     if args.profile:
-        profile_window(sim, window)
+        profile_window(sim, window, graphs=True)
+        profile_window(sim, window, graphs=False)
 
 
 if __name__ == "__main__":

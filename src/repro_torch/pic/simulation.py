@@ -2,31 +2,36 @@
 
 Counterpart of the single-device windowed path of `repro.pic.simulation`.
 One step (`_pic_step`):
-  1. fused gather of the six field components at the particles, from the
-     `BinSlab` the state carries;
+  1. field gather of the six components at the particles: fused, from the
+     `BinSlab` the state carries (``gather="matrix"``), six calls of the
+     binned matrix gather (``matrix_unfused``) or per particle
+     (``scatter``);
   2. relativistic Boris push and periodic wrap;
   3. incremental GPMA bin update;
-  4. one slot-table staging of positions and q·w·v, then the fused
-     deposition of Jx/Jy/Jz, rhocell reduction and guard fold;
+  4. current deposition: one slot-table staging of positions and q·w·v,
+     then the fused deposition of Jx/Jy/Jz (``deposition="matrix"``), or one
+     component at a time (``matrix_unfused``, ``scatter``, ``rhocell``);
+     rhocell reduction and guard fold;
   5. Yee/CKC Maxwell update.
 
-`Simulation.run(n, window=K)` runs windows of K steps. After each step the
-re-sort policy (`core.resort_policy`) decides on the device; the driver
-reads that decision, one small integer, on the host and runs the global
-sort when it says so (`global_sort_device`), then reads the sort's overflow.
-A persistent overflow halts the window; the host grows the bin capacity and
-re-enters for the remaining steps. Per-step diagnostics stay on the device
-and the host fetches them once per window. `Simulation.host_reads` counts
-every device-to-host read a run makes.
-
-Eager PyTorch has no traced conditional, hence the per-step read where the
-reference runs `lax.cond` inside a compiled scan; removing it (a CUDA graph
-per window, or a masked sort that always runs) is later work.
+`Simulation.run(n, window=K)` runs windows of K steps. A window step
+(`_window_step`) runs the step, the re-sort policy (`core.resort_policy`)
+and, when the policy says so, the global sort (`global_sort_device`), all in
+place on the window's buffers; a sort that still overflows halts the
+window. The two decisions go to a decider (`kernels.conditional`): on the
+CPU they are tested on the host; on a CUDA device the guarded step is
+captured once as a CUDA graph in which they are IF nodes, and a window is k
+replays and one read of a bundle of counters and per-step diagnostics. The
+host then grows the bin capacity after a halt (the shapes change, so the
+step is captured anew) and re-enters for the remaining steps.
+`Simulation.host_reads` counts every device-to-host read a run makes: one
+per window, two more per capacity growth.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -43,8 +48,14 @@ from repro_torch.core.binning import (
     permute_tree,
     sort_permutation,
 )
-from repro_torch.core.deposition import deposit_current_matrix_fused
-from repro_torch.core.gather import gather_fields_fused
+from repro_torch.core.deposition import (
+    CURRENT_STAGGER,
+    deposit_current_matrix_fused,
+    deposit_matrix,
+    deposit_rhocell,
+    deposit_scatter,
+)
+from repro_torch.core.gather import EB_STAGGERS, gather_fields_fused, gather_matrix, gather_scatter
 from repro_torch.core.gpma import GPMAStats, gpma_update
 from repro_torch.core.resort_policy import (
     SortPolicyConfig,
@@ -55,7 +66,9 @@ from repro_torch.core.resort_policy import (
 )
 from repro_torch.core.rhocell import fold_guards, unfold_guards
 from repro_torch.core.shape_functions import max_guard
+from repro_torch import kernels
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.conditional import EveryBranch, GraphCapture, HostDecider
 from repro_torch.pic.grid import FieldState, GridSpec
 from repro_torch.pic.maxwell import maxwell_step
 from repro_torch.pic.plasma import ParticleState
@@ -67,16 +80,20 @@ HALT_BIN_OVERFLOW = 1
 HALT_NAMES = ("none", "bin_overflow")
 
 
+DEPOSITION_MODES = ("matrix", "matrix_unfused", "scatter", "rhocell")
+GATHER_MODES = ("matrix", "matrix_unfused", "scatter")
+
+
 @dataclasses.dataclass(frozen=True)
 class PICConfig:
-    """Single-device step configuration. This slice runs the main path
-    only: fused matrix deposition and gather, incremental GPMA sort."""
+    """Single-device step configuration: every deposition x gather mode of
+    the reference; the incremental GPMA sort."""
 
     grid: GridSpec
     dt: float
     order: int = 1
-    deposition: str = "matrix"
-    gather: str = "matrix"
+    deposition: str = "matrix"   # matrix (fused) | matrix_unfused | scatter | rhocell
+    gather: str = "matrix"       # matrix (fused) | matrix_unfused (six-call) | scatter
     sort_mode: str = "incremental"
     charge: float = -1.0
     mass: float = 1.0
@@ -85,12 +102,12 @@ class PICConfig:
     backend: str = "auto"        # auto | torch | cuda | cuda_reduced (or a reference name)
 
     def __post_init__(self):
-        ported = {"deposition": "matrix", "gather": "matrix", "sort_mode": "incremental"}
-        for name, value in ported.items():
-            if getattr(self, name) != value:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported to repro_torch yet (only {value!r})"
-                )
+        if self.deposition not in DEPOSITION_MODES:
+            raise ValueError(f"unknown deposition mode {self.deposition!r}; known: {DEPOSITION_MODES}")
+        if self.gather not in GATHER_MODES:
+            raise ValueError(f"unknown gather mode {self.gather!r}; known: {GATHER_MODES}")
+        if self.sort_mode != "incremental":
+            raise NotImplementedError(f"sort_mode={self.sort_mode!r} is not ported to repro_torch yet (only 'incremental')")
         object.__setattr__(self, "backend", dispatch.canonical(self.backend))
 
     @property
@@ -101,6 +118,16 @@ class PICConfig:
     def guard(self) -> int:
         return max_guard(self.order)
 
+    @property
+    def needs_bins(self) -> bool:
+        return self.deposition in ("matrix", "matrix_unfused") or self.gather in ("matrix", "matrix_unfused")
+
+    @property
+    def needs_slab(self) -> bool:
+        """Whether the step stages (and the state carries) a `BinSlab`:
+        exactly when a fused bin kernel consumes it."""
+        return self.deposition == "matrix" or self.gather == "matrix"
+
 
 @dataclasses.dataclass(frozen=True)
 class PICState:
@@ -108,10 +135,18 @@ class PICState:
     particles: ParticleState
     layout: BinnedLayout
     step: int
-    # the step's one bin-resident staging slab, always consistent with
+    # the step's one bin-resident staging slab (None unless a fused bin
+    # kernel consumes it, `PICConfig.needs_slab`), always consistent with
     # (particles.pos, layout): the slab the deposition of step n contracts
     # against is the slab the gather of step n+1 reuses
-    slab: BinSlab
+    slab: BinSlab | None = None
+
+
+def _state_slab(particles: ParticleState, layout: BinnedLayout, config: PICConfig) -> BinSlab | None:
+    """The one slot-table slab staging of a step (see `BinSlab`)."""
+    if not config.needs_slab:
+        return None
+    return build_bin_slab(particles.pos, layout, grid_shape=config.grid.shape)
 
 
 def _sort_and_bin(particles: ParticleState, config: PICConfig):
@@ -121,8 +156,7 @@ def _sort_and_bin(particles: ParticleState, config: PICConfig):
     particles = permute_tree(particles, sort_permutation(cells, particles.alive))
     cells = cell_index(particles.pos, config.grid.shape)
     layout, overflow = build_bins(cells, particles.alive, n_cells=config.grid.n_cells, capacity=config.capacity)
-    slab = build_bin_slab(particles.pos, layout, grid_shape=config.grid.shape)
-    return particles, layout, slab, overflow
+    return particles, layout, _state_slab(particles, layout, config), overflow
 
 
 def init_state(fields: FieldState, particles: ParticleState, config: PICConfig) -> tuple[PICState, int]:
@@ -138,6 +172,45 @@ def padded_fields(fields: FieldState, guard: int) -> torch.Tensor:
     return unfold_guards(torch.stack(fields.all()), guard, dims=(1, 2, 3)).contiguous()
 
 
+def _gather_fields(pos, fields: FieldState, layout: BinnedLayout, slab: BinSlab | None, config: PICConfig):
+    """E and B at the particles, (Np, 3) each, by the configured gather."""
+    shape, order = config.grid.shape, config.order
+    padded = padded_fields(fields, config.guard)
+    if config.gather == "matrix":
+        return gather_fields_fused(slab, padded, layout, grid_shape=shape, order=order, backend=config.backend)
+    comps = []
+    for k, stagger in enumerate(EB_STAGGERS):
+        if config.gather == "matrix_unfused":
+            comps.append(gather_matrix(pos, padded[k], layout, grid_shape=shape, order=order, stagger=stagger,
+                                       backend=config.backend))
+        else:
+            comps.append(gather_scatter(pos, padded[k], order=order, stagger=stagger))
+    return torch.stack(comps[:3], dim=-1), torch.stack(comps[3:], dim=-1)
+
+
+def _deposit_current(pos, v, qw, layout: BinnedLayout, slab: BinSlab | None, cells, config: PICConfig, values=None):
+    """[Jx, Jy, Jz], folded and divided by the cell volume, by the
+    configured deposition."""
+    shape, order = config.grid.shape, config.order
+    inv_vol = 1.0 / config.grid.cell_volume
+    if config.deposition == "matrix":
+        j3 = deposit_current_matrix_fused(pos, v, qw, layout, grid_shape=shape, order=order,
+                                          backend=config.backend, slab=slab, values=values)
+        return [fold_guards(j, config.guard) * inv_vol for j in j3]
+    out = []
+    for k, stagger in enumerate(CURRENT_STAGGER):
+        values = qw * v[:, k]
+        if config.deposition == "scatter":
+            j = deposit_scatter(pos, values, grid_shape=shape, order=order, stagger=stagger)
+        elif config.deposition == "rhocell":
+            j = deposit_rhocell(pos, values, cells, grid_shape=shape, order=order, stagger=stagger)
+        else:
+            j = deposit_matrix(pos, values, layout, grid_shape=shape, order=order, stagger=stagger,
+                               backend=config.backend)
+        out.append(fold_guards(j, config.guard) * inv_vol)
+    return out
+
+
 def _pic_step(state: PICState, config: PICConfig) -> tuple[PICState, GPMAStats]:
     """One simulation step. Each phase is a `record_function` range
     (``pic.gather`` ... ``pic.maxwell``), so a profiler run attributes the
@@ -147,12 +220,10 @@ def _pic_step(state: PICState, config: PICConfig) -> tuple[PICState, GPMAStats]:
     shape = config.grid.shape
     alive_f = p.alive.to(p.pos.dtype)
 
-    # 1. fused field gather against the carried slab (pre-push positions)
+    # 1. field gather (bins and the carried slab are current with respect
+    #    to the pre-push positions)
     with record_function("pic.gather"):
-        e_p, b_p = gather_fields_fused(
-            state.slab, padded_fields(state.fields, config.guard), state.layout,
-            grid_shape=shape, order=config.order, backend=config.backend,
-        )
+        e_p, b_p = _gather_fields(p.pos, state.fields, state.layout, state.slab, config)
 
     # 2. push
     with record_function("pic.push"):
@@ -163,27 +234,27 @@ def _pic_step(state: PICState, config: PICConfig) -> tuple[PICState, GPMAStats]:
 
     # 3. incremental sort
     with record_function("pic.gpma"):
-        layout, stats = gpma_update(state.layout, cell_index(pos_new, shape), p.alive)
+        new_cells = cell_index(pos_new, shape)
+        layout, stats = gpma_update(state.layout, new_cells, p.alive)
 
-    # 4. the step's one slab staging (positions and q·w·v), then deposition
-    #    at x^{n+1}, v^{n+1/2}
+    # 4. the step's one slab staging (the fused deposition stages positions
+    #    and q·w·v together), then deposition at x^{n+1}, v^{n+1/2}
+    particles = dataclasses.replace(p, pos=pos_new, u=u_new)
     with record_function("pic.staging"):
         gamma = lorentz_gamma(u_new)
         v = u_new / gamma[:, None]
         qw = config.charge * p.w * alive_f
-        slab, values = bin_slab_staging(pos_new, v, qw, layout, grid_shape=shape)
+        values = None
+        if config.deposition == "matrix":
+            slab, values = bin_slab_staging(pos_new, v, qw, layout, grid_shape=shape)
+        else:
+            slab = _state_slab(particles, layout, config)
     with record_function("pic.deposit"):
-        j3 = deposit_current_matrix_fused(
-            pos_new, v, qw, layout, grid_shape=shape, order=config.order,
-            backend=config.backend, slab=slab, values=values,
-        )
-        inv_vol = 1.0 / config.grid.cell_volume
-        j = [fold_guards(jc, config.guard) * inv_vol for jc in j3]
+        j = _deposit_current(pos_new, v, qw, layout, slab, new_cells, config, values=values)
 
     # 5. fields
     with record_function("pic.maxwell"):
         fields = maxwell_step(state.fields, j, dx=config.grid.dx, dt=config.dt, ckc_beta=config.ckc_beta)
-    particles = dataclasses.replace(p, pos=pos_new, u=u_new)
     return PICState(fields=fields, particles=particles, layout=layout, step=state.step + 1, slab=slab), stats
 
 
@@ -218,8 +289,10 @@ def state_from_reference(arrays: dict[str, np.ndarray], config: PICConfig, devic
     under these names: ``fields.{ex,ey,ez,bx,by,bz}``,
     ``particles.{pos,u,w,alive}``, ``layout.{slots,particle_slot}``,
     ``step``, ``policy.{steps_since_sort,rebuilds_since_sort,
-    baseline_proxy,proxy_ema}`` and, optionally, ``slab.{d,valid}`` (rebuilt
-    from positions and layout when absent)."""
+    baseline_proxy,proxy_ema}`` and, optionally, ``slab.{d,valid}``. A
+    config that carries a slab (`PICConfig.needs_slab`) rebuilds it from
+    positions and layout when the arrays have none; one that carries none
+    ignores it."""
     t = lambda name, dtype=None: torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
     fields = FieldState(*(t(f"fields.{n}", torch.float32) for n in ("ex", "ey", "ez", "bx", "by", "bz")))
     particles = ParticleState(
@@ -227,9 +300,10 @@ def state_from_reference(arrays: dict[str, np.ndarray], config: PICConfig, devic
         w=t("particles.w", torch.float32), alive=t("particles.alive", torch.bool),
     )
     layout = BinnedLayout(slots=t("layout.slots", torch.int32), particle_slot=t("layout.particle_slot", torch.int32))
-    if "slab.d" in arrays:
+    slab = None
+    if config.needs_slab and "slab.d" in arrays:
         slab = BinSlab(d=t("slab.d", torch.float32), valid=t("slab.valid", torch.bool))
-    else:
+    elif config.needs_slab:
         slab = build_bin_slab(particles.pos, layout, grid_shape=config.grid.shape)
     state = PICState(fields=fields, particles=particles, layout=layout, step=int(arrays["step"]), slab=slab)
     pstate = SortPolicyState(
@@ -241,6 +315,109 @@ def state_from_reference(arrays: dict[str, np.ndarray], config: PICConfig, devic
     return state, pstate
 
 
+# -- the window in place --------------------------------------------------------
+
+
+def _clone_tree(tree):
+    """A dataclass of tensors with every tensor cloned."""
+    return dataclasses.replace(tree, **{f.name: getattr(tree, f.name).clone() for f in dataclasses.fields(tree)})
+
+
+def _copy_tree(dst, src) -> None:
+    """Write every tensor of ``src`` into the same-named tensor of ``dst``."""
+    for f in dataclasses.fields(dst):
+        d, s = getattr(dst, f.name), getattr(src, f.name)
+        if d is not s:
+            d.copy_(s)
+
+
+class _WindowBuffers:
+    """The window's state held in place: the tensors a step reads and then
+    overwrites, the policy state, the window's counters and its per-step
+    diagnostics table. On the card they are the captured graph's inputs and
+    outputs, at fixed addresses; the step function is the same everywhere."""
+
+    def __init__(self, state: PICState, pstate: SortPolicyState, names: tuple[str, ...], n_diag: int):
+        dev = state.particles.pos.device
+        self.device = dev
+        self.fields = _clone_tree(state.fields)
+        self.particles = _clone_tree(state.particles)
+        self.layout = _clone_tree(state.layout)
+        self.slab = None if state.slab is None else _clone_tree(state.slab)
+        self.pstate = _clone_tree(pstate)
+        self.names = names
+        self.diag = torch.zeros((len(names), n_diag), dtype=torch.float64, device=dev)
+        self.n_done = torch.zeros((), dtype=torch.int64, device=dev)
+        self.halted = torch.zeros((), dtype=torch.bool, device=dev)
+        self.sorts = torch.zeros((), dtype=torch.int64, device=dev)
+        self.rebuilds = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def state(self, step: int = 0) -> PICState:
+        return PICState(fields=self.fields, particles=self.particles, layout=self.layout, step=step, slab=self.slab)
+
+    def store(self, state: PICState) -> None:
+        _copy_tree(self.fields, state.fields)
+        _copy_tree(self.particles, state.particles)
+        _copy_tree(self.layout, state.layout)
+        if self.slab is not None:
+            _copy_tree(self.slab, state.slab)
+
+    def reset_counters(self) -> None:
+        for t in (self.n_done, self.halted, self.sorts, self.rebuilds):
+            t.zero_()
+
+    def bundle(self, k: int) -> torch.Tensor:
+        """The window's counters and first k diagnostics rows as one float64
+        vector: n_done, halted, sorts, rebuilds, then the table."""
+        head = torch.stack([t.to(torch.float64) for t in (self.n_done, self.halted, self.sorts, self.rebuilds)])
+        return torch.cat([head, self.diag[:, :k].reshape(-1)])
+
+
+def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfig, *, with_energies: bool,
+                 decider) -> None:
+    """One step of a window, in place on ``buf``; nothing once the window
+    has halted. The step, then the re-sort policy, then the global sort
+    under the policy's word, then the step's diagnostics at row
+    ``buf.n_done``. A sort that still overflows halts the window after its
+    step. The two decisions go to ``decider.run_if`` (see
+    `kernels.conditional`: tested on the host, or IF nodes of a captured
+    graph)."""
+    n_slots = config.grid.n_cells * config.capacity
+
+    def step():
+        new, stats = _pic_step(buf.state(), config)
+        with record_function("pic.policy"):
+            if config.needs_bins:
+                mandatory = stats.n_overflow > 0
+            else:
+                mandatory = torch.zeros((), dtype=torch.bool, device=buf.device)
+            do_pol, _reason, recorded = policy_update(
+                buf.pstate, policy, n_moved=stats.n_moved, n_alive=stats.n_alive,
+                n_empty=stats.n_empty, n_slots=n_slots,
+            )
+            do_pol = do_pol & ~mandatory
+        buf.store(new)
+        _copy_tree(buf.pstate, recorded)
+
+        def sort():
+            with record_function("pic.global_sort"):
+                state, overflow = global_sort_device(buf.state(), config)
+                buf.store(state)
+                _copy_tree(buf.pstate, policy_reset(buf.device))
+                buf.halted.logical_or_(overflow > 0)
+
+        decider.run_if(do_pol | mandatory, sort)
+        buf.sorts.add_(do_pol.to(torch.int64))
+        buf.rebuilds.add_(mandatory.to(torch.int64))
+        row = [stats.n_moved, stats.n_alive]
+        if with_energies:
+            row.extend(_energies(buf.state(), config))
+        buf.diag.index_copy_(1, buf.n_done.reshape(1), torch.stack([r.to(torch.float64) for r in row])[:, None])
+        buf.n_done.add_(1)
+
+    decider.run_if(~buf.halted, step)
+
+
 UNSET = object()
 
 
@@ -249,7 +426,10 @@ class Simulation:
     sort on the policy's word, capacity growth on a persistent overflow.
 
     Build it with `repro_torch.api.make_simulation(spec)`; the state's
-    tensors decide the device.
+    tensors decide the device. On a CUDA device each window replays one
+    captured CUDA graph of the step, with the policy's sort decision and the
+    window's halt as IF nodes (``use_graphs``, default on for CUDA); the
+    state's tensors are then the graph's, updated in place.
     """
 
     def __init__(self, fields: FieldState, particles: ParticleState, config: PICConfig,
@@ -261,10 +441,11 @@ class Simulation:
             self.config = dataclasses.replace(config, capacity=choose_capacity(config.capacity * 2 // 3 * 2))
             state, overflow = init_state(fields, particles, self.config)
             assert overflow == 0, "initial binning overflow after capacity growth"
-        self.state = state
         self.device = particles.pos.device
         self.policy = policy or SortPolicyConfig()
+        self.state = state
         self.policy_state = policy_init(self.device)
+        self.use_graphs = self.device.type == "cuda"
         self.sorts = 0
         self.rebuilds = 0
         self.history: list[dict] = []
@@ -272,7 +453,31 @@ class Simulation:
         self.growths = {"capacity": 0}
         self.windows = 0
         self.host_reads = 0
+        #: CUDA graphs captured, and the seconds their set-up took (warm-up
+        #: step, capture, instantiation), both included in `run`
+        self.graph_captures = 0
+        self.graph_setup_seconds = 0.0
         self._host_step = 0
+
+    # -- state: assigning it drops the window's buffers and graph ----------
+
+    @property
+    def state(self) -> PICState:
+        return self._state
+
+    @state.setter
+    def state(self, value: PICState) -> None:
+        self._state = value
+        self._window = None
+
+    @property
+    def policy_state(self) -> SortPolicyState:
+        return self._policy_state
+
+    @policy_state.setter
+    def policy_state(self, value: SortPolicyState) -> None:
+        self._policy_state = value
+        self._window = None
 
     # -- host reads ---------------------------------------------------------
 
@@ -303,7 +508,7 @@ class Simulation:
         target = self._host_step + n_steps
         while self._host_step < target:
             k = min(window, target - self._host_step)
-            host = self._run_window(k, with_energies=bool(diagnostics_every))
+            host = self._run_window(k, with_energies=bool(diagnostics_every), n_diag=window)
             n_done = self._consume(host, diagnostics_every)
             code = int(host["halt_code"])
             if code == HALT_BIN_OVERFLOW:
@@ -312,54 +517,81 @@ class Simulation:
             elif n_done < k:
                 raise RuntimeError("windowed driver made no progress without a halt")
 
-    def _run_window(self, k: int, *, with_energies: bool) -> dict:
-        """Up to k steps; stops after a step whose global sort still
-        overflows. Returns the window's host bundle (one read)."""
-        config, policy = self.config, self.policy
-        n_slots = config.grid.n_cells * config.capacity
-        state, pstate = self.state, self.policy_state
-        per_step = []
-        sorts = rebuilds = 0
-        halt_code = HALT_NONE
-        for _ in range(k):
-            state, stats = _pic_step(state, config)
-            with record_function("pic.policy"):
-                mandatory = stats.n_overflow > 0
-                do_pol, _reason, recorded = policy_update(
-                    pstate, policy, n_moved=stats.n_moved, n_alive=stats.n_alive,
-                    n_empty=stats.n_empty, n_slots=n_slots,
-                )
-                do_pol = do_pol & ~mandatory
-                # the step's one read: 0 no sort, 1 policy sort, 2 overflow rebuild
-                decision = int(self._read(2 * mandatory.to(torch.int32) + do_pol.to(torch.int32)))
-            overflow_after = 0
-            if decision:
-                with record_function("pic.global_sort"):
-                    state, overflow = global_sort_device(state, config)
-                    overflow_after = int(self._read(overflow))
-                pstate = policy_reset(self.device)
-                sorts += decision == 1
-                rebuilds += decision == 2
-            else:
-                pstate = recorded
-            diag = {"n_moved": stats.n_moved, "n_alive": stats.n_alive}
-            if with_energies:
-                diag["field_energy"], diag["kinetic_energy"] = _energies(state, config)
-            per_step.append(diag)
-            if overflow_after > 0:
-                halt_code = HALT_BIN_OVERFLOW
-                break
-        self.state, self.policy_state = state, pstate
+    def _window_for(self, with_energies: bool, n_diag: int) -> dict:
+        """The window's buffers and, on CUDA with ``use_graphs``, its
+        captured step; made anew when the configuration, the diagnostics or
+        the state's shapes change."""
+        names = ("n_moved", "n_alive") + (("field_energy", "kinetic_energy") if with_energies else ())
+        key = (self.config, self.policy, names, n_diag, self.use_graphs)
+        if self._window is not None and self._window["key"] == key:
+            return self._window
+        buf = _WindowBuffers(self._state, self._policy_state, names, n_diag)
+        w = {"key": key, "buffers": buf, "graph": None, "launches": {}}
+        if self.use_graphs:
+            self._capture(w, with_energies)
+        self._window = w
+        self._state, self._policy_state = buf.state(self._state.step), buf.pstate
+        return w
+
+    def _capture(self, w: dict, with_energies: bool) -> None:
+        """Capture one guarded step of ``w``'s buffers as a CUDA graph, after
+        one warm-up step on a copy of them that takes both branches (it
+        brings every lazily built library object, such as a BLAS handle,
+        into being before the capture). The kernel wrappers count launches
+        when they run, which during a capture means once per recorded
+        launch: those counts are taken back and added per replay."""
+        buf = w["buffers"]
+        step = lambda b, decider: _window_step(b, self.config, self.policy, with_energies=with_energies,
+                                               decider=decider)
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        scratch = _WindowBuffers(buf.state(), buf.pstate, buf.names, buf.diag.shape[1])
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            step(scratch, EveryBranch())
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        del scratch
+        graph = torch.cuda.CUDAGraph()
+        capture = GraphCapture(graph, self.device)
+        before = kernels.launch_counts()
+        with capture.capturing():
+            step(buf, capture)
+        after = kernels.launch_counts()
+        w["launches"] = {name: after[name] - before[name] for name in after}
+        kernels.add_launches(w["launches"], -1)
+        w["graph"] = graph
+        torch.cuda.synchronize(self.device)
+        self.graph_captures += 1
+        self.graph_setup_seconds += time.perf_counter() - t0
+
+    def _run_window(self, k: int, *, with_energies: bool, n_diag: int) -> dict:
+        """Up to k <= n_diag steps; stops after a step whose global sort
+        still overflows. Returns the window's host bundle (one read)."""
+        w = self._window_for(with_energies, n_diag)
+        buf = w["buffers"]
+        buf.reset_counters()
+        if w["graph"] is not None:
+            for _ in range(k):
+                w["graph"].replay()
+        else:
+            decider = HostDecider(self._read)
+            for _ in range(k):
+                _window_step(buf, self.config, self.policy, with_energies=with_energies, decider=decider)
         self.windows += 1
-        # the window's one bundle read: every per-step diagnostic, as float64
-        names = list(per_step[0])
-        table = torch.stack([torch.stack([d[n].to(torch.float64) for d in per_step]) for n in names])
+        # the window's one bundle read
+        host = self._read(buf.bundle(k)).numpy()
+        n_done = int(host[0])
+        if w["graph"] is not None:
+            kernels.add_launches(w["launches"], n_done)
+        self._state = buf.state(self._state.step + n_done)
+        table = host[4:].reshape(len(buf.names), k)
         return {
-            "n_done": len(per_step),
-            "n_sorts": sorts,
-            "n_rebuilds": rebuilds,
-            "halt_code": halt_code,
-            "per_step": dict(zip(names, self._read(table).numpy())),
+            "n_done": n_done,
+            "n_sorts": int(host[2]),
+            "n_rebuilds": int(host[3]),
+            "halt_code": HALT_BIN_OVERFLOW if host[1] else HALT_NONE,
+            "per_step": dict(zip(buf.names, table)),
         }
 
     def _consume(self, host: dict, diagnostics_every: int) -> int:

@@ -69,12 +69,26 @@ def test_overrides_map_reference_backend_names_and_reject_unported():
     assert tapi.scenario("uniform", backend="xla").deposition.backend == "torch"
     with pytest.raises(TypeError):
         tapi.scenario("uniform", mesh="2x2")
-    with pytest.raises(NotImplementedError):
-        tapi.scenario("uniform", deposition="scatter")
+    with pytest.raises(ValueError):
+        tapi.scenario("uniform", deposition="cic")
     with pytest.raises(NotImplementedError):
         tapi.scenario("uniform", sort="global")
     with pytest.raises(KeyError):
         tapi.scenario("two_stream")
+
+
+@pytest.mark.parametrize("mode", ["matrix", "matrix_unfused", "scatter", "rhocell"])
+@pytest.mark.parametrize("gather", ["", "matrix", "matrix_unfused", "scatter"])
+def test_deposition_modes_resolve_as_the_reference(mode, gather):
+    """Every deposition x gather pair the reference accepts: the same
+    resolved gather (by default ``scatter`` beside a scatter or rhocell
+    deposition) and the same step configuration."""
+    spec_t = tapi.scenario("uniform", deposition=mode, gather=gather)
+    spec_r = rapi.scenario("uniform", deposition=mode, gather=gather)
+    assert spec_t.deposition.resolved_gather == spec_r.deposition.resolved_gather
+    cfg_t, cfg_r = tapi.pic_config(spec_t), rapi.pic_config(spec_r)
+    assert (cfg_t.deposition, cfg_t.gather) == (cfg_r.deposition, cfg_r.gather)
+    assert (cfg_t.needs_bins, cfg_t.needs_slab) == (cfg_r.needs_bins, cfg_r.needs_slab)
 
 
 def test_laser_fields_match_reference():

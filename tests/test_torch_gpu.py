@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each held to its plain PyTorch
-version, and the windowed simulation run through every backend.
+version; the windowed simulation run through every backend and mode; the
+window captured as a CUDA graph against the same window run eagerly.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode). They import neither JAX nor `repro`, so they run where only the
@@ -9,8 +10,13 @@ port is installed:
 
 Tolerances: a kernel against its plain version, rtol 1e-5 / atol 1e-5 (the
 kernels sum over the slots in order in registers, the plain versions through
-cuBLAS batched products); backends after 8 windowed steps, 1e-4 of the
-field's largest magnitude (those sums compound through the field solve).
+cuBLAS batched products), in float32 and in bfloat16 (the kernels widen
+bfloat16 operands to float32, as the plain versions do); backends and modes
+after 8 windowed steps, 1e-4 of the field's largest magnitude (those sums
+compound through the field solve); `matrix_scatter_add` against a plain
+scatter-add, 1e-5 of the output's magnitude (both add the overflow items
+with float atomics, in orders that change from run to run); the captured
+window against the eager one, exact (the same kernels on the same inputs).
 """
 
 import numpy as np
@@ -18,13 +24,28 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+
 from repro_torch import kernels  # noqa: E402
-from repro_torch.api import make_simulation, scenario  # noqa: E402
-from repro_torch.core import bin_slab_staging, build_bins, cell_index, max_guard  # noqa: E402
+from repro_torch.api import SortPolicyConfig, make_simulation, scenario  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CURRENT_STAGGER,
+    EB_STAGGERS,
+    NO_STAGGER,
+    bin_slab_staging,
+    build_bins,
+    cell_index,
+    matrix_scatter_add,
+    max_guard,
+    scatter_add_ref,
+    support,
+)
 from repro_torch.kernels.deposition import ops as dep  # noqa: E402
 from repro_torch.kernels.deposition import ref as dep_ref  # noqa: E402
 from repro_torch.kernels.gather import ops as gat  # noqa: E402
 from repro_torch.kernels.gather import ref as gat_ref  # noqa: E402
+from repro_torch.kernels.scatter_matrix import ops as seg  # noqa: E402
+from repro_torch.kernels.scatter_matrix import ref as seg_ref  # noqa: E402
 
 ORDERS = [1, 2, 3]
 
@@ -51,7 +72,7 @@ def _slab(grid, n, capacity, seed, device):
 
 
 def _close(a, b, rtol=1e-5, atol=1e-5):
-    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(), rtol=rtol, atol=atol)
 
 
 @pytest.mark.gpu
@@ -72,27 +93,125 @@ def test_kernels_match_plain_versions(order, cuda):
     )
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    assert all(after[k] == before[k] + 1 for k in ("fused_bin_deposit", "fused_bin_deposit_reduced", "fused_bin_gather"))
 
 
 @pytest.mark.gpu
-def test_windowed_backends_agree(cuda):
+@pytest.mark.parametrize("order", ORDERS)
+def test_unfused_kernels_match_plain_versions(order, cuda):
+    """bin_outer_product at the M x N of every current stagger and
+    bin_gather at every field stagger, on a cell count no block size
+    divides; bin_outer_product and segment_accumulate in both types."""
+    gen = torch.Generator(device=cuda).manual_seed(order)
+    before = kernels.launch_counts()
+    for stagger in (NO_STAGGER,) + CURRENT_STAGGER:
+        (tx, ty, tz) = (support(order, st)[0] for st in stagger)
+        a = torch.randn((203, 32, tx), generator=gen, device=cuda)
+        b = torch.randn((203, 32, ty * tz), generator=gen, device=cuda)
+        for dtype in (torch.float32, torch.bfloat16):
+            ad, bd = a.to(dtype), b.to(dtype)
+            _close(dep.bin_outer_product(ad, bd), dep_ref.bin_outer_product_ref(ad, bd))
+    for stagger in (NO_STAGGER,) + EB_STAGGERS:
+        (tx, ty, tz) = (support(order, st)[0] for st in stagger)
+        wx = torch.rand((203, 40, tx), generator=gen, device=cuda)
+        byz = torch.rand((203, 40, ty * tz), generator=gen, device=cuda)
+        g = torch.randn((203, tx, ty * tz), generator=gen, device=cuda)
+        _close(gat.bin_gather(wx, byz, g), gat_ref.bin_gather_ref(wx, byz, g))
+    for v, cap, d in ((203, 2, 333), (57, 16, 2100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            w = torch.randn((v, cap), generator=gen, device=cuda).to(dtype)
+            u = torch.randn((v, cap, d), generator=gen, device=cuda).to(dtype)
+            got, want = seg.segment_accumulate(w, u), seg_ref.segment_accumulate_ref(w, u)
+            assert got.dtype == dtype
+            assert torch.equal(got, want), "the kernel and its plain version sum in one order"
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["bin_outer_product"] - before["bin_outer_product"] == 8
+    assert after["bin_gather"] - before["bin_gather"] == 7
+    assert after["segment_accumulate"] - before["segment_accumulate"] == 4
+
+
+@pytest.mark.gpu
+def test_matrix_scatter_add_on_the_card(cuda):
+    gen = np.random.default_rng(1)
+    idx = torch.from_numpy(np.minimum(gen.zipf(1.5, 3000) - 1, 499)).to(cuda)
+    upd = torch.from_numpy(gen.normal(size=(3000, 96)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(gen.normal(size=3000).astype(np.float32)).to(cuda)
+    kernels.reset_launch_counts()
+    got = matrix_scatter_add(idx, upd, n_bins=500, capacity=8, weights=w)
+    assert kernels.launch_counts()["segment_accumulate"] == 1
+    # both add a bin's overflow (up to ~1600 items) with float atomics, in
+    # orders that change from run to run: 1e-5 of the output's magnitude
+    want = scatter_add_ref(idx, upd, n_bins=500, weights=w)
+    _close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "kw",
+    [dict(backend="cuda_reduced"), dict(backend="cuda"), dict(backend="torch"),
+     dict(deposition="matrix_unfused", gather="matrix_unfused"), dict(deposition="scatter", gather="scatter"),
+     dict(deposition="rhocell", gather="scatter")],
+    ids=["cuda_reduced", "cuda", "torch", "matrix_unfused", "scatter", "rhocell"],
+)
+def test_windowed_backends_agree(kw, cuda):
+    """Every backend and comparison mode, captured and replayed, against
+    the default path; each bin kernel launches once per step (and once in
+    each capture's warm-up step)."""
     fields = {}
-    for backend in ("cuda_reduced", "cuda", "torch"):
+    for label, extra in (("default", {}), ("other", kw)):
         kernels.reset_launch_counts()
-        sim = make_simulation(scenario("uniform", grid=(16, 16, 16), order=2, steps=8, window=4, backend=backend))
-        assert sim.device.type == "cuda"
+        sim = make_simulation(scenario("uniform", grid=(16, 16, 16), order=2, steps=8, window=4, **extra))
+        assert sim.device.type == "cuda" and sim.use_graphs
         sim.run()
-        counts = kernels.launch_counts()
-        if backend == "torch":
-            assert set(counts.values()) == {0}
-        else:
-            assert counts["fused_bin_gather"] == 8
-            assert counts["fused_bin_deposit_reduced" if backend == "cuda_reduced" else "fused_bin_deposit"] == 8
-        fields[backend] = [f.cpu().numpy() for f in sim.state.fields.all()]
-    for backend in ("cuda", "torch"):
-        for a, b in zip(fields[backend], fields["cuda_reduced"]):
-            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * max(np.abs(b).max(), 1e-30))
+        assert sim.host_reads == sim.windows
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        n = 8 + sim.graph_captures
+        want = {"default": {"fused_bin_deposit_reduced": n, "fused_bin_gather": n}}.get(label)
+        if want is None:
+            want = {
+                "cuda_reduced": {"fused_bin_deposit_reduced": n, "fused_bin_gather": n},
+                "cuda": {"fused_bin_deposit": n, "fused_bin_gather": n},
+                "matrix_unfused": {"bin_outer_product": 3 * n, "bin_gather": 6 * n},
+            }.get(kw.get("backend") or kw.get("deposition"), {})
+        assert counts == want
+        fields[label] = [f.cpu().numpy() for f in sim.state.fields.all()]
+    for a, b in zip(fields["other"], fields["default"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * max(np.abs(b).max(), 1e-30))
+
+
+@pytest.mark.gpu
+def test_captured_window_matches_eager_window(cuda):
+    """20 steps in windows of 10 with a sort every few steps and a capacity
+    growth (a hot plasma in bins of 8): replays of the captured step give
+    the eager window's state exactly, with one host read a window (two more
+    at the growth) where the eager window reads every decision."""
+    spec = scenario("uniform", grid=(6, 6, 6), order=1, capacity=8, u_thermal=0.4,
+                    policy=SortPolicyConfig(sort_interval=7, min_sort_interval=3))
+    sims = {}
+    for graphs in (True, False):
+        sim = make_simulation(spec)
+        sim.use_graphs = graphs
+        kernels.reset_launch_counts()
+        sim.run(20, window=10, diagnostics_every=1)
+        sims[graphs] = (sim, kernels.launch_counts())
+    (g, g_counts), (e, e_counts) = sims[True], sims[False]
+    assert g.growths["capacity"] >= 1 and g.sorts >= 1
+    assert (g.sorts, g.rebuilds, g.growths, g.halts) == (e.sorts, e.rebuilds, e.growths, e.halts)
+    assert g.history == e.history
+    assert g.host_reads == g.windows + 2 * g.growths["capacity"]
+    assert e.host_reads > g.host_reads
+    assert g.graph_captures == 1 + g.growths["capacity"]
+    for name in ("fused_bin_deposit_reduced", "fused_bin_gather"):
+        assert e_counts[name] == 20 and g_counts[name] == 20 + g.graph_captures
+    sg, se = g.state, e.state
+    assert sg.step == se.step == 20
+    for part in ("fields", "particles", "layout", "slab"):
+        a, b = getattr(sg, part), getattr(se, part)
+        for f in dataclasses.fields(a):
+            assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f"{part}.{f.name}"
+    for f in dataclasses.fields(g.policy_state):
+        assert torch.equal(getattr(g.policy_state, f.name), getattr(e.policy_state, f.name)), f.name
 
 
 @pytest.mark.gpu
