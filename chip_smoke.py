@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi) — no CUDA, no run;
 2. build: the CUDA kernels of src/repro_torch/csrc, from source;
 3. all six kernels against their plain PyTorch versions: (a) at orders
-   1-3 on a small grid, the unfused kernels at the M and N of every stagger
+   1-3 on a small grid; the reduced deposition and the fused gather at
+   capacity 48 with an all-gap and a full cell, on one-cell columns and on
+   a 1000-cell column, bit for bit against the packed kernel + z pass and
+   against their own repeated launches; the unfused kernels at the M and N of every stagger
    on an awkward cell count, in float32 and, for `bin_outer_product` and
    `segment_accumulate`, bfloat16; (b) at the main path's shapes (order 3,
    128^3 cells, capacity 32; `segment_accumulate` at the MoE combine of
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +103,43 @@ def max_err(torch, got, want) -> float:
 def bound(n_bytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_report(log: str) -> dict[str, tuple[int, int]]:
+    """(registers, spill stores + loads in bytes) per compiled entry
+    function, from ptxas -v output."""
+    out, fn, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out[fn] = (int(m.group(1)), spill)
+            fn, spill = None, 0
+    return out
+
+
+def synthetic_slab(torch, grid, cap, gen, dev, *, empty=(), full=()):
+    """A slab with a random occupancy per cell (cells ``empty`` hold no
+    particle, ``full`` fill every slot); gap slots get val 0 and the offset
+    of one aliased particle from their cell, as the port's slabs do."""
+    n_cells = math.prod(grid)
+    occ = torch.randint(0, cap + 1, (n_cells,), generator=gen, device=dev)
+    occ[list(empty)] = 0
+    occ[list(full)] = cap
+    d = torch.rand((n_cells, cap, 3), generator=gen, device=dev)
+    val = torch.randn((n_cells, cap, 3), generator=gen, device=dev)
+    gap = torch.arange(cap, device=dev)[None, :] >= occ[:, None]
+    val[gap] = 0.0
+    idx = torch.arange(n_cells, device=dev)
+    cells = torch.stack((idx // (grid[1] * grid[2]), (idx // grid[2]) % grid[1], idx % grid[2]), -1).float()
+    alias = torch.rand(3, generator=gen, device=dev) * torch.tensor(grid, dtype=torch.float32, device=dev)
+    d = torch.where(gap[..., None], (alias - cells)[:, None, :], d)
+    return d.contiguous(), val.contiguous()
 
 
 def run_path(torch, kernels, sim, label: str, n_steps: int | None = None) -> dict:
@@ -189,11 +230,18 @@ def main() -> None:
     for line in build.BUILD_INFO["log"].splitlines():
         if "registers" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
+    report = ptxas_report(build.BUILD_INFO["log"])
+    for name in ("fused_deposit_reduced_kernel", "fused_gather_kernel"):
+        found = {f: r for f, r in report.items() if name in f}
+        if len(found) != 3 or any(spill for _, spill in found.values()):
+            fail(f"{name}: expected 3 instances with 0 spill bytes, ptxas reports {found}")
+        say(f"  {name}, orders 1-3: registers {[r for r, _ in found.values()]}, spill bytes "
+            f"{[s_ for _, s_ in found.values()]}")
 
     # -- 3a. kernels vs plain versions at orders 1-3, small grid --------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    # the last case is a 256-cell column: the reduced kernel's accumulator
-    # then needs more than the default 48 KB of shared memory
+    # the last case is a 256-cell column (the first reduced kernel's shared
+    # accumulator needed more than the default 48 KB there)
     for order, grid, n in ((1, (6, 5, 7), 1500), (2, (6, 5, 7), 1500), (3, (6, 5, 7), 1500), (3, (2, 2, 256), 6000)):
         g = max_guard(order)
         pos = torch.rand((n, 3), generator=gen, device=dev) * torch.tensor(grid, dtype=torch.float32, device=dev)
@@ -215,6 +263,31 @@ def main() -> None:
         )
         say(f"order {order}, grid {grid}: max |kernel - plain| packed {errs[0]:.2e}, reduced {errs[1]:.2e}, "
             f"gather {errs[2]:.2e} (tolerance {ATOL} + {RTOL}*|plain|)")
+
+    # the redesigned kernels at their edges: capacity 48 (a full and a
+    # partial 32-slot chunk) with an all-gap cell and a full cell, on a grid
+    # and on one-cell columns; a 1000-cell column; the reduced kernel bit
+    # equal to the packed kernel followed by the plain z pass, and every
+    # launch of both bit equal to the one before
+    edge = [(order, grid, 48) for order in (1, 2, 3) for grid in ((5, 4, 6), (4, 3, 1))] + [(3, (1, 1, 1000), 8)]
+    for order, grid, cap_e in edge:
+        g = max_guard(order)
+        d, val = synthetic_slab(torch, grid, cap_e, gen, dev, empty=(0,), full=(1,))
+        padded = torch.randn((6, *(k + 2 * g for k in grid)), generator=gen, device=dev)
+        reduced = dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=grid, guard=g)
+        gathered = gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g)
+        errs = (max_err(torch, reduced, dep_ref.fused_bin_deposit_reduced_ref(d, val, order=order, grid_shape=grid,
+                                                                             guard=g)),
+                max_err(torch, gathered, gat_ref.fused_gather_ref(d, padded, grid_shape=grid, order=order, guard=g)))
+        packed_z = dep_ref.column_z_pass(dep.fused_bin_deposit(d, val, order=order), order=order, grid_shape=grid,
+                                         guard=g)
+        if not torch.equal(reduced, packed_z):
+            fail(f"order {order}, grid {grid}: the reduced kernel is not bit equal to the packed kernel + z pass")
+        if not (torch.equal(reduced, dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=grid, guard=g))
+                and torch.equal(gathered, gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g))):
+            fail(f"order {order}, grid {grid}: two launches differ")
+        say(f"order {order}, grid {grid}, cap {cap_e} (an all-gap and a full cell): max |kernel - plain| reduced "
+            f"{errs[0]:.2e}, gather {errs[1]:.2e}; reduced == packed + z pass, launches repeat bit for bit")
 
     # the unfused kernels at the M x N of every stagger, on 1001 cells (no
     # block holds a whole number of them), random operands
@@ -354,7 +427,12 @@ def main() -> None:
         gather_library, d.numel() * 4 + padded.numel() * 4 + c * cap * 6 * 4, gat_flops, 5,
         "src/repro_torch/csrc/fused_gather.cu", "src/repro/kernels/gather/kernel.py:154",
     )
-    del d, val, padded
+    packed_z = dep_ref.column_z_pass(dep.fused_bin_deposit(d, val, order=order), order=order, grid_shape=shape,
+                                     guard=g)
+    if not torch.equal(dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=shape, guard=g), packed_z):
+        fail("main-path shapes: the reduced kernel is not bit equal to the packed kernel + z pass")
+    say("main-path shapes: the reduced kernel is bit equal to the packed kernel followed by the plain z pass")
+    del d, val, padded, packed_z
     torch.cuda.empty_cache()
 
     def record_sum(name, builders, reps, source, replaces):

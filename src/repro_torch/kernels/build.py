@@ -26,7 +26,8 @@ LIB_NAME = "libmatrixpic_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB: ctypes.CDLL | None = None
-#: what the last build in this process did: seconds, and ptxas' per-kernel report
+#: what the last build in this process did: seconds, and ptxas' per-kernel
+#: report (kept beside the library, so a cached build has it too)
 BUILD_INFO: dict = {}
 
 
@@ -60,8 +61,9 @@ def build_library() -> Path:
     its path. Raises with the compiler's output when a build fails."""
     out_dir = build_dir() / _digest()
     lib_path = out_dir / LIB_NAME
+    log_path = out_dir / "nvcc.log"
     if lib_path.exists():
-        BUILD_INFO.update(seconds=0.0, cached=True, log="")
+        BUILD_INFO.update(seconds=0.0, cached=True, log=log_path.read_text() if log_path.exists() else "")
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -91,6 +93,7 @@ def build_library() -> Path:
     )
     if link.returncode != 0:
         raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
+    log_path.write_text("\n".join(logs))
     os.replace(tmp, lib_path)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False, log="\n".join(logs))
     return lib_path
@@ -104,10 +107,10 @@ def load_library() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     lib = ctypes.CDLL(str(build_library()))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.mpic_fused_deposit.argtypes = [p, p, p, i, i, i, i, p]
-    lib.mpic_fused_deposit_reduced.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.mpic_fused_gather.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.mpic_fused_deposit_reduced.argtypes = [p, p, p, i, i, i, i, i, i, i, z, i, p]
+    lib.mpic_fused_gather.argtypes = [p, p, p, i, i, i, i, i, i, i, i, z, i, p]
     lib.mpic_bin_outer_product.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.mpic_bin_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.mpic_segment_accumulate.argtypes = [p, p, p, i, i, i, i, i, p]

@@ -30,11 +30,13 @@ def fused_deposition_cuda(d: torch.Tensor, val: torch.Tensor, out: torch.Tensor,
 
 
 def fused_deposition_reduced_cuda(d: torch.Tensor, val: torch.Tensor, out: torch.Tensor, *,
-                                  order: int, nz: int, guard: int) -> None:
-    """d, val (nx*ny*nz, cap, 3) -> out (nx*ny, 3, nz+2g, T, T)."""
+                                  order: int, nz: int, guard: int, geometry) -> None:
+    """d, val (nx*ny*nz, cap, 3) -> out (nx*ny, 3, nz+2g, T, T), launched
+    with ``geometry`` (`ops.reduced_geometry`; the kernel refuses another)."""
     n_cells, cap, _ = d.shape
     rc = load_library().mpic_fused_deposit_reduced(
         d.data_ptr(), val.data_ptr(), out.data_ptr(), n_cells // nz, nz, cap, order, guard,
+        geometry.cols_per_block, geometry.threads, geometry.smem,
         d.device.index, torch.cuda.current_stream(d.device).cuda_stream,
     )
     check(rc, "fused_deposition_reduced_cuda")

@@ -15,6 +15,9 @@ launches the kernel, and nothing else: a failed build or launch raises.
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.shape_functions import max_guard, unified_support
@@ -29,6 +32,56 @@ LAUNCHES = {"fused_bin_deposit": 0, "fused_bin_deposit_reduced": 0, "bin_outer_p
 
 #: shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
+#: SMs of an H100: a grid of fewer than two blocks a SM gets one column a block
+SM_COUNT = 132
+#: most threads of a reduced-deposition block (`kReducedThreads` in the source)
+REDUCED_THREADS = 384
+#: slots the reduced kernel stages at a time (`kChunk`)
+REDUCED_CHUNK = 32
+#: raw chunks in flight or in use per column (`kRawStages`)
+REDUCED_RAW_STAGES = 4
+
+
+class ReducedGeometry(NamedTuple):
+    """Launch of `fused_deposit_reduced_kernel`: block b owns columns
+    [b * cols_per_block, min((b + 1) * cols_per_block, n_cols))."""
+
+    n_cols: int
+    cols_per_block: int
+    threads: int
+    smem: int
+    blocks: int
+
+    def columns(self, block: int) -> range:
+        start = block * self.cols_per_block
+        return range(start, min(start + self.cols_per_block, self.n_cols))
+
+
+def reduced_column_floats(order: int) -> int:
+    """Shared memory of one column in the reduced kernel, in floats: two
+    buffers of 32 kept-slot records (wz[2] padded to a multiple of 4, av[3],
+    wy[2], the record padded to a multiple of 4), four raw chunks of d and
+    val, two lists of 32 slot indices and 4 counts (`Reduced<ORDER>::COLUMN`)."""
+    t, _ = unified_support(order)
+    wzp = (t + 3) // 4 * 4
+    record = (2 * wzp + 5 * t + 3) // 4 * 4
+    return 2 * REDUCED_CHUNK * record + REDUCED_RAW_STAGES * 6 * REDUCED_CHUNK + 2 * REDUCED_CHUNK + 4
+
+
+def reduced_geometry(grid_shape, order: int) -> ReducedGeometry:
+    """Columns per block of the reduced kernel, a function of the grid and
+    order alone: as many columns as 3*T^2 owner threads each fit in 384
+    threads and three blocks fit in an SM's shared memory, fewer where the
+    grid would then give under two blocks an SM (one column a block at
+    lwfa's 64 columns)."""
+    nx, ny, _ = (int(s) for s in grid_shape)
+    t, _ = unified_support(order)
+    owners = 3 * t * t
+    n_cols = nx * ny
+    column_bytes = 4 * reduced_column_floats(order)
+    k = max(1, min(REDUCED_THREADS // owners, SMEM_LIMIT // 3 // column_bytes, n_cols // (2 * SM_COUNT)))
+    threads = (k * owners + 31) // 32 * 32
+    return ReducedGeometry(n_cols, k, threads, 4 * k * reduced_column_floats(order), math.ceil(n_cols / k))
 
 
 def _check_slab(d: torch.Tensor, val: torch.Tensor, order: int) -> None:
@@ -68,7 +121,8 @@ def fused_bin_deposit(d: torch.Tensor, val: torch.Tensor, *, order: int) -> torc
 def fused_bin_deposit_reduced(d: torch.Tensor, val: torch.Tensor, *, order: int, grid_shape,
                               guard: int) -> torch.Tensor:
     """Fused deposition with the rhocell z pass in the kernel:
-    d, val (nx*ny*nz, cap, 3) -> (nx*ny, 3, nz+2g, T, T)."""
+    d, val (nx*ny*nz, cap, 3) -> (nx*ny, 3, nz+2g, T, T). Any capacity and
+    column height: the kernel's shared memory depends on the order alone."""
     _check_slab(d, val, order)
     nx, ny, nz = (int(s) for s in grid_shape)
     if d.shape[0] != nx * ny * nz:
@@ -78,14 +132,9 @@ def fused_bin_deposit_reduced(d: torch.Tensor, val: torch.Tensor, *, order: int,
     if d.device.type == "cpu":
         return fused_bin_deposit_reduced_ref(d, val, order=order, grid_shape=(nx, ny, nz), guard=guard)
     t, _ = unified_support(order)
-    cap = d.shape[1]
-    smem = 4 * (3 * (nz + 2 * guard) * t * t + (6 * t + 3) * cap)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"nz={nz}, capacity {cap} need {smem} B of shared memory per column block, over {SMEM_LIMIT}"
-        )
+    geometry = reduced_geometry((nx, ny, nz), order)
     out = torch.empty((nx * ny, 3, nz + 2 * guard, t, t), dtype=torch.float32, device=d.device)
-    kernel.fused_deposition_reduced_cuda(d, val, out, order=order, nz=nz, guard=guard)
+    kernel.fused_deposition_reduced_cuda(d, val, out, order=order, nz=nz, guard=guard, geometry=geometry)
     LAUNCHES["fused_bin_deposit_reduced"] += 1
     return out
 

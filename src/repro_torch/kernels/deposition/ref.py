@@ -39,10 +39,17 @@ def fused_bin_deposit_reduced_ref(d: torch.Tensor, val: torch.Tensor, *, order: 
                                   guard: int) -> torch.Tensor:
     """The packed tiles followed by the rhocell z pass, per (x, y) column:
     (nx*ny*nz, cap, 3) -> (nx*ny, 3, nz+2g, T, T)."""
+    packed = fused_bin_deposit_ref(d, val, order=order)
+    return column_z_pass(packed, order=order, grid_shape=grid_shape, guard=guard)
+
+
+def column_z_pass(packed: torch.Tensor, *, order: int, grid_shape, guard: int) -> torch.Tensor:
+    """The rhocell z pass of packed tiles (nx*ny*nz, 3, T, T*T) -> (nx*ny, 3,
+    nz+2g, T, T): each row adds its taps in ascending tap order, starting
+    from zero."""
     nx, ny, nz = grid_shape
     g = guard
     t, base = unified_support(order)
-    packed = fused_bin_deposit_ref(d, val, order=order)
     rho = packed.reshape(nx * ny, nz, 3, t, t, t)
     acc = packed.new_zeros((nx * ny, 3, nz + 2 * g, t, t))
     for c in range(t):

@@ -12,14 +12,67 @@ and only those.
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
-from repro_torch.core.shape_functions import max_guard
-from repro_torch.kernels.deposition.ops import SMEM_LIMIT
+from repro_torch.core.shape_functions import max_guard, unified_support
+from repro_torch.kernels.deposition.ops import SM_COUNT, SMEM_LIMIT
 from repro_torch.kernels.gather import kernel
 from repro_torch.kernels.gather.ref import bin_gather_ref, fused_gather_ref
 
 LAUNCHES = {"fused_bin_gather": 0, "bin_gather": 0}
+
+#: threads of a fused-gather block (`kGatherThreads` in the source)
+GATHER_THREADS = 160
+#: most z cells one fused-gather block takes
+GATHER_RUN = 32
+
+
+class GatherGeometry(NamedTuple):
+    """Launch of `fused_gather_kernel`: block b takes z cells
+    [z0, min(z0 + run, nz)) of column b // runs, z0 = (b % runs) * run."""
+
+    grid_shape: tuple
+    run: int
+    threads: int
+    smem: int
+    blocks: int
+
+    def cells(self, block: int) -> range:
+        """The flat (z-fastest) cell indices of ``block``."""
+        _, _, nz = self.grid_shape
+        runs = math.ceil(nz / self.run)
+        column, z0 = divmod(block, runs)
+        z0 *= self.run
+        return range(column * nz + z0, column * nz + min(z0 + self.run, nz))
+
+
+def gather_smem(order: int, run: int, cap: int) -> int:
+    """Shared memory of a fused-gather block, in bytes: the run's rows of
+    the six padded grids, G[6][T][T][run + T - 1] padded to a multiple of 4
+    floats, the run's offsets D[run][cap][3], then the listed slots
+    live[run][cap], n_live[run] and first[run + 1] (ints)."""
+    t, _ = unified_support(order)
+    g_floats = (6 * t * t * (run + t - 1) + 3) // 4 * 4
+    return 4 * (g_floats + 4 * run * cap + 2 * run + 1)
+
+
+def gather_geometry(grid_shape, order: int, cap: int) -> GatherGeometry:
+    """Cells per fused-gather block, a function of the grid, order and
+    capacity alone: runs of up to 32 z cells, fewer at capacities over 128
+    (the offsets and slot lists grow with run x cap), halved until the grid gives at
+    least two blocks an SM (lwfa's 8 x 8 x 64). Raises if even one cell a
+    block is over the shared memory."""
+    nx, ny, nz = (int(s) for s in grid_shape)
+    run = max(1, min(GATHER_RUN, nz, 4096 // cap))
+    while run > 1 and nx * ny * math.ceil(nz / run) < 2 * SM_COUNT:
+        run = (run + 1) // 2
+    smem = gather_smem(order, run, cap)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"capacity {cap} needs {smem} B of shared memory per block, over {SMEM_LIMIT}")
+    return GatherGeometry((nx, ny, nz), run, GATHER_THREADS, smem, nx * ny * math.ceil(nz / run))
 
 
 def fused_bin_gather(d: torch.Tensor, padded: torch.Tensor, *, grid_shape, order: int, guard: int) -> torch.Tensor:
@@ -46,8 +99,9 @@ def fused_bin_gather(d: torch.Tensor, padded: torch.Tensor, *, grid_shape, order
         raise ValueError(f"unsupported device {d.device}")
     if not (d.is_contiguous() and padded.is_contiguous()):
         raise ValueError("d and padded must be contiguous")
+    geometry = gather_geometry((nx, ny, nz), order, d.shape[1])
     out = torch.empty((d.shape[0], d.shape[1], 6), dtype=torch.float32, device=d.device)
-    kernel.fused_gather_cuda(d, padded, out, grid_shape=(nx, ny, nz), order=order, guard=guard)
+    kernel.fused_gather_cuda(d, padded, out, grid_shape=(nx, ny, nz), order=order, guard=guard, geometry=geometry)
     LAUNCHES["fused_bin_gather"] += 1
     return out
 

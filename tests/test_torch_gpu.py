@@ -216,9 +216,9 @@ def test_captured_window_matches_eager_window(cuda):
 
 @pytest.mark.gpu
 def test_tall_column_and_large_capacity(cuda):
-    """Shapes off the main path: a 256-cell column whose accumulator needs
-    more than the default 48 KB of shared memory (the launcher raises the
-    limit), and a capacity above one block of gather threads."""
+    """Shapes off the main path: a 256-cell column (the reduced kernel keeps
+    its z sums in registers, so the height is free), and a capacity above
+    one block of gather threads."""
     g = max_guard(3)
     grid = (2, 2, 256)
     d, val = _slab(grid, 6000, 24, 7, cuda)
@@ -237,9 +237,87 @@ def test_tall_column_and_large_capacity(cuda):
     torch.cuda.synchronize()
 
 
+def _synthetic_slab(grid, cap, seed, device, *, empty=(), full=()):
+    """A slab with a random occupancy per cell (cells ``empty`` hold no
+    particle, cells ``full`` fill every slot): occupied slots get offsets in
+    [0, 1) and random values; gap slots get val 0 and, as in the port's
+    slabs, the offset of one aliased particle from their cell, so most of
+    them lie outside every tap window and some inside."""
+    rng = np.random.default_rng(seed)
+    n_cells = int(np.prod(grid))
+    occ = rng.integers(0, cap + 1, n_cells)
+    occ[list(empty)] = 0
+    occ[list(full)] = cap
+    d = rng.random((n_cells, cap, 3)).astype(np.float32)
+    val = rng.normal(size=(n_cells, cap, 3)).astype(np.float32)
+    gap = np.arange(cap)[None, :] >= occ[:, None]
+    val[gap] = 0.0
+    cells = np.stack(np.unravel_index(np.arange(n_cells), grid), axis=-1).astype(np.float32)
+    alias = (rng.random(3) * np.asarray(grid)).astype(np.float32)
+    d[gap] = (alias[None, :] - cells)[np.nonzero(gap)[0]]
+    return torch.from_numpy(d).to(device), torch.from_numpy(val).to(device)
+
+
 @pytest.mark.gpu
-def test_wrapper_refuses_a_column_over_the_shared_memory_limit(cuda):
-    grid = (1, 1, 1000)
-    d = torch.zeros(1000, 8, 3, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        dep.fused_bin_deposit_reduced(d, d.clone(), order=3, grid_shape=grid, guard=max_guard(3))
+@pytest.mark.parametrize("grid", [(3, 4, 5), (4, 3, 1)], ids=["3x4x5", "one-cell-columns"])
+@pytest.mark.parametrize("cap", [24, 48, 64, 320])
+@pytest.mark.parametrize("order", ORDERS)
+def test_redesigned_kernels_match_plain_versions(order, cap, grid, cuda):
+    """The reduced deposition and the fused gather at capacities below, at
+    and above one 32-slot chunk, with an all-gap cell and a full cell, on
+    a grid and on columns of one cell."""
+    g = max_guard(order)
+    d, val = _synthetic_slab(grid, cap, 10 * order + cap, cuda, empty=(1,), full=(0,))
+    padded = torch.from_numpy(
+        np.random.default_rng(cap).normal(size=(6, *(n + 2 * g for n in grid))).astype(np.float32)).to(cuda)
+    _close(
+        dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=grid, guard=g),
+        dep_ref.fused_bin_deposit_reduced_ref(d, val, order=order, grid_shape=grid, guard=g),
+    )
+    got = gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g)
+    _close(got, gat_ref.fused_gather_ref(d, padded, grid_shape=grid, order=order, guard=g))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_a_1000_cell_column_runs_and_matches_plain(cuda):
+    """A column of 1000 cells: the reduced kernel's shared memory does not
+    grow with the column, so the wrapper takes it."""
+    grid, g = (1, 1, 1000), max_guard(3)
+    d, val = _synthetic_slab(grid, 8, 5, cuda)
+    _close(
+        dep.fused_bin_deposit_reduced(d, val, order=3, grid_shape=grid, guard=g),
+        dep_ref.fused_bin_deposit_reduced_ref(d, val, order=3, grid_shape=grid, guard=g),
+    )
+    padded = torch.randn(6, *(n + 2 * g for n in grid), device=cuda)
+    _close(
+        gat.fused_bin_gather(d, padded, grid_shape=grid, order=3, guard=g),
+        gat_ref.fused_gather_ref(d, padded, grid_shape=grid, order=3, guard=g),
+    )
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ORDERS)
+def test_reduced_kernel_equals_packed_kernel_then_plain_z_pass(order, cuda):
+    """Bit identity: the reduced kernel sums each tile as the packed kernel
+    does (kept slots in order) and adds the tiles to each row in ascending
+    tap order, as the plain z pass does."""
+    g = max_guard(order)
+    for grid, (d, val) in (((6, 5, 7), _slab((6, 5, 7), 1500, 40, order, cuda)),
+                           ((3, 4, 9), _synthetic_slab((3, 4, 9), 48, order, cuda, empty=(2,), full=(5,)))):
+        reduced = dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=grid, guard=g)
+        packed = dep.fused_bin_deposit(d, val, order=order)
+        assert torch.equal(reduced, dep_ref.column_z_pass(packed, order=order, grid_shape=grid, guard=g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ORDERS)
+def test_repeated_launches_are_bit_equal(order, cuda):
+    grid, g = (5, 6, 7), max_guard(order)
+    d, val = _synthetic_slab(grid, 40, 20 + order, cuda, empty=(3,), full=(4,))
+    padded = torch.randn(6, *(n + 2 * g for n in grid), device=cuda)
+    runs = [(dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=grid, guard=g),
+             gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g)) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])

@@ -1,0 +1,150 @@
+"""What the redesigned reduced deposition and fused gather kernels rely on,
+pinned on the CPU through their plain versions, and their launch geometry.
+
+- The deposition kernels skip every slot whose val is 0: changing the
+  offsets of such slots leaves the plain versions bit-equal.
+- The gather kernel writes 0 for every slot whose weights on some axis vanish
+  for both staggers, which it finds with a test on d alone (outside the hull
+  of the tap centres widened by the spline's half-width): those slots get
+  exactly 0 from the plain version.
+- The launch geometries are pure functions of the shapes, stay within the
+  card's 227 KB of shared memory and 1024 threads a block, and cover every
+  column and cell exactly once.
+
+Inputs are made with numpy from a seed; comparisons are exact.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import max_guard, packed_axis_weights, unified_support  # noqa: E402
+from repro_torch.kernels.deposition import ops as dep  # noqa: E402
+from repro_torch.kernels.deposition.ref import fused_bin_deposit_reduced_ref, fused_bin_deposit_ref  # noqa: E402
+from repro_torch.kernels.gather import ops as gat  # noqa: E402
+from repro_torch.kernels.gather.ref import fused_gather_ref  # noqa: E402
+
+ORDERS = [1, 2, 3]
+GRID = (4, 3, 5)
+SMEM_LIMIT = 232_448
+#: main path, lwfa, a tall column, and the capacity-320 test shape
+SHAPES = [((128, 128, 128), 3, 32), ((8, 8, 64), 1, 48), ((2, 2, 256), 3, 24), ((3, 3, 3), 3, 320)]
+SHAPE_IDS = ["main", "lwfa", "tall-column", "cap-320"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _slab(order, grid=GRID, cap=12):
+    """Slots with random occupancy: occupied ones in [0, 1) with random
+    values, gap slots with val 0 and the offset of one aliased particle
+    from their cell (some inside the tap windows, most outside)."""
+    rng = np.random.default_rng(order)
+    n_cells = int(np.prod(grid))
+    occ = rng.integers(0, cap + 1, n_cells)
+    occ[0], occ[1] = 0, cap
+    d = rng.random((n_cells, cap, 3)).astype(np.float32)
+    val = rng.normal(size=(n_cells, cap, 3)).astype(np.float32)
+    gap = np.arange(cap)[None, :] >= occ[:, None]
+    val[gap] = 0.0
+    cells = np.stack(np.unravel_index(np.arange(n_cells), grid), axis=-1).astype(np.float32)
+    alias = (rng.random(3) * np.asarray(grid)).astype(np.float32)
+    d[gap] = (alias[None, :] - cells)[np.nonzero(gap)[0]]
+    return torch.from_numpy(d), torch.from_numpy(val), torch.from_numpy(gap)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_offsets_of_zero_value_slots_do_not_change_the_deposition(order):
+    d, val, _ = _slab(order)
+    zero = (val == 0).all(dim=-1)
+    assert bool(zero.any())
+    moved = d.clone()
+    moved[zero] = torch.from_numpy(np.random.default_rng(99).uniform(-3, 4, (int(zero.sum()), 3)).astype(np.float32))
+    assert not torch.equal(moved, d)
+    g = max_guard(order)
+    assert torch.equal(fused_bin_deposit_ref(moved, val, order=order), fused_bin_deposit_ref(d, val, order=order))
+    assert torch.equal(
+        fused_bin_deposit_reduced_ref(moved, val, order=order, grid_shape=GRID, guard=g),
+        fused_bin_deposit_reduced_ref(d, val, order=order, grid_shape=GRID, guard=g),
+    )
+
+
+def _dead_by_kernel_test(d, order):
+    """The gather kernel's test (`axis_live` in csrc/fused_gather.cu): an
+    axis is dead when d lies outside (base - h, base + T - 1/2 + h), h =
+    (order + 1) / 2, the hull of the tap centres of both staggers widened by
+    the spline's half-width; a slot with a dead axis gets zeros."""
+    t, base = unified_support(order)
+    h = 0.5 * (order + 1)
+    far = (d <= base - h) | (d >= base + t - 0.5 + h)  # (C, cap, 3)
+    return far.any(dim=-1)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_slots_with_a_vanishing_axis_gather_exact_zeros(order):
+    grid = (9, 8, 10)  # wide enough that most aliased gap slots fall outside the windows
+    d, _, gap = _slab(order, grid)
+    dead = _dead_by_kernel_test(d, order)
+    assert int(dead.sum()) > 0 and not bool(dead[~gap].any())
+    assert bool((gap & ~dead).any()), "the fixture should also hold gap slots inside the windows"
+    # what the kernel's test finds dead, the weights confirm: some axis has
+    # all-zero weights for both staggers
+    w = packed_axis_weights(d, order)
+    vanishing = torch.stack([(w[(ax, False)] == 0).all(-1) & (w[(ax, True)] == 0).all(-1) for ax in range(3)]).any(0)
+    assert bool(vanishing[dead].all())
+    g = max_guard(order)
+    padded = torch.from_numpy(
+        np.random.default_rng(order).normal(size=(6, *(n + 2 * g for n in grid))).astype(np.float32))
+    out = fused_gather_ref(d, padded, grid_shape=grid, order=order, guard=g)
+    assert bool((out[vanishing] == 0).all())
+    assert bool((out[~vanishing] != 0).any())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_reduced_geometry_covers_every_column_once(shape):
+    grid, order, _ = shape
+    geo = dep.reduced_geometry(grid, order)
+    assert geo == dep.reduced_geometry(tuple(grid), order)  # pure: same shapes, same launch
+    t, _ = unified_support(order)
+    assert geo.threads % 32 == 0 and geo.cols_per_block * 3 * t * t <= geo.threads <= min(1024, dep.REDUCED_THREADS)
+    assert 0 < geo.smem <= SMEM_LIMIT
+    seen = np.zeros(grid[0] * grid[1], dtype=int)
+    for b in range(geo.blocks):
+        cols = geo.columns(b)
+        assert 1 <= len(cols) <= geo.cols_per_block
+        seen[cols.start:cols.stop] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_gather_geometry_covers_every_cell_once(shape):
+    grid, order, cap = shape
+    geo = gat.gather_geometry(grid, order, cap)
+    assert geo == gat.gather_geometry(list(grid), order, cap)
+    assert geo.threads % 32 == 0 and geo.threads <= 1024
+    assert 0 < geo.smem <= SMEM_LIMIT and geo.smem == gat.gather_smem(order, geo.run, cap)
+    seen = np.zeros(int(np.prod(grid)), dtype=int)
+    for b in range(geo.blocks):
+        cells = geo.cells(b)
+        assert 1 <= len(cells) <= geo.run
+        seen[cells.start:cells.stop] += 1
+    assert (seen == 1).all()
+
+
+def test_geometries_of_the_main_path_and_small_grids():
+    """Several columns a block on the main path; one column a block, and
+    runs short enough for two blocks an SM, on lwfa's 64 columns."""
+    main = dep.reduced_geometry((128, 128, 128), 3)
+    assert (main.cols_per_block, main.threads) == (5, 384)
+    assert dep.reduced_geometry((8, 8, 64), 1).cols_per_block == 1
+    assert gat.gather_geometry((128, 128, 128), 3, 32).run == 32
+    lwfa = gat.gather_geometry((8, 8, 64), 1, 48)
+    assert lwfa.blocks >= 2 * dep.SM_COUNT
+    with pytest.raises(ValueError, match="shared memory"):
+        gat.gather_geometry((4, 4, 4), 3, 60_000)
