@@ -8,12 +8,16 @@ Phases, in order; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi) — no CUDA, no run;
 2. build: the CUDA kernels of src/repro_torch/csrc, from source;
 3. all six kernels against their plain PyTorch versions: (a) at orders
-   1-3 on a small grid; the reduced deposition and the fused gather at
-   capacity 48 with an all-gap and a full cell, on one-cell columns and on
-   a 1000-cell column, bit for bit against the packed kernel + z pass and
-   against their own repeated launches; the unfused kernels at the M and N of every stagger
-   on an awkward cell count, in float32 and, for `bin_outer_product` and
-   `segment_accumulate`, bfloat16; (b) at the main path's shapes (order 3,
+   1-3 on a small grid; the three fused kernels at capacity 48 with an
+   all-gap and a full cell, on one-cell columns and on a 1000-cell column,
+   the packed deposition bit for bit against its plain version, the reduced
+   one bit for bit against the packed kernel + z pass, and both and the
+   fused gather against their own repeated launches; the unfused kernels at
+   the M and N of every stagger on an awkward cell count (the gather also
+   at an odd capacity and on operands off a 16-byte boundary, and at an
+   (M, N) outside the templated ones), in float32
+   and, for `bin_outer_product` and `segment_accumulate`, bfloat16; (b) at
+   the main path's shapes (order 3,
    128^3 cells, capacity 32; `segment_accumulate` at the MoE combine of
    mixtral_8x22b and the embedding gradient of phi3_mini_3p8b), with each
    one's time, its plain version's, a one-call PyTorch yardstick's and the
@@ -31,6 +35,12 @@ Phases, in order; any failure exits non-zero:
    scatter, rhocell) against the default "cuda_reduced" run;
 7. lwfa at its registry size: laser, density step, dead particles, cap 48;
 8. `matrix_scatter_add` at the two language-model shapes of phase 3b.
+
+The packed deposition's plain version is evaluated on the CPU wherever the
+kernel is held to it bit for bit: PyTorch on CUDA divides by a Python
+scalar as a multiply by its rounded reciprocal, so the third-order spline's
+t^3 / 6 can differ there by one rounding from the kernel's (and the CPU's)
+division.
 
 It prints the `kernels` JSON line, then, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -54,6 +64,10 @@ PEAK_FP32_FLOPS = 67e12      # float32 on the CUDA cores (the kernels use no ten
 FLOPS_PER_TAP = 8            # one B-spline tap: offset, |u|, branch, polynomial
 
 RTOL = ATOL = 1e-5           # kernel vs plain version: float32, different summation order
+# kernels whose every instance must compile without spilling, and how
+# many instances each has (orders 1-3; the unfused gather's N templates)
+NO_SPILLS = {"fused_deposit_kernel": 3, "fused_deposit_reduced_kernel": 3, "fused_gather_kernel": 3,
+             "bin_gather_kernel": 8}
 MAIN = dict(grid=(128, 128, 128), ppc=2, order=3, steps=32, window=16)
 UNFUSED = dict(MAIN, steps=8, window=8, deposition="matrix_unfused", gather="matrix_unfused")
 SCATTER = dict(MAIN, steps=4, window=4, deposition="scatter", gather="scatter")
@@ -98,6 +112,16 @@ def max_err(torch, got, want) -> float:
     if bool(bad.any()):
         fail(f"kernel disagrees with its plain version: {int(bad.sum())} elements, max |diff| {float(diff.max()):.3e}")
     return float(diff.max())
+
+
+def exact(torch, got, want_cpu) -> float:
+    """0.0 if got is bit-equal to want_cpu (a plain version evaluated on the
+    CPU); fails otherwise."""
+    if not torch.equal(got.cpu(), want_cpu):
+        diff = (got.cpu() - want_cpu).abs()
+        fail(f"kernel is not bit-equal to its plain version: {int((diff > 0).sum())} elements differ, "
+             f"max |diff| {float(diff.max()):.3e}")
+    return 0.0
 
 
 def bound(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -231,11 +255,11 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
     report = ptxas_report(build.BUILD_INFO["log"])
-    for name in ("fused_deposit_reduced_kernel", "fused_gather_kernel"):
+    for name, n_inst in NO_SPILLS.items():
         found = {f: r for f, r in report.items() if name in f}
-        if len(found) != 3 or any(spill for _, spill in found.values()):
-            fail(f"{name}: expected 3 instances with 0 spill bytes, ptxas reports {found}")
-        say(f"  {name}, orders 1-3: registers {[r for r, _ in found.values()]}, spill bytes "
+        if len(found) != n_inst or any(spill for _, spill in found.values()):
+            fail(f"{name}: expected {n_inst} instances with 0 spill bytes, ptxas reports {found}")
+        say(f"  {name}, {n_inst} instances: registers {[r for r, _ in found.values()]}, spill bytes "
             f"{[s_ for _, s_ in found.values()]}")
 
     # -- 3a. kernels vs plain versions at orders 1-3, small grid --------------
@@ -255,20 +279,22 @@ def main() -> None:
         d = slab.d
         padded = torch.randn((6, *(k + 2 * g for k in grid)), generator=gen, device=dev)
         errs = (
-            max_err(torch, dep.fused_bin_deposit(d, val, order=order), dep_ref.fused_bin_deposit_ref(d, val, order=order)),
+            exact(torch, dep.fused_bin_deposit(d, val, order=order),
+                  dep_ref.fused_bin_deposit_ref(d.cpu(), val.cpu(), order=order)),
             max_err(torch, dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=grid, guard=g),
                     dep_ref.fused_bin_deposit_reduced_ref(d, val, order=order, grid_shape=grid, guard=g)),
             max_err(torch, gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g),
                     gat_ref.fused_gather_ref(d, padded, grid_shape=grid, order=order, guard=g)),
         )
-        say(f"order {order}, grid {grid}: max |kernel - plain| packed {errs[0]:.2e}, reduced {errs[1]:.2e}, "
-            f"gather {errs[2]:.2e} (tolerance {ATOL} + {RTOL}*|plain|)")
+        say(f"order {order}, grid {grid}: max |kernel - plain| packed {errs[0]:.2e} (bit for bit, plain on the CPU), "
+            f"reduced {errs[1]:.2e}, gather {errs[2]:.2e} (tolerance {ATOL} + {RTOL}*|plain|)")
 
     # the redesigned kernels at their edges: capacity 48 (a full and a
     # partial 32-slot chunk) with an all-gap cell and a full cell, on a grid
-    # and on one-cell columns; a 1000-cell column; the reduced kernel bit
-    # equal to the packed kernel followed by the plain z pass, and every
-    # launch of both bit equal to the one before
+    # and on one-cell columns; a 1000-cell column; the packed kernel bit
+    # equal to its plain version, the reduced kernel bit equal to the packed
+    # kernel followed by the plain z pass, and every launch of the three
+    # bit equal to the one before
     edge = [(order, grid, 48) for order in (1, 2, 3) for grid in ((5, 4, 6), (4, 3, 1))] + [(3, (1, 1, 1000), 8)]
     for order, grid, cap_e in edge:
         g = max_guard(order)
@@ -279,18 +305,23 @@ def main() -> None:
         errs = (max_err(torch, reduced, dep_ref.fused_bin_deposit_reduced_ref(d, val, order=order, grid_shape=grid,
                                                                              guard=g)),
                 max_err(torch, gathered, gat_ref.fused_gather_ref(d, padded, grid_shape=grid, order=order, guard=g)))
-        packed_z = dep_ref.column_z_pass(dep.fused_bin_deposit(d, val, order=order), order=order, grid_shape=grid,
-                                         guard=g)
+        packed = dep.fused_bin_deposit(d, val, order=order)
+        exact(torch, packed, dep_ref.fused_bin_deposit_ref(d.cpu(), val.cpu(), order=order))
+        packed_z = dep_ref.column_z_pass(packed, order=order, grid_shape=grid, guard=g)
         if not torch.equal(reduced, packed_z):
             fail(f"order {order}, grid {grid}: the reduced kernel is not bit equal to the packed kernel + z pass")
         if not (torch.equal(reduced, dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=grid, guard=g))
-                and torch.equal(gathered, gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g))):
+                and torch.equal(gathered, gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g))
+                and torch.equal(packed, dep.fused_bin_deposit(d, val, order=order))):
             fail(f"order {order}, grid {grid}: two launches differ")
-        say(f"order {order}, grid {grid}, cap {cap_e} (an all-gap and a full cell): max |kernel - plain| reduced "
-            f"{errs[0]:.2e}, gather {errs[1]:.2e}; reduced == packed + z pass, launches repeat bit for bit")
+        say(f"order {order}, grid {grid}, cap {cap_e} (an all-gap and a full cell): max |kernel - plain| packed 0 "
+            f"(bit for bit), reduced {errs[0]:.2e}, gather {errs[1]:.2e}; reduced == packed + z pass, launches "
+            "repeat bit for bit")
 
     # the unfused kernels at the M x N of every stagger, on 1001 cells (no
-    # block holds a whole number of them), random operands
+    # block holds a whole number of them), random operands; the gather also
+    # at capacity 7 and on operands 4 bytes off a 16-byte boundary (its
+    # 4-byte copy path)
     def taps(order, stagger):
         t3 = [support(order, s)[0] for s in stagger]
         return t3[0], t3[1] * t3[2]
@@ -308,13 +339,31 @@ def main() -> None:
                                                      dep_ref.bin_outer_product_ref(ad, bd)))
         for stagger in (NO_STAGGER,) + EB_STAGGERS:
             m, n = taps(order, stagger)
-            wx = torch.rand((n_awk, cap_awk, m), generator=gen, device=dev)
-            byz = torch.rand((n_awk, cap_awk, n), generator=gen, device=dev)
-            gn = torch.randn((n_awk, m, n), generator=gen, device=dev)
-            worst["bin_gather"] = max(worst["bin_gather"], max_err(torch, gat.bin_gather(wx, byz, gn),
-                                                                   gat_ref.bin_gather_ref(wx, byz, gn)))
-        say(f"order {order}, {n_awk} cells x cap {cap_awk}, every stagger: max |kernel - plain| "
+            for cap_g in (cap_awk, 7):
+                wx = torch.rand((n_awk, cap_g, m), generator=gen, device=dev)
+                byz = torch.rand((n_awk, cap_g, n), generator=gen, device=dev)
+                gn = torch.randn((n_awk, m, n), generator=gen, device=dev)
+                want = gat_ref.bin_gather_ref(wx, byz, gn)
+                off = [torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x) for x in (wx, byz, gn)]
+                worst["bin_gather"] = max(worst["bin_gather"], max_err(torch, gat.bin_gather(wx, byz, gn), want),
+                                          max_err(torch, gat.bin_gather(*off), want))
+        say(f"order {order}, {n_awk} cells x cap {cap_awk} (the gather also cap 7, and off 16 bytes), every stagger: "
+            "max |kernel - plain| "
             + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    # the gather's run-time-N instance: an N no stagger has, and an M over
+    # the templated sums' 5
+    worst = 0.0
+    for m, n in ((3, 7), (6, 16)):
+        for cap_g in (cap_awk, 7):
+            wx = torch.rand((n_awk, cap_g, m), generator=gen, device=dev)
+            byz = torch.rand((n_awk, cap_g, n), generator=gen, device=dev)
+            gn = torch.randn((n_awk, m, n), generator=gen, device=dev)
+            want = gat_ref.bin_gather_ref(wx, byz, gn)
+            off = [torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x) for x in (wx, byz, gn)]
+            worst = max(worst, max_err(torch, gat.bin_gather(wx, byz, gn), want),
+                        max_err(torch, gat.bin_gather(*off), want))
+    say(f"bin_gather at (M, N) (3, 7) and (6, 16), {n_awk} cells x cap {cap_awk} and 7, aligned and off 16 bytes: "
+        f"max |kernel - plain| {worst:.2e}")
     for v_, cap_, d_ in ((1001, 2, 333), (1001, 16, 1000)):
         for dtype in (torch.float32, torch.bfloat16):
             w_ = torch.randn((v_, cap_), generator=gen, device=dev).to(dtype)
@@ -402,6 +451,15 @@ def main() -> None:
         deposit_library, slab_bytes + c * 3 * t**3 * 4, dep_flops, 5,
         "src/repro_torch/csrc/fused_deposition.cu", "src/repro/kernels/deposition/kernel.py:174",
     )
+    # bit for bit against the plain version on the CPU, a slice of cells at
+    # a time (each cell's tiles depend on that cell alone)
+    packed = dep.fused_bin_deposit(d, val, order=order)
+    for i in range(0, c, 1 << 18):
+        sl = slice(i, i + (1 << 18))
+        exact(torch, packed[sl], dep_ref.fused_bin_deposit_ref(d[sl].cpu(), val[sl].cpu(), order=order))
+    del packed
+    results["fused_bin_deposit"]["max_abs_err"] = 0.0
+    say("main-path shapes: the packed kernel is bit equal to its plain version on the CPU")
 
     def gather_library():
         """H = byz . G^T for the six components as one bmm:

@@ -57,10 +57,4 @@ __device__ __forceinline__ void weights(float d, int staggered, float* w) {
   for (int j = 0; j < T; ++j) w[j] = bspline<ORDER>(__fsub_rn(d, static_cast<float>(BASE + j) + shift));
 }
 
-// threads for a block whose threads each own one of n outputs
-inline int block_threads(int n, int cap_threads) {
-  const int t = ((n + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > cap_threads ? cap_threads : t);
-}
-
 }  // namespace mpic

@@ -19,11 +19,13 @@ import torch
 from repro_torch.kernels.build import check, load_library
 
 
-def fused_deposition_cuda(d: torch.Tensor, val: torch.Tensor, out: torch.Tensor, *, order: int) -> None:
-    """d, val (C, cap, 3) -> out (C, 3, T, T*T)."""
+def fused_deposition_cuda(d: torch.Tensor, val: torch.Tensor, out: torch.Tensor, *, order: int, geometry) -> None:
+    """d, val (C, cap, 3) -> out (C, 3, T, T*T), launched with ``geometry``
+    (`ops.packed_geometry`; the kernel refuses another)."""
     n_cells, cap, _ = d.shape
     rc = load_library().mpic_fused_deposit(
         d.data_ptr(), val.data_ptr(), out.data_ptr(), n_cells, cap, order,
+        geometry.cells_per_lane, geometry.lanes_per_block, geometry.threads, geometry.smem,
         d.device.index, torch.cuda.current_stream(d.device).cuda_stream,
     )
     check(rc, "fused_deposition_cuda")

@@ -32,14 +32,16 @@ LAUNCHES = {"fused_bin_deposit": 0, "fused_bin_deposit_reduced": 0, "bin_outer_p
 
 #: shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
-#: SMs of an H100: a grid of fewer than two blocks a SM gets one column a block
+#: SMs of an H100: a grid of fewer than two blocks a SM gets one lane a block
 SM_COUNT = 132
-#: most threads of a reduced-deposition block (`kReducedThreads` in the source)
-REDUCED_THREADS = 384
-#: slots the reduced kernel stages at a time (`kChunk`)
-REDUCED_CHUNK = 32
-#: raw chunks in flight or in use per column (`kRawStages`)
-REDUCED_RAW_STAGES = 4
+#: most threads of a deposition block (`kDepositThreads` in the source)
+DEPOSIT_THREADS = 384
+#: slots the deposition kernels stage at a time (`kChunk`)
+DEPOSIT_CHUNK = 32
+#: raw chunks in flight or in use per lane (`kRawStages`)
+DEPOSIT_RAW_STAGES = 4
+#: most chunks a packed-kernel lane walks
+PACKED_STEPS = 128
 
 
 class ReducedGeometry(NamedTuple):
@@ -57,31 +59,73 @@ class ReducedGeometry(NamedTuple):
         return range(start, min(start + self.cols_per_block, self.n_cols))
 
 
-def reduced_column_floats(order: int) -> int:
-    """Shared memory of one column in the reduced kernel, in floats: two
-    buffers of 32 kept-slot records (wz[2] padded to a multiple of 4, av[3],
-    wy[2], the record padded to a multiple of 4), four raw chunks of d and
-    val, two lists of 32 slot indices and 4 counts (`Reduced<ORDER>::COLUMN`)."""
+class PackedGeometry(NamedTuple):
+    """Launch of `fused_deposit_kernel`: block b owns lanes [b *
+    lanes_per_block, (b + 1) * lanes_per_block) of cells_per_lane
+    consecutive cells each, i.e. cells [b * lanes_per_block *
+    cells_per_lane, ...) up to n_cells."""
+
+    n_cells: int
+    cells_per_lane: int
+    lanes_per_block: int
+    threads: int
+    smem: int
+    blocks: int
+
+    def cells(self, block: int) -> range:
+        per_block = self.lanes_per_block * self.cells_per_lane
+        return range(block * per_block, min((block + 1) * per_block, self.n_cells))
+
+
+def lane_floats(order: int) -> int:
+    """Shared memory of one lane (a column, or a run of cells) in the
+    deposition kernels, in floats: two buffers of 32 kept-slot records
+    (wz[2] padded to a multiple of 4, av[3], wy[2], the record padded to a
+    multiple of 4), four raw chunks of d and val, two lists of 32 slot
+    indices and 4 counts (`Lane<ORDER>::FLOATS`)."""
     t, _ = unified_support(order)
     wzp = (t + 3) // 4 * 4
     record = (2 * wzp + 5 * t + 3) // 4 * 4
-    return 2 * REDUCED_CHUNK * record + REDUCED_RAW_STAGES * 6 * REDUCED_CHUNK + 2 * REDUCED_CHUNK + 4
+    return 2 * DEPOSIT_CHUNK * record + DEPOSIT_RAW_STAGES * 6 * DEPOSIT_CHUNK + 2 * DEPOSIT_CHUNK + 4
+
+
+def _lanes_per_block(order: int, n_lanes: int) -> int:
+    """As many lanes as 3*T^2 owner threads each fit in 384 threads and
+    three blocks fit in an SM's shared memory, fewer where the grid would
+    then give under two blocks an SM."""
+    t, _ = unified_support(order)
+    lane_bytes = 4 * lane_floats(order)
+    return max(1, min(DEPOSIT_THREADS // (3 * t * t), SMEM_LIMIT // 3 // lane_bytes, n_lanes // (2 * SM_COUNT)))
+
+
+def _threads(order: int, lanes: int) -> int:
+    t, _ = unified_support(order)
+    return (lanes * 3 * t * t + 31) // 32 * 32
 
 
 def reduced_geometry(grid_shape, order: int) -> ReducedGeometry:
     """Columns per block of the reduced kernel, a function of the grid and
-    order alone: as many columns as 3*T^2 owner threads each fit in 384
-    threads and three blocks fit in an SM's shared memory, fewer where the
-    grid would then give under two blocks an SM (one column a block at
-    lwfa's 64 columns)."""
+    order alone (one column a block at lwfa's 64 columns)."""
     nx, ny, _ = (int(s) for s in grid_shape)
-    t, _ = unified_support(order)
-    owners = 3 * t * t
     n_cols = nx * ny
-    column_bytes = 4 * reduced_column_floats(order)
-    k = max(1, min(REDUCED_THREADS // owners, SMEM_LIMIT // 3 // column_bytes, n_cols // (2 * SM_COUNT)))
-    threads = (k * owners + 31) // 32 * 32
-    return ReducedGeometry(n_cols, k, threads, 4 * k * reduced_column_floats(order), math.ceil(n_cols / k))
+    k = _lanes_per_block(order, n_cols)
+    return ReducedGeometry(n_cols, k, _threads(order, k), 4 * k * lane_floats(order), math.ceil(n_cols / k))
+
+
+def packed_geometry(n_cells: int, order: int, cap: int) -> PackedGeometry:
+    """Lanes of the packed kernel, a function of the cell count, order and
+    capacity alone: lanes of up to 128 chunks (128 cells at capacity 32),
+    shorter where the cells would then give under two blocks an SM; as many
+    lanes a block as the reduced kernel takes columns. Shared memory does
+    not depend on the capacity."""
+    n_cells = int(n_cells)
+    chunks = math.ceil(cap / DEPOSIT_CHUNK)
+    k = _lanes_per_block(order, n_cells)
+    per_lane = max(1, min(PACKED_STEPS // chunks, n_cells // (2 * SM_COUNT * k)))
+    n_lanes = math.ceil(n_cells / per_lane)
+    k = max(1, min(k, n_lanes // (2 * SM_COUNT)))
+    return PackedGeometry(n_cells, per_lane, k, _threads(order, k), 4 * k * lane_floats(order),
+                          math.ceil(n_lanes / k))
 
 
 def _check_slab(d: torch.Tensor, val: torch.Tensor, order: int) -> None:
@@ -103,17 +147,15 @@ def _check_slab(d: torch.Tensor, val: torch.Tensor, order: int) -> None:
 
 def fused_bin_deposit(d: torch.Tensor, val: torch.Tensor, *, order: int) -> torch.Tensor:
     """Fused Jx/Jy/Jz contraction: d, val (C, cap, 3) float32, val 0 on gap
-    slots -> (C, 3, T, T*T) packed rhocell tiles on the unified window."""
+    slots -> (C, 3, T, T*T) packed rhocell tiles on the unified window. Any
+    capacity: the kernel's shared memory depends on the order alone."""
     _check_slab(d, val, order)
     if d.device.type == "cpu":
         return fused_bin_deposit_ref(d, val, order=order)
     t, _ = unified_support(order)
-    cap = d.shape[1]
-    smem = 4 * (6 * t + 3) * cap
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"capacity {cap} needs {smem} B of shared memory per block, over {SMEM_LIMIT}")
+    geometry = packed_geometry(d.shape[0], order, d.shape[1])
     out = torch.empty((d.shape[0], 3, t, t * t), dtype=torch.float32, device=d.device)
-    kernel.fused_deposition_cuda(d, val, out, order=order)
+    kernel.fused_deposition_cuda(d, val, out, order=order, geometry=geometry)
     LAUNCHES["fused_bin_deposit"] += 1
     return out
 

@@ -32,13 +32,14 @@ def fused_gather_cuda(d: torch.Tensor, padded: torch.Tensor, out: torch.Tensor, 
     check(rc, "fused_gather_cuda")
 
 
-def bin_gather_cuda(wx: torch.Tensor, byz: torch.Tensor, g: torch.Tensor, out: torch.Tensor, *,
-                    cells_per_block: int, row_threads: int) -> None:
-    """wx (C, cap, M), byz (C, cap, N), g (C, M, N) -> out (C, cap); a
-    block takes ``cells_per_block`` cells of ``row_threads`` threads each."""
+def bin_gather_cuda(wx: torch.Tensor, byz: torch.Tensor, g: torch.Tensor, out: torch.Tensor, *, geometry) -> None:
+    """wx (C, cap, M), byz (C, cap, N), g (C, M, N) -> out (C, cap),
+    launched with ``geometry`` (`ops.bin_gather_geometry`; the kernel
+    refuses another)."""
     n_cells, cap, m = wx.shape
     rc = load_library().mpic_bin_gather(
         wx.data_ptr(), byz.data_ptr(), g.data_ptr(), out.data_ptr(), n_cells, cap, m, byz.shape[2],
-        cells_per_block, row_threads, wx.device.index, torch.cuda.current_stream(wx.device).cuda_stream,
+        geometry.group, geometry.stages, geometry.threads, geometry.smem, geometry.blocks,
+        wx.device.index, torch.cuda.current_stream(wx.device).cuda_stream,
     )
     check(rc, "bin_gather_cuda")

@@ -28,6 +28,13 @@ LAUNCHES = {"fused_bin_gather": 0, "bin_gather": 0}
 GATHER_THREADS = 160
 #: most z cells one fused-gather block takes
 GATHER_RUN = 32
+#: most threads of an unfused-gather block (`kMaxThreads` in bin_gather.cu)
+BIN_GATHER_THREADS = 512
+#: bytes of an unfused-gather block before its ring: the stages' mbarriers
+BIN_GATHER_HEADER = 128
+#: shared memory of an SM, and what the card keeps of it for each block
+SM_SMEM = 233_472
+SM_BLOCK_RESERVE = 1024
 
 
 class GatherGeometry(NamedTuple):
@@ -106,6 +113,57 @@ def fused_bin_gather(d: torch.Tensor, padded: torch.Tensor, *, grid_shape, order
     return out
 
 
+class BinGatherGeometry(NamedTuple):
+    """Launch of `bin_gather_kernel`: ``blocks`` persistent blocks walk the
+    groups of ``group`` consecutive cells, block b taking groups b, b +
+    blocks, ..., through a ring of ``stages`` stages."""
+
+    n_cells: int
+    group: int
+    stages: int
+    threads: int
+    smem: int
+    blocks: int
+
+    def groups(self, block: int) -> range:
+        return range(block, math.ceil(self.n_cells / self.group), self.blocks)
+
+    def cells(self, group: int) -> range:
+        return range(group * self.group, min((group + 1) * self.group, self.n_cells))
+
+
+def bin_gather_stage_floats(group: int, cap: int, m: int, n: int) -> int:
+    """Floats of one stage of the unfused gather's ring: the group's wx
+    rows, byz rows and g tiles, each padded to a multiple of 4
+    (`Ring::stage_floats`)."""
+    return sum((k + 3) // 4 * 4 for k in (group * cap * m, group * cap * n, group * m * n))
+
+
+def bin_gather_geometry(n_cells: int, cap: int, m: int, n: int) -> BinGatherGeometry:
+    """The unfused gather's launch, a function of the shapes alone: groups
+    of a multiple of 4 cells holding ~256 slots (one a thread; 8 cells at
+    capacity 32), fewer where two stages would not fit; up to four stages
+    a block within half an SM's shared memory, so two blocks share an SM
+    at order 3; as many blocks as fit on the card at once, or one per
+    group. Raises if one cell is over the shared memory."""
+    n_cells = int(n_cells)
+    per_cell = 4 * bin_gather_stage_floats(1, cap, m, n)
+    if BIN_GATHER_HEADER + per_cell > SMEM_LIMIT:
+        raise ValueError(f"capacity {cap} needs {BIN_GATHER_HEADER + per_cell} B of shared memory per block, "
+                         f"over {SMEM_LIMIT}")
+    group = 4 * max(1, 256 // (4 * cap))
+    while group > 1 and BIN_GATHER_HEADER + 2 * 4 * bin_gather_stage_floats(group, cap, m, n) > SMEM_LIMIT:
+        group //= 2
+    stage = 4 * bin_gather_stage_floats(group, cap, m, n)
+    ring = SM_SMEM // 2 - SM_BLOCK_RESERVE - BIN_GATHER_HEADER  # two blocks an SM
+    stages = max(1, min(4, ring // stage, (SMEM_LIMIT - BIN_GATHER_HEADER) // stage))
+    threads = min(BIN_GATHER_THREADS, max(32, (group * cap + 31) // 32 * 32))
+    smem = BIN_GATHER_HEADER + stages * stage
+    per_sm = max(1, min(2048 // threads, SM_SMEM // (smem + SM_BLOCK_RESERVE)))
+    blocks = min(math.ceil(n_cells / group), SM_COUNT * per_sm)
+    return BinGatherGeometry(n_cells, group, stages, threads, smem, blocks)
+
+
 def bin_gather(wx: torch.Tensor, byz: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """One component's per-bin gather: wx (C, cap, M), byz (C, cap, N) and
     the cells' neighbourhoods g (C, M, N), float32 -> (C, cap) float32."""
@@ -125,14 +183,8 @@ def bin_gather(wx: torch.Tensor, byz: torch.Tensor, g: torch.Tensor) -> torch.Te
         raise ValueError(f"unsupported device {wx.device}")
     if not (wx.is_contiguous() and byz.is_contiguous() and g.is_contiguous()):
         raise ValueError("wx, byz and g must be contiguous")
-    per_cell = 4 * (m * n + cap * ((m | 1) + (n | 1)))  # rows padded to odd strides
-    if per_cell > SMEM_LIMIT:
-        raise ValueError(f"capacity {cap} needs {per_cell} B of shared memory per block, over {SMEM_LIMIT}")
-    # one warp-rounded row of threads per cell, as many cells as fill 256
-    # threads and fit in shared memory
-    row_threads = min(256, (cap + 31) // 32 * 32)
-    cells_per_block = max(1, min(256 // row_threads, SMEM_LIMIT // per_cell))
+    geometry = bin_gather_geometry(c, cap, m, n)
     out = torch.empty((c, cap), dtype=torch.float32, device=wx.device)
-    kernel.bin_gather_cuda(wx, byz, g, out, cells_per_block=cells_per_block, row_threads=row_threads)
+    kernel.bin_gather_cuda(wx, byz, g, out, geometry=geometry)
     LAUNCHES["bin_gather"] += 1
     return out

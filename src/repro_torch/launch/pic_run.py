@@ -14,8 +14,9 @@ windows under `torch.profiler` and prints where the time went: first one
 window as it runs, replays of the captured step; then one window run
 eagerly, which reads the step's decisions on the host, because the
 ``pic.*`` ranges of `repro_torch.pic.simulation` are recorded only when the
-step's Python runs: device time per step phase, the top kernels, and the
-device's busy and idle share of each window's wall time.
+step's Python runs: device time per step phase, the top kernels, the
+port's own kernels (ms per step and per launch), and the device's busy and
+idle share of each window's wall time.
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ from collections import defaultdict
 import torch
 
 from repro_torch.api import make_simulation, scenario, scenario_names
+
+
+#: the kernels of `csrc`, as the profiler names them
+PORT_KERNELS = ("fused_deposit_kernel", "fused_deposit_reduced_kernel", "fused_gather_kernel",
+                "bin_outer_product_kernel", "bin_gather_kernel", "segment_accumulate_kernel")
 
 
 def build_spec(args):
@@ -87,6 +93,13 @@ def profile_window(sim, window: int, *, graphs: bool) -> None:
     print(f"  {'kernel':<60}{'calls':>7}{'ms/step':>10}")
     for name, (calls, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {name[:60]:<60}{calls:>7}{us / 1e3 / steps:>10.3f}")
+    # the port's own kernels, each template instance summed in
+    print(f"  {'port kernel':<32}{'calls':>7}{'ms/step':>10}{'ms/launch':>11}")
+    for kernel in PORT_KERNELS:
+        hits = [v for name, v in by_kernel.items() if f"::{kernel}" in name]
+        calls, us = sum(c for c, _ in hits), sum(u for _, u in hits)
+        if calls:
+            print(f"  {kernel:<32}{calls:>7}{us / 1e3 / steps:>10.3f}{us / 1e3 / calls:>11.3f}")
 
 
 def main(argv=None) -> None:

@@ -8,7 +8,8 @@ port is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: a kernel against its plain version, rtol 1e-5 / atol 1e-5 (the
+Tolerances: the packed deposition against its plain version, exact; a
+kernel against its plain version, rtol 1e-5 / atol 1e-5 (the
 kernels sum over the slots in order in registers, the plain versions through
 cuBLAS batched products), in float32 and in bfloat16 (the kernels widen
 bfloat16 operands to float32, as the plain versions do); backends and modes
@@ -317,7 +318,78 @@ def test_repeated_launches_are_bit_equal(order, cuda):
     grid, g = (5, 6, 7), max_guard(order)
     d, val = _synthetic_slab(grid, 40, 20 + order, cuda, empty=(3,), full=(4,))
     padded = torch.randn(6, *(n + 2 * g for n in grid), device=cuda)
+    m, n = support(order, True)[0], support(order, False)[0] ** 2
+    gen = torch.Generator(device=cuda).manual_seed(order)
+    shapes = ((1001, 33, m), (1001, 33, n), (1001, m, n))
+    wx, byz, gn = (torch.rand(shape, generator=gen, device=cuda) for shape in shapes)
     runs = [(dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=grid, guard=g),
-             gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g)) for _ in range(2)]
-    assert torch.equal(runs[0][0], runs[1][0])
-    assert torch.equal(runs[0][1], runs[1][1])
+             gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g),
+             dep.fused_bin_deposit(d, val, order=order), gat.bin_gather(wx, byz, gn)) for _ in range(2)]
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+PACKED_CASES = [((3, 4, 5), cap) for cap in (24, 48, 64, 320)] + [((4, 3, 1), 48)] + [
+    ((41, 61, 8), cap) for cap in (24, 48, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,cap", PACKED_CASES, ids=[f"{'x'.join(map(str, g))}-cap{c}" for g, c in PACKED_CASES])
+@pytest.mark.parametrize("order", ORDERS)
+def test_packed_kernel_is_bit_equal_to_plain(order, grid, cap, cuda):
+    """The packed deposition sums each tile element as a chain of fmaf over
+    the kept slots in order, with the products rounded as the plain
+    version rounds them: bit for bit, at capacities below, at and above
+    one 32-slot chunk, with an all-gap and a full cell, on grids whose cell
+    count no block's cells divide (20 008 cells: a partial last lane and
+    block). The plain version runs on the CPU: PyTorch on CUDA divides by
+    a Python scalar as a multiply by its rounded reciprocal, so the
+    third-order spline's t^3 / 6 can differ there by one rounding."""
+    d, val = _synthetic_slab(grid, cap, 100 * order + cap, cuda, empty=(1,), full=(0,))
+    geo = dep.packed_geometry(d.shape[0], order, cap)
+    if np.prod(grid) > 100:
+        assert geo.cells_per_lane > 1 and d.shape[0] % (geo.cells_per_lane * geo.lanes_per_block) != 0
+        assert d.shape[0] % geo.cells_per_lane != 0
+    got = dep.fused_bin_deposit(d, val, order=order)
+    assert torch.equal(got.cpu(), dep_ref.fused_bin_deposit_ref(d.cpu(), val.cpu(), order=order))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [32, 7, 33], ids=["cap-32", "cap-7", "cap-33"])
+@pytest.mark.parametrize("order", ORDERS)
+def test_bin_gather_at_every_stagger(order, cap, cuda):
+    """The unfused gather at the (M, N) of every field stagger, at capacity
+    32 (every group copied by the TMA but a ragged last one) and at odd
+    capacities, on 1001 cells (no group size divides it), and on operands
+    that start 4 bytes past a 16-byte boundary (every group copied in
+    4-byte loads)."""
+    gen = torch.Generator(device=cuda).manual_seed(10 * order + cap)
+    for stagger in (NO_STAGGER,) + EB_STAGGERS:
+        (tx, ty, tz) = (support(order, st)[0] for st in stagger)
+        shapes = ((1001, cap, tx), (1001, cap, ty * tz), (1001, tx, ty * tz))
+        wx, byz, g = (torch.rand(shape, generator=gen, device=cuda) for shape in shapes)
+        g = g * 2 - 1
+        _close(gat.bin_gather(wx, byz, g), gat_ref.bin_gather_ref(wx, byz, g))
+        shifted = [torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x) for x in (wx, byz, g)]
+        assert all(x.data_ptr() % 16 == 4 and x.is_contiguous() for x in shifted)
+        _close(gat.bin_gather(*shifted), gat_ref.bin_gather_ref(wx, byz, g))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [32, 7], ids=["cap-32", "cap-7"])
+@pytest.mark.parametrize("m,n", [(3, 7), (6, 16)], ids=["N-7", "M-6"])
+def test_bin_gather_outside_the_templated_shapes(m, n, cap, cuda):
+    """The unfused gather's run-time-N instance: an N that no stagger has,
+    and an M over the templated sums' 5, on 1001 cells, aligned and 4 bytes
+    off a 16-byte boundary."""
+    gen = torch.Generator(device=cuda).manual_seed(100 * m + n + cap)
+    shapes = ((1001, cap, m), (1001, cap, n), (1001, m, n))
+    wx, byz, g = (torch.rand(shape, generator=gen, device=cuda) for shape in shapes)
+    g = g * 2 - 1
+    want = gat_ref.bin_gather_ref(wx, byz, g)
+    _close(gat.bin_gather(wx, byz, g), want)
+    shifted = [torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x) for x in (wx, byz, g)]
+    assert all(x.data_ptr() % 16 == 4 and x.is_contiguous() for x in shifted)
+    _close(gat.bin_gather(*shifted), want)
+    torch.cuda.synchronize()

@@ -1,5 +1,5 @@
-"""What the redesigned reduced deposition and fused gather kernels rely on,
-pinned on the CPU through their plain versions, and their launch geometry.
+"""What the redesigned deposition and gather kernels rely on, pinned on the
+CPU through their plain versions, and their launch geometry.
 
 - The deposition kernels skip every slot whose val is 0: changing the
   offsets of such slots leaves the plain versions bit-equal.
@@ -7,12 +7,15 @@ pinned on the CPU through their plain versions, and their launch geometry.
   for both staggers, which it finds with a test on d alone (outside the hull
   of the tap centres widened by the spline's half-width): those slots get
   exactly 0 from the plain version.
-- The launch geometries are pure functions of the shapes, stay within the
-  card's 227 KB of shared memory and 1024 threads a block, and cover every
-  column and cell exactly once.
+- The launch geometries (reduced and packed deposition, fused and unfused
+  gather) are pure functions of the shapes, stay within the card's 227 KB
+  of shared memory and 1024 threads a block, and cover every column and
+  cell exactly once.
 
 Inputs are made with numpy from a seed; comparisons are exact.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -112,7 +115,7 @@ def test_reduced_geometry_covers_every_column_once(shape):
     geo = dep.reduced_geometry(grid, order)
     assert geo == dep.reduced_geometry(tuple(grid), order)  # pure: same shapes, same launch
     t, _ = unified_support(order)
-    assert geo.threads % 32 == 0 and geo.cols_per_block * 3 * t * t <= geo.threads <= min(1024, dep.REDUCED_THREADS)
+    assert geo.threads % 32 == 0 and geo.cols_per_block * 3 * t * t <= geo.threads <= min(1024, dep.DEPOSIT_THREADS)
     assert 0 < geo.smem <= SMEM_LIMIT
     seen = np.zeros(grid[0] * grid[1], dtype=int)
     for b in range(geo.blocks):
@@ -137,6 +140,58 @@ def test_gather_geometry_covers_every_cell_once(shape):
     assert (seen == 1).all()
 
 
+#: (cells, order, cap) of the packed deposition: main path, lwfa, a tall
+#: column, capacity 320, and a cell count whose last lane and block are
+#: partial
+PACKED_SHAPES = [(128**3, 3, 32), (8 * 8 * 64, 1, 48), (2 * 2 * 256, 3, 24), (27, 3, 320), (20_003, 2, 48)]
+PACKED_IDS = SHAPE_IDS + ["partial-lane"]
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES, ids=PACKED_IDS)
+def test_packed_geometry_covers_every_cell_once(shape):
+    n_cells, order, cap = shape
+    geo = dep.packed_geometry(n_cells, order, cap)
+    assert geo == dep.packed_geometry(np.int64(n_cells), order, cap)  # pure: same shapes, same launch
+    t, _ = unified_support(order)
+    assert geo.threads % 32 == 0
+    assert geo.lanes_per_block * 3 * t * t <= geo.threads <= min(1024, dep.DEPOSIT_THREADS)
+    assert 0 < geo.smem <= SMEM_LIMIT and geo.smem == 4 * geo.lanes_per_block * dep.lane_floats(order)
+    assert geo.cells_per_lane * math.ceil(cap / dep.DEPOSIT_CHUNK) <= dep.PACKED_STEPS or geo.cells_per_lane == 1
+    seen = np.zeros(n_cells, dtype=int)
+    for b in range(geo.blocks):
+        cells = geo.cells(b)
+        assert 1 <= len(cells) <= geo.lanes_per_block * geo.cells_per_lane
+        seen[cells.start:cells.stop] += 1
+    assert (seen == 1).all()
+
+
+#: (cells, cap, M, N) of the unfused gather: the main path's Ex and Bx,
+#: order 1's smallest, an odd capacity on an awkward cell count (ragged
+#: groups), capacity 320, and the run-time-N instance's (M, N): an N no
+#: stagger has, and an M over the templated sums' 5
+BIN_GATHER_SHAPES = [(128**3, 32, 5, 16), (128**3, 32, 4, 25), (1001, 32, 2, 4), (203, 7, 5, 16), (27, 320, 5, 25),
+                     (1001, 32, 3, 7), (1001, 7, 6, 16)]
+BIN_GATHER_IDS = ["main-Ex", "main-Bx", "order-1", "odd-cap", "cap-320", "run-time-N", "M-over-5"]
+
+
+@pytest.mark.parametrize("shape", BIN_GATHER_SHAPES, ids=BIN_GATHER_IDS)
+def test_bin_gather_geometry_covers_every_cell_once(shape):
+    n_cells, cap, m, n = shape
+    geo = gat.bin_gather_geometry(n_cells, cap, m, n)
+    assert geo == gat.bin_gather_geometry(np.int64(n_cells), cap, m, n)
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= min(1024, gat.BIN_GATHER_THREADS)
+    assert 1 <= geo.stages <= gat.BIN_GATHER_HEADER // 8
+    assert geo.smem == gat.BIN_GATHER_HEADER + 4 * geo.stages * gat.bin_gather_stage_floats(geo.group, cap, m, n)
+    assert 0 < geo.smem <= SMEM_LIMIT
+    seen = np.zeros(n_cells, dtype=int)
+    for b in range(geo.blocks):
+        for group in geo.groups(b):
+            cells = geo.cells(group)
+            assert 1 <= len(cells) <= geo.group
+            seen[cells.start:cells.stop] += 1
+    assert (seen == 1).all()
+
+
 def test_geometries_of_the_main_path_and_small_grids():
     """Several columns a block on the main path; one column a block, and
     runs short enough for two blocks an SM, on lwfa's 64 columns."""
@@ -148,3 +203,15 @@ def test_geometries_of_the_main_path_and_small_grids():
     assert lwfa.blocks >= 2 * dep.SM_COUNT
     with pytest.raises(ValueError, match="shared memory"):
         gat.gather_geometry((4, 4, 4), 3, 60_000)
+    # the packed deposition as the reduced one on the main path; its
+    # shared memory does not grow with the capacity
+    packed = dep.packed_geometry(128**3, 3, 32)
+    assert (packed.lanes_per_block, packed.threads, packed.cells_per_lane) == (5, 384, 128)
+    assert dep.packed_geometry(27, 3, 320).smem == dep.packed_geometry(27, 3, 24).smem
+    # the unfused gather: 8-cell groups of one slot a thread, two blocks an
+    # SM at order 3, every group aligned for the bulk copies
+    for m, n in ((5, 16), (4, 20), (4, 25), (5, 20)):
+        geo = gat.bin_gather_geometry(128**3, 32, m, n)
+        assert (geo.group, geo.threads, geo.blocks) == (8, 256, 2 * dep.SM_COUNT) and geo.stages >= 3
+    with pytest.raises(ValueError, match="shared memory"):
+        gat.bin_gather_geometry(100, 3000, 5, 25)
