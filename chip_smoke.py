@@ -13,10 +13,12 @@ Phases, in order; any failure exits non-zero:
    the packed deposition bit for bit against its plain version, the reduced
    one bit for bit against the packed kernel + z pass, and both and the
    fused gather against their own repeated launches; the unfused kernels at
-   the M and N of every stagger on an awkward cell count (the gather also
-   at an odd capacity and on operands off a 16-byte boundary, and at an
-   (M, N) outside the templated ones), in float32
-   and, for `bin_outer_product` and `segment_accumulate`, bfloat16; (b) at
+   the M and N of every stagger on an awkward cell count, at odd
+   capacities and on operands off a 16-byte boundary (their element-copy
+   route), and at an (M, N) outside the templated ones, in float32 and,
+   for `bin_outer_product` and `segment_accumulate`, bfloat16;
+   `bin_outer_product` also with all-zero cells, its two copy routes and
+   two launches bit-equal; (b) at
    the main path's shapes (order 3,
    128^3 cells, capacity 32; `segment_accumulate` at the MoE combine of
    mixtral_8x22b and the embedding gradient of phi3_mini_3p8b), with each
@@ -65,9 +67,10 @@ FLOPS_PER_TAP = 8            # one B-spline tap: offset, |u|, branch, polynomial
 
 RTOL = ATOL = 1e-5           # kernel vs plain version: float32, different summation order
 # kernels whose every instance must compile without spilling, and how
-# many instances each has (orders 1-3; the unfused gather's N templates)
+# many instances each has (orders 1-3; the unfused gather's N templates;
+# the unfused deposition's M templates and run-time M, in both types)
 NO_SPILLS = {"fused_deposit_kernel": 3, "fused_deposit_reduced_kernel": 3, "fused_gather_kernel": 3,
-             "bin_gather_kernel": 8}
+             "bin_gather_kernel": 8, "bin_outer_product_kernel": 10}
 MAIN = dict(grid=(128, 128, 128), ppc=2, order=3, steps=32, window=16)
 UNFUSED = dict(MAIN, steps=8, window=8, deposition="matrix_unfused", gather="matrix_unfused")
 SCATTER = dict(MAIN, steps=4, window=4, deposition="scatter", gather="scatter")
@@ -319,24 +322,42 @@ def main() -> None:
             "repeat bit for bit")
 
     # the unfused kernels at the M x N of every stagger, on 1001 cells (no
-    # block holds a whole number of them), random operands; the gather also
-    # at capacity 7 and on operands 4 bytes off a 16-byte boundary (its
-    # 4-byte copy path)
+    # block holds a whole number of them), random operands; both also at odd
+    # capacities and on operands one element off a 16-byte boundary (their
+    # element-copy route)
     def taps(order, stagger):
         t3 = [support(order, s)[0] for s in stagger]
         return t3[0], t3[1] * t3[2]
+
+    def off16(x):
+        """x copied to one element past a 16-byte boundary."""
+        return torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape).copy_(x)
+
+    def outer_check(cap_o, m, n, dtype):
+        """bin_outer_product on 1001 cells, every seventh a cell all zero:
+        its error against the plain version; fails unless operands off a
+        16-byte boundary (the element route) and a second launch give the
+        same bits"""
+        a = torch.randn((n_awk, cap_o, m), generator=gen, device=dev)
+        a[::7] = 0.0
+        a, b = a.to(dtype), torch.randn((n_awk, cap_o, n), generator=gen, device=dev).to(dtype)
+        got = dep.bin_outer_product(a, b)
+        err = max_err(torch, got, dep_ref.bin_outer_product_ref(a, b))
+        if not (torch.equal(dep.bin_outer_product(off16(a), off16(b)), got)
+                and torch.equal(dep.bin_outer_product(a, b), got)):
+            fail(f"bin_outer_product at cap {cap_o}, (M, N) ({m}, {n}), {dtype}: its copy routes or two launches "
+                 "differ")
+        return err
 
     n_awk, cap_awk = 1001, 32
     for order in (1, 2, 3):
         worst = {"bin_outer_product f32": 0.0, "bin_outer_product bf16": 0.0, "bin_gather": 0.0}
         for stagger in (NO_STAGGER,) + CURRENT_STAGGER:
             m, n = taps(order, stagger)
-            a = torch.randn((n_awk, cap_awk, m), generator=gen, device=dev)
-            b = torch.randn((n_awk, cap_awk, n), generator=gen, device=dev)
-            for dtype, key in ((torch.float32, "bin_outer_product f32"), (torch.bfloat16, "bin_outer_product bf16")):
-                ad, bd = a.to(dtype), b.to(dtype)
-                worst[key] = max(worst[key], max_err(torch, dep.bin_outer_product(ad, bd),
-                                                     dep_ref.bin_outer_product_ref(ad, bd)))
+            for cap_o in (cap_awk, 7, 33, 48):
+                for dtype, key in ((torch.float32, "bin_outer_product f32"),
+                                   (torch.bfloat16, "bin_outer_product bf16")):
+                    worst[key] = max(worst[key], outer_check(cap_o, m, n, dtype))
         for stagger in (NO_STAGGER,) + EB_STAGGERS:
             m, n = taps(order, stagger)
             for cap_g in (cap_awk, 7):
@@ -344,12 +365,17 @@ def main() -> None:
                 byz = torch.rand((n_awk, cap_g, n), generator=gen, device=dev)
                 gn = torch.randn((n_awk, m, n), generator=gen, device=dev)
                 want = gat_ref.bin_gather_ref(wx, byz, gn)
-                off = [torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x) for x in (wx, byz, gn)]
+                off = [off16(x) for x in (wx, byz, gn)]
                 worst["bin_gather"] = max(worst["bin_gather"], max_err(torch, gat.bin_gather(wx, byz, gn), want),
                                           max_err(torch, gat.bin_gather(*off), want))
-        say(f"order {order}, {n_awk} cells x cap {cap_awk} (the gather also cap 7, and off 16 bytes), every stagger: "
-            "max |kernel - plain| "
-            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+        say(f"order {order}, {n_awk} cells x cap {cap_awk} (bin_outer_product also caps 7, 33, 48, all-zero cells, "
+            "its two copy routes and two launches bit-equal; the gather also cap 7), every stagger, aligned and off 16 "
+            "bytes: max |kernel - plain| " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    # bin_outer_product's run-time-M instance: M outside the templated 2..5
+    worst = max(outer_check(cap_o, m, n, dtype) for m, n in ((1, 4), (6, 16), (9, 5)) for cap_o in (cap_awk, 7)
+                for dtype in (torch.float32, torch.bfloat16))
+    say(f"bin_outer_product at (M, N) (1, 4), (6, 16) and (9, 5), {n_awk} cells x cap {cap_awk} and 7, f32 and bf16: "
+        f"max |kernel - plain| {worst:.2e}; copy routes and launches bit-equal")
     # the gather's run-time-N instance: an N no stagger has, and an M over
     # the templated sums' 5
     worst = 0.0
@@ -359,7 +385,7 @@ def main() -> None:
             byz = torch.rand((n_awk, cap_g, n), generator=gen, device=dev)
             gn = torch.randn((n_awk, m, n), generator=gen, device=dev)
             want = gat_ref.bin_gather_ref(wx, byz, gn)
-            off = [torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x) for x in (wx, byz, gn)]
+            off = [off16(x) for x in (wx, byz, gn)]
             worst = max(worst, max_err(torch, gat.bin_gather(wx, byz, gn), want),
                         max_err(torch, gat.bin_gather(*off), want))
     say(f"bin_gather at (M, N) (3, 7) and (6, 16), {n_awk} cells x cap {cap_awk} and 7, aligned and off 16 bytes: "

@@ -40,46 +40,18 @@
 
 #include <cstdint>
 
+#include "tma_bulk.cuh"
+
 namespace {
+
+using mpic::bulk_copy;
+using mpic::mbar_expect;
+using mpic::mbar_init;
+using mpic::mbar_wait;
 
 constexpr int kMaxThreads = 512;
 constexpr int kRingHeader = 128;  // bytes before the ring: one mbarrier a stage
 constexpr int kMaxM = 5;          // most M of the templated sums
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(1u) : "memory");
-}
-
-// arrive once and expect `bytes` of copies to complete on bar
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` of bar has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
-// to shared memory by the TMA, completing on bar
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes), "r"(smem_addr(bar))
-               : "memory");
-}
 
 __host__ __device__ constexpr int round4(long long k) { return static_cast<int>((k + 3) / 4 * 4); }
 
@@ -175,7 +147,7 @@ bin_gather_kernel(const float* __restrict__ wx, const float* __restrict__ byz, c
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < stages; ++st) mbar_init(full + st);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mpic::mbar_init_fence();
   }
   __syncthreads();
   if (threadIdx.x == 0) {

@@ -44,12 +44,14 @@ def fused_deposition_reduced_cuda(d: torch.Tensor, val: torch.Tensor, out: torch
     check(rc, "fused_deposition_reduced_cuda")
 
 
-def bin_outer_product_cuda(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, cells_per_block: int) -> None:
+def bin_outer_product_cuda(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, geometry) -> None:
     """a (C, cap, M), b (C, cap, N), both float32 or both bfloat16 -> out
-    (C, M, N) float32; one block per ``cells_per_block`` cells."""
+    (C, M, N) float32, launched with ``geometry``
+    (`ops.bin_outer_product_geometry`; the kernel refuses another)."""
     n_cells, cap, m = a.shape
     rc = load_library().mpic_bin_outer_product(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), n_cells, cap, m, b.shape[2], cells_per_block,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), n_cells, cap, m, b.shape[2],
+        geometry.group, geometry.stages, geometry.threads, geometry.smem, geometry.blocks,
         int(a.dtype == torch.bfloat16), a.device.index, torch.cuda.current_stream(a.device).cuda_stream,
     )
     check(rc, "bin_outer_product_cuda")

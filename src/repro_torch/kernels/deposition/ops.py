@@ -34,6 +34,9 @@ LAUNCHES = {"fused_bin_deposit": 0, "fused_bin_deposit_reduced": 0, "bin_outer_p
 SMEM_LIMIT = 232_448
 #: SMs of an H100: a grid of fewer than two blocks a SM gets one lane a block
 SM_COUNT = 132
+#: shared memory of an SM, and what the card keeps of it for each block
+SM_SMEM = 233_472
+SM_BLOCK_RESERVE = 1024
 #: most threads of a deposition block (`kDepositThreads` in the source)
 DEPOSIT_THREADS = 384
 #: slots the deposition kernels stage at a time (`kChunk`)
@@ -42,6 +45,12 @@ DEPOSIT_CHUNK = 32
 DEPOSIT_RAW_STAGES = 4
 #: most chunks a packed-kernel lane walks
 PACKED_STEPS = 128
+#: most threads of a `bin_outer_product` block (`kMaxThreads` in
+#: bin_outer_product.cu)
+OUTER_THREADS = 256
+#: bytes of a `bin_outer_product` block before its ring: the stages'
+#: mbarriers (bulk route only)
+OUTER_HEADER = 128
 
 
 class ReducedGeometry(NamedTuple):
@@ -181,6 +190,59 @@ def fused_bin_deposit_reduced(d: torch.Tensor, val: torch.Tensor, *, order: int,
     return out
 
 
+class OuterGeometry(NamedTuple):
+    """Launch of `bin_outer_product_kernel`: ``blocks`` persistent blocks
+    walk the groups of ``group`` consecutive cells, block b taking groups
+    b, b + blocks, ..., through a ring of ``stages`` stages; ``bulk``: the
+    stages are filled by TMA bulk copies (given 16-byte aligned operands),
+    else by the threads, one element at a time."""
+
+    n_cells: int
+    group: int
+    stages: int
+    threads: int
+    smem: int
+    blocks: int
+    bulk: bool
+
+    def groups(self, block: int) -> range:
+        return range(block, math.ceil(self.n_cells / self.group), self.blocks)
+
+    def cells(self, group: int) -> range:
+        return range(group * self.group, min((group + 1) * self.group, self.n_cells))
+
+
+def bin_outer_product_geometry(n_cells: int, cap: int, m: int, n: int, dtype: torch.dtype) -> OuterGeometry:
+    """The unfused deposition's launch, a function of the shapes alone:
+    groups of cells holding ~256 columns (one a thread; 12 cells at N 20),
+    fewer where two stages would not fit in half an SM's shared memory;
+    up to four stages a block within that half, so two blocks share an SM;
+    as many blocks as fit on the card at once, or one per group. The bulk
+    route where a cell's a and b runs are 16-byte multiples (then so are a
+    group's) and the stages' barriers fit beside one cell (`Ring` in
+    csrc/bin_outer_product.cu). Raises if one cell is over the shared
+    memory."""
+    n_cells = int(n_cells)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    a_run, b_run = cap * m * esize, cap * n * esize
+    per_cell = a_run + b_run
+    bulk = a_run % 16 == 0 and b_run % 16 == 0 and OUTER_HEADER + per_cell <= SMEM_LIMIT
+    header = OUTER_HEADER if bulk else 0
+    if header + per_cell > SMEM_LIMIT:
+        raise ValueError(f"capacity {cap} needs {header + per_cell} B of shared memory per block, over {SMEM_LIMIT}")
+    ring = SM_SMEM // 2 - SM_BLOCK_RESERVE - header  # two blocks an SM
+    group = max(1, OUTER_THREADS // n)
+    while group > 1 and 2 * group * per_cell > ring:
+        group //= 2
+    stage = group * per_cell
+    stages = max(1, min(4, ring // stage, (SMEM_LIMIT - header) // stage))
+    threads = min(OUTER_THREADS, max(32, (group * n + 31) // 32 * 32))
+    smem = header + stages * stage
+    per_sm = max(1, min(2048 // threads, SM_SMEM // (smem + SM_BLOCK_RESERVE)))
+    blocks = min(math.ceil(n_cells / group), SM_COUNT * per_sm)
+    return OuterGeometry(n_cells, group, stages, threads, smem, blocks, bulk)
+
+
 def bin_outer_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-cell contraction out[c] = A_c^T B_c: a (C, cap, M), b (C, cap, N),
     both float32 or both bfloat16 -> (C, M, N) float32, accumulated in
@@ -200,13 +262,9 @@ def bin_outer_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("a and b must be contiguous")
     cap, m, n = a.shape[1], a.shape[2], b.shape[2]
     if m * n > 1024:
-        raise ValueError(f"an M x N tile of {m} x {n} is over the kernel's 1024 threads")
-    per_cell = 4 * cap * (m + n)  # shared memory of one cell's staged operands
-    if per_cell > SMEM_LIMIT:
-        raise ValueError(f"capacity {cap} needs {per_cell} B of shared memory per block, over {SMEM_LIMIT}")
-    # as many cells as fill 256 threads, as far as their operands fit
-    cells_per_block = max(1, min(256 // (m * n), SMEM_LIMIT // per_cell))
+        raise ValueError(f"an M x N tile of {m} x {n} is over the kernel's 1024 outputs a cell")
+    geometry = bin_outer_product_geometry(a.shape[0], cap, m, n, a.dtype)
     out = torch.empty((a.shape[0], m, n), dtype=torch.float32, device=a.device)
-    kernel.bin_outer_product_cuda(a, b, out, cells_per_block=cells_per_block)
+    kernel.bin_outer_product_cuda(a, b, out, geometry=geometry)
     LAUNCHES["bin_outer_product"] += 1
     return out

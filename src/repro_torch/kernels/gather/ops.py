@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.shape_functions import max_guard, unified_support
-from repro_torch.kernels.deposition.ops import SM_COUNT, SMEM_LIMIT
+from repro_torch.kernels.deposition.ops import SM_BLOCK_RESERVE, SM_COUNT, SM_SMEM, SMEM_LIMIT
 from repro_torch.kernels.gather import kernel
 from repro_torch.kernels.gather.ref import bin_gather_ref, fused_gather_ref
 
@@ -32,9 +32,6 @@ GATHER_RUN = 32
 BIN_GATHER_THREADS = 512
 #: bytes of an unfused-gather block before its ring: the stages' mbarriers
 BIN_GATHER_HEADER = 128
-#: shared memory of an SM, and what the card keeps of it for each block
-SM_SMEM = 233_472
-SM_BLOCK_RESERVE = 1024
 
 
 class GatherGeometry(NamedTuple):

@@ -12,7 +12,8 @@ Tolerances: the packed deposition against its plain version, exact; a
 kernel against its plain version, rtol 1e-5 / atol 1e-5 (the
 kernels sum over the slots in order in registers, the plain versions through
 cuBLAS batched products), in float32 and in bfloat16 (the kernels widen
-bfloat16 operands to float32, as the plain versions do); backends and modes
+bfloat16 operands to float32, as the plain versions do); the unfused
+deposition's two copy routes and repeated launches, exact; backends and modes
 after 8 windowed steps, 1e-4 of the field's largest magnitude (those sums
 compound through the field solve); `matrix_scatter_add` against a plain
 scatter-add, 1e-5 of the output's magnitude (both add the overflow items
@@ -373,6 +374,61 @@ def test_bin_gather_at_every_stagger(order, cap, cuda):
         shifted = [torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x) for x in (wx, byz, g)]
         assert all(x.data_ptr() % 16 == 4 and x.is_contiguous() for x in shifted)
         _close(gat.bin_gather(*shifted), gat_ref.bin_gather_ref(wx, byz, g))
+    torch.cuda.synchronize()
+
+
+def _off16(x):
+    """x copied to one element past a 16-byte boundary (4 bytes in
+    float32, 2 in bfloat16)."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape).copy_(x)
+    assert y.data_ptr() % 16 == x.element_size() and y.is_contiguous()
+    return y
+
+
+def _outer_operands(gen, cap, m, n, dtype, device):
+    """a (1001, cap, M) with every seventh cell all zero, b (1001, cap, N)."""
+    a = torch.randn((1001, cap, m), generator=gen, device=device)
+    a[::7] = 0.0
+    b = torch.randn((1001, cap, n), generator=gen, device=device)
+    return a.to(dtype), b.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cap", [7, 32, 33, 48], ids=["cap-7", "cap-32", "cap-33", "cap-48"])
+@pytest.mark.parametrize("order", ORDERS)
+def test_bin_outer_product_at_every_stagger(order, cap, dtype, cuda):
+    """The unfused deposition at the (M, N) of every current stagger, on
+    1001 cells (a ragged last group) with all-zero a cells: at capacities 32
+    and 48 every cell is copied by the TMA; at 7 and 33 only where M and N
+    are multiples of 4 (float32) or 8 (bfloat16), the element route
+    otherwise; operands one element past a 16-byte boundary take the element
+    route at every capacity. Both routes, and two launches, give the same
+    bits: each output is a chain of fmaf over ascending slots."""
+    gen = torch.Generator(device=cuda).manual_seed(100 * order + cap)
+    for stagger in (NO_STAGGER,) + CURRENT_STAGGER:
+        (tx, ty, tz) = (support(order, st)[0] for st in stagger)
+        a, b = _outer_operands(gen, cap, tx, ty * tz, dtype, cuda)
+        got = dep.bin_outer_product(a, b)
+        _close(got, dep_ref.bin_outer_product_ref(a, b))
+        assert bool((got[::7] == 0).all())
+        assert torch.equal(dep.bin_outer_product(_off16(a), _off16(b)), got)
+        assert torch.equal(dep.bin_outer_product(a, b), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,n", [(1, 4), (6, 16), (9, 5)], ids=["M-1", "M-6", "M-9"])
+def test_bin_outer_product_outside_the_templated_shapes(m, n, dtype, cuda):
+    """The unfused deposition's run-time-M instance (M outside 2..5; M 9
+    takes two rounds of five sums), aligned and one element off a 16-byte
+    boundary, bit-equal to each other."""
+    gen = torch.Generator(device=cuda).manual_seed(10 * m + n)
+    a, b = _outer_operands(gen, 32, m, n, dtype, cuda)
+    got = dep.bin_outer_product(a, b)
+    _close(got, dep_ref.bin_outer_product_ref(a, b))
+    assert torch.equal(dep.bin_outer_product(_off16(a), _off16(b)), got)
     torch.cuda.synchronize()
 
 

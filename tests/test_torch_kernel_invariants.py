@@ -7,8 +7,8 @@ CPU through their plain versions, and their launch geometry.
   for both staggers, which it finds with a test on d alone (outside the hull
   of the tap centres widened by the spline's half-width): those slots get
   exactly 0 from the plain version.
-- The launch geometries (reduced and packed deposition, fused and unfused
-  gather) are pure functions of the shapes, stay within the card's 227 KB
+- The launch geometries (reduced, packed and unfused deposition, fused and
+  unfused gather) are pure functions of the shapes, stay within the card's 227 KB
   of shared memory and 1024 threads a block, and cover every column and
   cell exactly once.
 
@@ -192,6 +192,46 @@ def test_bin_gather_geometry_covers_every_cell_once(shape):
     assert (seen == 1).all()
 
 
+#: (cells, cap, M, N) of the unfused deposition: the main path's Jx and Jy,
+#: order 1's smallest, ragged last groups at capacities that leave a cell's
+#: runs off 16 bytes (7, 33) and at 32, capacity 128 (test_torch_modes'
+#: largest shape), and an M over the templated sums' 5
+OUTER_SHAPES = [(128**3, 32, 5, 16), (128**3, 32, 4, 20), (1001, 32, 3, 4), (1001, 7, 5, 16), (1001, 33, 4, 20),
+                (203, 32, 2, 6), (512, 128, 4, 16), (1001, 7, 6, 16)]
+OUTER_IDS = ["main-Jx", "main-Jy", "order-1", "cap-7", "cap-33", "ragged", "cap-128", "M-over-5"]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", OUTER_SHAPES, ids=OUTER_IDS)
+def test_bin_outer_product_geometry_covers_every_cell_once(shape, dtype):
+    n_cells, cap, m, n = shape
+    geo = dep.bin_outer_product_geometry(n_cells, cap, m, n, dtype)
+    assert geo == dep.bin_outer_product_geometry(np.int64(n_cells), cap, m, n, dtype)  # pure
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= min(1024, dep.OUTER_THREADS)
+    assert 1 <= geo.stages <= dep.OUTER_HEADER // 8
+    esize = 2 if dtype == torch.bfloat16 else 4
+    a_run, b_run = cap * m * esize, cap * n * esize
+    # the bulk route exactly when a cell's two runs are 16-byte multiples:
+    # then every group's runs, the ragged last one's too, start and end on
+    # 16-byte boundaries, in the operands and in the stage
+    assert geo.bulk == (a_run % 16 == 0 and b_run % 16 == 0)
+    header = dep.OUTER_HEADER if geo.bulk else 0
+    assert geo.smem == header + geo.stages * geo.group * (a_run + b_run)
+    assert 0 < geo.smem <= SMEM_LIMIT
+    seen = np.zeros(n_cells, dtype=int)
+    for b in range(geo.blocks):
+        for group in geo.groups(b):
+            cells = geo.cells(group)
+            assert 1 <= len(cells) <= geo.group
+            if geo.bulk:
+                assert (cells.start * a_run) % 16 == (len(cells) * a_run) % 16 == 0
+                assert (cells.start * b_run) % 16 == (len(cells) * b_run) % 16 == 0
+                assert (geo.group * a_run) % 16 == 0  # the stage's b rows
+            seen[cells.start:cells.stop] += 1
+    assert (seen == 1).all()
+
+
 def test_geometries_of_the_main_path_and_small_grids():
     """Several columns a block on the main path; one column a block, and
     runs short enough for two blocks an SM, on lwfa's 64 columns."""
@@ -215,3 +255,11 @@ def test_geometries_of_the_main_path_and_small_grids():
         assert (geo.group, geo.threads, geo.blocks) == (8, 256, 2 * dep.SM_COUNT) and geo.stages >= 3
     with pytest.raises(ValueError, match="shared memory"):
         gat.bin_gather_geometry(100, 3000, 5, 25)
+    # the unfused deposition: two 256-thread blocks an SM at order 3, every
+    # cell copied by the TMA; a cell over the shared memory raises
+    for m, n, group in ((5, 16, 16), (4, 20, 12)):
+        geo = dep.bin_outer_product_geometry(128**3, 32, m, n, torch.float32)
+        assert (geo.group, geo.threads, geo.blocks, geo.bulk) == (group, 256, 2 * dep.SM_COUNT, True)
+        assert geo.stages >= 2
+    with pytest.raises(ValueError, match="shared memory"):
+        dep.bin_outer_product_geometry(100, 3000, 5, 20, torch.float32)
