@@ -36,7 +36,22 @@ Phases, in order; any failure exits non-zero:
 6. the other backends and modes at 32^3 ("cuda" and "torch"; matrix_unfused,
    scatter, rhocell) against the default "cuda_reduced" run;
 7. lwfa at its registry size: laser, density step, dead particles, cap 48;
-8. `matrix_scatter_add` at the two language-model shapes of phase 3b.
+8. `matrix_scatter_add` at the two language-model shapes of phase 3b;
+9. the sort-mode ablation at the main shapes (window 8): ``rebuild`` and
+   ``global`` on the default path, 8 steps after a warm-up window, and
+   ``none`` with the scatter deposition and gather (the scatter baseline
+   with no bin upkeep), 4 steps after a warm-up window; each against
+   phase 4's ``incremental`` step time;
+10. the host-driven loop (``window=None``): 8 steps of the main path, then
+   at 32^3 20 host-loop steps bit-equal to 20 windowed steps (the
+   performance trigger off);
+11. checkpoints at 32^3: saved at step 10, loaded into a fresh driver and
+   run 10 more steps, bit-equal to an uninterrupted 20-step run, in the
+   ``incremental`` and ``global`` sort modes;
+12. the two_stream and weibel growth rates at their registry sizes (300 and
+   260 steps) within 0.75-1.25 of the analytic rates;
+13. examples/torch_pm_nbody.py at its default size (4096 bodies, 16^3, 40
+   steps): kernels #4 and #5 launched, finite energies, mass conserved.
 
 The packed deposition's plain version is evaluated on the CPU wherever the
 kernel is held to it bit for bit: PyTorch on CUDA divides by a Python
@@ -169,36 +184,84 @@ def synthetic_slab(torch, grid, cap, gen, dev, *, empty=(), full=()):
     return d.contiguous(), val.contiguous()
 
 
-def run_path(torch, kernels, sim, label: str, n_steps: int | None = None) -> dict:
+def run_path(torch, kernels, sim, label: str, n_steps: int | None = None, warmup: int = 0) -> dict:
     """Run a simulation from launch counts at 0, print its step time (with
     and without the CUDA graph's one-time set-up: a warm-up step and the
     capture), rate, peak memory, host reads and launches, and fail unless
-    every window made one host read (two more per capacity growth)."""
+    every window made one host read (two more per capacity growth). With
+    ``warmup``, a first window of that many steps runs untimed (its
+    launches and reads counted) and the steady state is the run after it;
+    the time with the set-up then spans both."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     n0 = sim.diagnostics()["n_alive"]
     kernels.reset_launch_counts()
-    reads0, windows0, setup0 = sim.host_reads, sim.windows, sim.graph_setup_seconds
+    reads0, windows0, setup0, step0 = sim.host_reads, sim.windows, sim.graph_setup_seconds, sim.state.step
     t0 = time.perf_counter()
+    if warmup:
+        sim.run(warmup)
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
     sim.run(n_steps)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    t2 = time.perf_counter()
     counts = {k: v for k, v in kernels.launch_counts().items() if v}
-    steps = sim.state.step
+    steps = sim.state.step - step0
+    timed = steps - warmup
     setup_s = sim.graph_setup_seconds - setup0
     windows, reads = sim.windows - windows0, sim.host_reads - reads0
-    out = dict(run_s=run_s, setup_s=setup_s, steps=steps, n0=n0, counts=counts, captures=sim.graph_captures,
-               ms_step=1e3 * (run_s - setup_s) / steps, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    say(f"{label}: {n0} particles, {steps} steps in {run_s:.3f} s: {1e3 * run_s / steps:.2f} ms/step with the "
-        f"graph's set-up ({setup_s:.3f} s, {sim.graph_captures} capture(s)), {out['ms_step']:.2f} ms/step without, "
-        f"{n0 * steps / (run_s - setup_s):.4e} particle-steps/s")
+    steady_s = t2 - t1 if warmup else t2 - t0 - setup_s
+    out = dict(run_s=t2 - t0, setup_s=setup_s, steps=steps, n0=n0, counts=counts, captures=sim.graph_captures,
+               ms_step=1e3 * steady_s / timed, ms_step_setup=1e3 * (t2 - t0) / steps,
+               rate=n0 * timed / steady_s, reads_per_window=reads / max(windows, 1),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say(f"{label}: {n0} particles, {steps} steps in {t2 - t0:.3f} s: {out['ms_step_setup']:.2f} ms/step with the "
+        f"graph's set-up ({setup_s:.3f} s, {sim.graph_captures} capture(s)), {out['ms_step']:.2f} ms/step without"
+        f"{f' (the {timed} steps after a {warmup}-step warm-up window)' if warmup else ''}, "
+        f"{out['rate']:.4e} particle-steps/s")
     say(f"  peak memory {out['peak_gb']:.2f} GB, host reads {reads} in {windows} windows "
-        f"({reads / max(windows, 1):.2f}/window), sorts {sim.sorts}, rebuilds {sim.rebuilds}, "
+        f"({out['reads_per_window']:.2f}/window), sorts {sim.sorts}, rebuilds {sim.rebuilds}, "
         f"growths {sim.growths['capacity']}, launches {counts} (each capture's warm-up step launches once more)")
     if reads != windows + 2 * sim.growths["capacity"]:
         fail(f"{label}: {reads} host reads in {windows} windows with {sim.growths['capacity']} growths: "
              "expected one a window, two more a growth")
     return out
+
+
+def same_state(torch, a, b, *, policy: bool = True) -> bool:
+    """Two drivers' states, counters and (with ``policy``) device policy
+    states bit for bit. The host-driven loop keeps its policy on the host,
+    so its device policy state is not compared."""
+    import dataclasses
+
+    if (a.sorts, a.rebuilds, a.growths, a.state.step) != (b.sorts, b.rebuilds, b.growths, b.state.step):
+        return False
+    for part in ("fields", "particles", "layout", "slab"):
+        x, y = getattr(a.state, part), getattr(b.state, part)
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not all(torch.equal(getattr(x, f.name), getattr(y, f.name))
+                                     for f in dataclasses.fields(x)):
+            return False
+    return not policy or all(torch.equal(getattr(a.policy_state, f.name), getattr(b.policy_state, f.name))
+                             for f in dataclasses.fields(a.policy_state))
+
+
+def energy_slope(np, history, dt: float) -> float:
+    """d ln(field energy)/dt fitted over the linear growth: past 100x the
+    smallest energy, before 10% of the largest (tests/test_scenarios.py)."""
+    t = np.array([h["step"] for h in history]) * dt
+    e = np.array([h["field_energy"] for h in history])
+    if not np.isfinite(e).all():
+        fail("growth run: field energy not finite")
+    lo, hi = e.min(), e.max()
+    if hi <= 1e3 * lo:
+        fail(f"growth run: no exponential growth, energy {lo:.2e}..{hi:.2e}")
+    idx = np.where((e > lo * 100) & (e < hi * 0.1))[0]
+    if len(idx) < 10:
+        fail(f"growth run: linear window too short ({len(idx)} samples)")
+    i0, i1 = idx[0], idx[-1]
+    return float(np.polyfit(t[i0:i1 + 1], np.log(e[i0:i1 + 1]), 1)[0])
 
 
 def main() -> None:
@@ -221,7 +284,14 @@ def main() -> None:
     t_start = time.perf_counter()
 
     from repro_torch import kernels
-    from repro_torch.api import make_simulation, scenario
+    from repro_torch.api import (
+        SortPolicyConfig,
+        load_simulation,
+        make_simulation,
+        scenario,
+        two_stream_growth_rate,
+        weibel_growth_rate,
+    )
     from repro_torch.core import (
         CURRENT_STAGGER,
         EB_STAGGERS,
@@ -748,6 +818,128 @@ def main() -> None:
     if n_seg != len(items):
         fail(f"matrix_scatter_add did not launch segment_accumulate once per call: {n_seg}")
     results["segment_accumulate"]["launches"] = n_seg
+
+    # -- 9. the sort-mode ablation at the main shapes ---------------------------
+    ablation = {}
+    for mode, kw, n_timed in (("rebuild", {}, 8), ("global", {}, 8),
+                              ("none", dict(deposition="scatter", gather="scatter"), 4)):
+        sim = make_simulation(scenario("uniform", **{**MAIN, "window": n_timed}, sort=mode, **kw))
+        t0 = time.perf_counter()
+        out = run_path(torch, kernels, sim, f"sort {mode}{' (scatter deposition and gather)' if kw else ''}",
+                       n_timed, warmup=n_timed)
+        per_run = out["steps"] + out["captures"]
+        want = {} if mode == "none" else {"fused_bin_deposit_reduced": per_run, "fused_bin_gather": per_run}
+        if out["counts"] != want:
+            fail(f"sort {mode}: launches {out['counts']}, expected {want}")
+        if out["reads_per_window"] != 1.0 or sim.sorts or sim.rebuilds:
+            fail(f"sort {mode}: {out['reads_per_window']} host reads a window, {sim.sorts} sorts, "
+                 f"{sim.rebuilds} rebuilds: expected 1.0 and no policy sort")
+        diag = sim.diagnostics()
+        if not (math.isfinite(diag["total_energy"]) and diag["n_alive"] == out["n0"] and diag["field_energy"] > 0):
+            fail(f"sort {mode}: run not sane: {diag}")
+        ablation[mode] = out
+        say(f"  against incremental (phase 4): {out['ms_step'] / main['ms_step']:.3f}x its step time "
+            f"({out['ms_step']:.2f} against {main['ms_step']:.2f} ms/step), {out['peak_gb'] / main['peak_gb']:.2f}x "
+            f"its peak memory; phase {time.perf_counter() - t0:.1f} s")
+        del sim
+        torch.cuda.empty_cache()
+    say("ablation (ms/step steady | with set-up | particle-steps/s | peak GB | host reads/window | ratio): "
+        + "; ".join(f"{m} {o['ms_step']:.2f} | {o['ms_step_setup']:.2f} | {o['rate']:.4e} | {o['peak_gb']:.2f} | "
+                    f"{o['reads_per_window']:.2f} | {o['ms_step'] / main['ms_step']:.3f}"
+                    for m, o in [("incremental", main)] + list(ablation.items())))
+
+    # -- 10. the host-driven loop ------------------------------------------------
+    sim = make_simulation(scenario("uniform", **MAIN))
+    sim.run(1, window=None)  # first-call allocations
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    reads0 = sim.host_reads
+    t0 = time.perf_counter()
+    sim.run(8, window=None)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / 8
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    host_reads = (sim.host_reads - reads0) / 8
+    say(f"host-driven loop, main path: 8 steps at {host_ms:.2f} ms/step ({host_ms / main['ms_step']:.3f}x the "
+        f"windowed {main['ms_step']:.2f}), {host_reads:.2f} host reads/step, sorts {sim.sorts}, launches {counts}, "
+        f"{sim.graph_captures} graph captures")
+    if counts != {"fused_bin_deposit_reduced": 8, "fused_bin_gather": 8} or sim.graph_captures or sim.windows:
+        fail(f"the host-driven loop did not run each kernel once a step without a graph: {counts}")
+    del sim
+    torch.cuda.empty_cache()
+    small = dict(grid=(32, 32, 32), ppc=2, order=3, policy=SortPolicyConfig(sort_interval=7, min_sort_interval=3,
+                                                                          sort_trigger_perf_enable=False))
+    host, wind = make_simulation(scenario("uniform", **small)), make_simulation(scenario("uniform", **small))
+    host.run(20, window=None)
+    wind.run(20, window=10)
+    if not same_state(torch, host, wind, policy=False) or host.sorts < 2:
+        fail(f"32^3: 20 host-loop steps are not bit-equal to 20 windowed steps (sorts {host.sorts}, {wind.sorts})")
+    say(f"32^3: 20 host-loop steps bit-equal to 20 windowed steps: fields, particles, slots, slab, "
+        f"sorts {host.sorts}, rebuilds {host.rebuilds}; host reads {host.host_reads} against {wind.host_reads}")
+    del host, wind
+
+    # -- 11. checkpoints on the card -------------------------------------------
+    import shutil
+
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoint"
+    try:
+        for mode in ("incremental", "global"):
+            kw = dict(small, sort=mode, window=5, diagnostics_every=1)
+            whole = make_simulation(scenario("uniform", **kw))
+            whole.run(20)
+            first = make_simulation(scenario("uniform", **kw))
+            first.run(10)
+            first.save(str(ckpt))
+            kernels.reset_launch_counts()
+            resumed = load_simulation(str(ckpt))
+            resumed.run(10)
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            if not same_state(torch, whole, resumed) or whole.history != resumed.history:
+                fail(f"sort {mode}: saved at step 10, loaded and run 10 more steps is not bit-equal to 20 steps")
+            if counts.get("fused_bin_deposit_reduced", 0) < 10:
+                fail(f"sort {mode}: the resumed run did not launch the kernels: {counts}")
+            say(f"checkpoint, sort {mode}, 32^3: saved at step 10, loaded, 10 more steps bit-equal to 20 "
+                f"uninterrupted steps (sorts {whole.sorts}, history of {len(whole.history)} steps)")
+            del whole, first, resumed
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- 12. growth-rate anchors ------------------------------------------------
+    for name, rate in (("two_stream", two_stream_growth_rate), ("weibel", weibel_growth_rate)):
+        spec_g = scenario(name)
+        kernels.reset_launch_counts()
+        sim = make_simulation(spec_g)
+        sim.run()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        gamma = rate(spec_g)
+        slope = energy_slope(np, sim.history, spec_g.dt)
+        ratio = slope / (2.0 * gamma)
+        say(f"{name} {spec_g.grid.shape}, {spec_g.run.steps} steps: field-energy growth {slope:.4f} against the "
+            f"analytic 2*gamma {2 * gamma:.4f}: ratio {ratio:.3f} (window 0.75-1.25), launches {counts}")
+        if not 0.75 < ratio < 1.25 or not counts.get("fused_bin_gather"):
+            fail(f"{name}: growth ratio {ratio:.3f} outside 0.75-1.25, or the kernels did not run")
+        del sim
+
+    # -- 13. the PM N-body example ------------------------------------------------
+    import importlib.util
+
+    spec_pm = importlib.util.spec_from_file_location(
+        "torch_pm_nbody", Path(__file__).resolve().parent / "examples" / "torch_pm_nbody.py")
+    pm = importlib.util.module_from_spec(spec_pm)
+    spec_pm.loader.exec_module(pm)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pm.run(4096, 40, device=dev, log=lambda line: say(f"  pm_nbody {line}"))
+    pm_s = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    say(f"torch_pm_nbody: 4096 bodies, 16^3, 40 steps in {pm_s:.3f} s, launches {counts}, largest |deposited mass "
+        f"- total| {out['mass_err']:.2e}, bin rebuilds {out['rebuilds']}, capacity growths {out['growths']}")
+    energies = out["kinetic"] + out["potential"]
+    if counts.get("bin_outer_product", 0) < 40 or counts.get("bin_gather", 0) < 120:
+        fail(f"torch_pm_nbody did not launch bin_outer_product and bin_gather every step: {counts}")
+    if not all(math.isfinite(e) for e in energies) or out["mass_err"] > 1e-5:
+        fail(f"torch_pm_nbody: energies not finite or mass not conserved ({out['mass_err']:.2e})")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     order_of = ("fused_bin_deposit", "fused_bin_deposit_reduced", "fused_bin_gather", "bin_outer_product",

@@ -1,5 +1,7 @@
-"""The driver facade: spec -> initial conditions -> `Simulation`.
-Counterpart of the single-device part of `repro.api.facade`.
+"""The driver facade: spec -> initial conditions -> `Simulation`, and the
+checkpoints (`save_simulation`, `restore_simulation`, `load_simulation`,
+from `repro_torch.checkpoint`). Counterpart of the single-device part of
+`repro.api.facade`.
 
 Entry points run on ``cuda`` unless the caller names another device; with
 no CUDA device and no device named they raise, never falling back to the
@@ -11,11 +13,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.api.spec import SimSpec
+from repro_torch.checkpoint import load_simulation, restore_simulation, save_simulation
 from repro_torch.pic.grid import FieldState
 from repro_torch.pic.laser import inject_laser
 from repro_torch.pic.plasma import ParticleState, apply_counter_drift, perturb_velocity, profiled_plasma, uniform_plasma
 
-__all__ = ["build_fields", "build_particles", "make_simulation", "pic_config", "resolve_device"]
+__all__ = [
+    "build_fields",
+    "build_particles",
+    "load_simulation",
+    "make_simulation",
+    "pic_config",
+    "resolve_device",
+    "restore_simulation",
+    "save_simulation",
+]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -92,7 +104,7 @@ def pic_config(spec: SimSpec):
 
 def make_simulation(spec: SimSpec, *, fields: FieldState | None = None,
                     particles: ParticleState | None = None, device=None):
-    """Build the single-device windowed `Simulation` a spec describes, on
+    """Build the single-device `Simulation` a spec describes, on
     ``device`` (default ``cuda``). ``fields``/``particles`` replace the
     spec-built initial conditions and move to the device."""
     from repro_torch.pic.simulation import Simulation

@@ -1,19 +1,45 @@
 """Scenario registry: named builders of default `SimSpec`s. Counterpart of
-`repro.api.registry` for the ``uniform`` and ``lwfa`` scenarios, with the
-same defaults and the same flat override vocabulary for the spec nodes the
-port has.
+`repro.api.registry`, with the same scenarios, defaults and flat override
+vocabulary:
+
+* ``uniform``     thermal plasma + Langmuir velocity seed;
+* ``lwfa``        laser-wakefield acceleration: gaussian pulse + density step;
+* ``two_stream``  symmetric cold counter-streaming beams along z with the
+                  fastest-growing longitudinal mode seeded
+                  (`two_stream_growth_rate`);
+* ``weibel``      counter-streaming beams along x with a transverse (k along
+                  z) filamentation seed (`weibel_growth_rate`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
-from repro_torch.api.spec import PerturbSpec, PlasmaSpec, ProfileSpec, RunSpec, SimSpec, SortSpec
+from repro_torch.api.spec import (
+    CommSpec,
+    DriftSpec,
+    FaultSpec,
+    HealthConfig,
+    PerturbSpec,
+    PlasmaSpec,
+    ProfileSpec,
+    RunSpec,
+    SimSpec,
+    SortSpec,
+)
 from repro_torch.pic.grid import GridSpec
 from repro_torch.pic.laser import LaserSpec
 
-__all__ = ["apply_overrides", "register_scenario", "scenario", "scenario_names"]
+__all__ = [
+    "apply_overrides",
+    "register_scenario",
+    "scenario",
+    "scenario_names",
+    "two_stream_growth_rate",
+    "weibel_growth_rate",
+]
 
 _SCENARIOS: dict[str, Callable[[dict], SimSpec]] = {}
 
@@ -48,13 +74,26 @@ _OVERRIDE_PATHS = {
     "diagnostics_every": ("run", "diagnostics_every"),
     "dt": ("run", "dt"),
     "cfl_safety": ("run", "cfl_safety"),
+    "autosave_every": ("run", "autosave_every"),
+    "autosave_path": ("run", "autosave_path"),
+    "health": ("health",),
+    "fault": ("fault",),
+    "comm": ("comm",),
+    "overlap_halo": ("comm", "overlap_halo"),
+    "compress_migration": ("comm", "compress_migration"),
+    "rebalance_enable": ("comm", "rebalance_enable"),
+    "imbalance_ratio": ("comm", "imbalance_ratio"),
     "order": ("deposition", "order"),
     "deposition": ("deposition", "mode"),
+    "use_pallas": ("deposition", "use_pallas"),
     "backend": ("deposition", "backend"),
     "gather": ("deposition", "gather"),
     "sort": ("sort", "mode"),
     "capacity": ("sort", "capacity"),
     "policy": ("sort", "policy"),
+    "mesh": ("mesh", "shape"),
+    "mig_cap": ("mesh", "mig_cap"),
+    "n_local": ("mesh", "n_local"),
     "ppc": ("plasma", "ppc_each_dim"),
     "ppc_each_dim": ("plasma", "ppc_each_dim"),
     "density": ("plasma", "density"),
@@ -87,6 +126,12 @@ def apply_overrides(spec: SimSpec, **overrides) -> SimSpec:
             value = (value, value, value)
         if key == "grid" and not isinstance(value, GridSpec):
             value = GridSpec(shape=tuple(int(v) for v in value), dx=spec.grid.dx)
+        if key == "health" and isinstance(value, dict):
+            value = HealthConfig.from_dict(value)
+        if key == "fault" and isinstance(value, dict):
+            value = FaultSpec.from_dict(value)
+        if key == "comm" and isinstance(value, dict):
+            value = CommSpec.from_dict(value)
         if len(path) == 1:
             top[path[0]] = value
         else:
@@ -137,3 +182,83 @@ def _lwfa(ov: dict) -> SimSpec:
         sort=SortSpec(capacity=48),
         run=RunSpec(steps=60, window=10, dt=0.35),
     )
+
+
+@register_scenario("two_stream")
+def _two_stream(ov: dict) -> SimSpec:
+    """Symmetric cold two-stream instability along z. The box resolves the
+    plasma wavelength (dz = 0.125 c/omega_p) and the seeded mode sits at
+    the fastest-growing wavenumber k v0 ~ sqrt(3)/2 * omega_b."""
+    grid = _pop_grid(ov, (4, 4, 64), dx=(1.0, 1.0, 0.125))
+    return SimSpec(
+        name="two_stream",
+        grid=grid,
+        plasma=PlasmaSpec(
+            ppc_each_dim=(1, 1, 4),
+            u_thermal=0.0,
+            drift=DriftSpec(u=0.2, axis=2),
+            perturb=PerturbSpec(v_axis=2, amplitude=1e-3, mode=4),
+        ),
+        run=RunSpec(steps=300, window=25, diagnostics_every=1),
+    )
+
+
+@register_scenario("weibel")
+def _weibel(ov: dict) -> SimSpec:
+    """Weibel/filamentation instability: counter-streams along x, seeded
+    transverse mode with k along z; magnetic field growth at
+    gamma ~ beta * omega_p."""
+    grid = _pop_grid(ov, (4, 4, 64), dx=(1.0, 1.0, 0.25))
+    return SimSpec(
+        name="weibel",
+        grid=grid,
+        plasma=PlasmaSpec(
+            ppc_each_dim=(1, 1, 4),
+            u_thermal=0.0,
+            drift=DriftSpec(u=0.3, axis=0),
+            perturb=PerturbSpec(v_axis=0, amplitude=1e-3, mode=8, k_axis=2),
+        ),
+        run=RunSpec(steps=260, window=20, diagnostics_every=1),
+    )
+
+
+# -- analytic growth rates (the scenarios' physics anchors) -------------------
+
+
+def _seeded_k(spec: SimSpec) -> float:
+    """Physical wavenumber of the seeded perturbation mode."""
+    p = spec.plasma.perturb
+    k_axis = p.v_axis if p.k_axis < 0 else p.k_axis
+    length = spec.grid.shape[k_axis] * spec.grid.dx[k_axis]
+    return 2.0 * math.pi * p.mode / length
+
+
+def two_stream_growth_rate(spec: SimSpec) -> float:
+    """Cold symmetric two-stream amplitude growth rate (1/time) at the
+    seeded mode, from 1 = omega_b^2 [(w-kv)^-2 + (w+kv)^-2] with the
+    relativistic longitudinal mass correction omega_b^2 -> omega_b^2 /
+    gamma0^3. Field energy grows at twice this rate."""
+    u0 = spec.plasma.drift.u
+    gamma0 = math.sqrt(1.0 + u0 * u0)
+    v0 = u0 / gamma0
+    wb2 = 0.5 * spec.plasma.density / gamma0**3  # per-beam plasma frequency^2
+    a = (_seeded_k(spec) * v0) ** 2 / wb2        # kappa^2, in omega_b units
+    y2 = -(a + 1.0) + math.sqrt(4.0 * a + 1.0)   # y^2 from y^4+2y^2(a+1)+a^2-2a=0
+    if y2 <= 0.0:
+        return 0.0
+    return math.sqrt(wb2 * y2)
+
+
+def weibel_growth_rate(spec: SimSpec) -> float:
+    """Cold symmetric filamentation amplitude growth rate (1/time) at the
+    seeded transverse mode: gamma^2 is the positive root of
+    gamma^4 + gamma^2 (k^2 c^2 + omega_p^2) - omega_p^2 k^2 beta^2 = 0
+    (relativistic transverse mass: omega_p^2 -> omega_p^2/gamma0)."""
+    u0 = spec.plasma.drift.u
+    gamma0 = math.sqrt(1.0 + u0 * u0)
+    beta = u0 / gamma0
+    wp2 = spec.plasma.density / gamma0
+    k2 = _seeded_k(spec) ** 2
+    s = k2 + wp2
+    g2 = 0.5 * (-s + math.sqrt(s * s + 4.0 * wp2 * k2 * beta * beta))
+    return math.sqrt(max(g2, 0.0))

@@ -43,6 +43,8 @@ from repro_torch.core.gpma import GPMAStats, gpma_update  # noqa: F401
 from repro_torch.core.matrix_scatter import bin_items, matrix_scatter_add, scatter_add_ref  # noqa: F401
 from repro_torch.core.resort_policy import (  # noqa: F401
     REASON_NAMES,
+    HostPolicyState,
+    ResortPolicy,
     SortPolicyConfig,
     SortPolicyState,
     perf_proxy,

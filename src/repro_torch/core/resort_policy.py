@@ -1,13 +1,20 @@
 """Adaptive global re-sorting policy (paper §4.4, Table 4 parameters).
 
-Counterpart of the device path of `repro.core.resort_policy`:
-``policy_init`` / ``policy_update`` / ``policy_reset`` over a
-`SortPolicyState` of 0-d device tensors. The performance trigger uses the
-on-device proxy, an EMA of ``1 / (1 + moved_fraction)``.
+Counterpart of `repro.core.resort_policy`, both of its paths:
+
+* ``policy_init`` / ``policy_update`` / ``policy_reset`` over a
+  `SortPolicyState` of 0-d device tensors, evaluated inside the window
+  step. The performance trigger uses the on-device proxy, an EMA of
+  ``1 / (1 + moved_fraction)``.
+* `ResortPolicy` over a `HostPolicyState`: the host-driven per-step loop
+  (``Simulation.run(window=None)``), fed statistics already read on the
+  host, with the paper's wall-clock performance trigger (particles/s EMA
+  against the post-sort baseline).
 
 The five prioritized strategies are evaluated in the reference's order:
 minimum interval, fixed interval, rebuild count, empty-slot ratio, then the
-performance proxy. Decisions and reason codes are the reference's exactly.
+performance proxy. Decisions and reason codes are the reference's exactly; with the
+performance trigger off the two paths decide alike.
 """
 
 from __future__ import annotations
@@ -132,3 +139,62 @@ def policy_update(state: SortPolicyState, config: SortPolicyConfig, *, n_moved, 
         proxy_ema=ema,
     )
     return do_sort, reason, recorded
+
+
+# -- the host path: the per-step loop's policy (wall-clock perf trigger) ------
+
+
+@dataclasses.dataclass
+class HostPolicyState:
+    steps_since_sort: int = 0
+    rebuilds_since_sort: int = 0
+    baseline_perf: float | None = None  # particles/s right after a sort
+    perf_ema: float | None = None
+
+
+class ResortPolicy:
+    """ShouldPerformGlobalSort / ResetRankSortCounters (paper Alg. 1), on
+    the host."""
+
+    def __init__(self, config: SortPolicyConfig | None = None):
+        self.config = config or SortPolicyConfig()
+        self.state = HostPolicyState()
+
+    def record_step(self, *, rebuilt: bool, perf: float | None = None) -> None:
+        st = self.state
+        st.steps_since_sort += 1
+        if rebuilt:
+            st.rebuilds_since_sort += 1
+        if perf is not None:
+            st.perf_ema = perf if st.perf_ema is None else _EMA_DECAY * st.perf_ema + (1.0 - _EMA_DECAY) * perf
+            if st.baseline_perf is None:
+                st.baseline_perf = perf
+
+    def should_sort(self, *, empty_ratio: float, overflowed: bool = False) -> tuple[bool, str]:
+        """Returns (do_sort, reason). Overflow forces a sort."""
+        cfg, st = self.config, self.state
+        if overflowed:
+            return True, REASON_NAMES[REASON_OVERFLOW]
+        if st.steps_since_sort < cfg.min_sort_interval:
+            return False, REASON_NAMES[REASON_MIN_INTERVAL]
+        if st.steps_since_sort >= cfg.sort_interval:
+            return True, REASON_NAMES[REASON_FIXED_INTERVAL]
+        if st.rebuilds_since_sort >= cfg.sort_trigger_rebuild_count:
+            return True, REASON_NAMES[REASON_REBUILD_COUNT]
+        if empty_ratio < cfg.sort_trigger_empty_ratio:
+            return True, REASON_NAMES[REASON_EMPTY_LOW]
+        if empty_ratio > cfg.sort_trigger_full_ratio:
+            return True, REASON_NAMES[REASON_EMPTY_HIGH]
+        if (
+            cfg.sort_trigger_perf_enable
+            and st.baseline_perf is not None
+            and st.perf_ema is not None
+            and st.perf_ema < cfg.sort_trigger_perf_degrad * st.baseline_perf
+        ):
+            return True, REASON_NAMES[REASON_PERF]
+        return False, REASON_NAMES[REASON_NONE]
+
+    def reset(self) -> None:
+        """ResetRankSortCounters, right after a global sort: the counters
+        and both performance seeds clear together."""
+        self.state = HostPolicyState()

@@ -12,7 +12,8 @@ Counterpart of `repro.kernels.dispatch`, minimal:
 
 The backend names map one to one from the reference's: ``xla`` ->
 ``torch``, ``pallas`` -> ``cuda``, ``pallas_reduced`` -> ``cuda_reduced``
-(`canonical` applies the map wherever a name is read).
+(`canonical` applies the map wherever a name is read, `reference_name`
+the inverse wherever a spec is written).
 
 ``auto`` resolves by the tensor's device: on a CUDA tensor to the top of
 the op's ladder (``cuda_reduced`` for the fused deposition, ``cuda`` for
@@ -49,6 +50,12 @@ def canonical(name: str) -> str:
             f"or a reference name {sorted(REFERENCE_NAMES)}"
         )
     return name
+
+
+def reference_name(name: str) -> str:
+    """A port backend name in the reference's vocabulary (``auto`` stays)."""
+    name = canonical(name)
+    return next((ref for ref, port in REFERENCE_NAMES.items() if port == name), name)
 
 
 def ops() -> tuple[str, ...]:

@@ -4,12 +4,21 @@
     PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario lwfa --order 2
     PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario uniform --device cpu --grid 8 8 8
     PYTHONPATH=src python -m repro_torch.launch.pic_run --deposition matrix_unfused --gather matrix_unfused
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --sort global
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --window 0
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario lwfa --dump-spec lwfa.json
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --spec lwfa.json --steps 20
 
 Runs on the CUDA device unless ``--device`` names another. One warm-up
 window (kernel build, the step's CUDA graph capture) runs first, then the
 timed run; the launcher prints particle-steps/s, the sort counters, the
-host reads and the energies. ``--deposition`` and ``--gather`` pick the
-comparison modes of the reference. ``--profile`` then runs two more
+host reads and the energies. ``--deposition``, ``--gather`` and ``--sort``
+pick the comparison modes of the reference; ``--window 0`` runs the
+host-driven per-step loop (two warm-up steps; the timed line then gives host
+reads per step). ``--spec`` runs a SimSpec JSON file, written by this
+launcher's ``--dump-spec`` or by the reference's, with the other options as
+overrides; ``--dump-spec`` writes the resolved spec and exits. ``--profile``
+then runs two more
 windows under `torch.profiler` and prints where the time went: first one
 window as it runs, replays of the captured step; then one window run
 eagerly, which reads the step's decisions on the host, because the
@@ -27,7 +36,7 @@ from collections import defaultdict
 
 import torch
 
-from repro_torch.api import make_simulation, scenario, scenario_names
+from repro_torch.api import SimSpec, apply_overrides, make_simulation, scenario, scenario_names
 
 
 #: the kernels of `csrc`, as the profiler names them
@@ -37,13 +46,16 @@ PORT_KERNELS = ("fused_deposit_kernel", "fused_deposit_reduced_kernel", "fused_g
 
 def build_spec(args):
     overrides = {}
-    for name in ("steps", "window", "order", "ppc", "backend", "deposition", "gather"):
+    for name in ("steps", "window", "order", "ppc", "backend", "deposition", "gather", "sort"):
         value = getattr(args, name)
         if value is not None:
             overrides[name] = value
     if args.grid is not None:
         overrides["grid"] = tuple(args.grid)
-    return scenario(args.scenario, **overrides)
+    if args.spec is not None:
+        with open(args.spec) as f:
+            return apply_overrides(SimSpec.from_json(f.read()), **overrides)
+    return scenario(args.scenario or "uniform", **overrides)
 
 
 def profile_window(sim, window: int, *, graphs: bool) -> None:
@@ -104,9 +116,13 @@ def profile_window(sim, window: int, *, graphs: bool) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--scenario", default="uniform", choices=scenario_names())
+    ap.add_argument("--scenario", default=None, choices=scenario_names(), help="registered scenario (default uniform)")
+    ap.add_argument("--spec", default=None, metavar="FILE.json",
+                    help="run a serialized SimSpec (from either package) instead of a named scenario")
+    ap.add_argument("--dump-spec", default=None, metavar="PATH", help="write the resolved SimSpec JSON to PATH and exit")
     ap.add_argument("--steps", type=int, default=None)
-    ap.add_argument("--window", type=int, default=None, help="steps per window (one bundle read per window)")
+    ap.add_argument("--window", type=int, default=None,
+                    help="steps per window (one bundle read per window); 0 = the host-driven per-step loop")
     ap.add_argument("--order", type=int, default=None, choices=[1, 2, 3])
     ap.add_argument("--grid", type=int, nargs=3, default=None)
     ap.add_argument("--ppc", type=int, default=None, help="particles per cell per dim")
@@ -118,14 +134,24 @@ def main(argv=None) -> None:
     ap.add_argument("--gather", default=None, choices=["matrix", "matrix_unfused", "scatter"],
                     help="field-gather mode (default: paired with the deposition, the fused matrix gather "
                          "beside a matrix deposition, the scatter gather beside the others)")
+    ap.add_argument("--sort", default=None, choices=["incremental", "rebuild", "global", "none"],
+                    help="sort mode: incremental GPMA + adaptive policy (default), bins rebuilt every step, a "
+                         "global sort every step, or none (for the scatter paths)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--profile", action="store_true",
                     help="profile two more windows, captured and eager, and print their breakdowns")
     args = ap.parse_args(argv)
+    if args.scenario and args.spec:
+        ap.error("--scenario and --spec are mutually exclusive")
     try:
         spec = build_spec(args)
-    except (ValueError, TypeError, KeyError, NotImplementedError) as e:
+    except (OSError, ValueError, TypeError, KeyError, NotImplementedError) as e:
         ap.error(str(e))
+    if args.dump_spec:
+        with open(args.dump_spec, "w") as f:
+            f.write(spec.to_json())
+        print(f"wrote {args.dump_spec}")
+        return
 
     # float32 products stay float32 (cuDNN would otherwise default to TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -134,15 +160,18 @@ def main(argv=None) -> None:
     dev = sim.device
     if args.profile and dev.type != "cuda":
         ap.error("--profile measures the CUDA device; it does not run on the CPU")
-    n_steps, window = spec.run.steps, spec.run.window
+    n_steps, window = spec.run.steps, spec.run.window or None
+    if args.profile and window is None:
+        ap.error("--profile profiles windows; it does not run the host-driven loop (--window 0)")
     n_parts = sim.diagnostics()["n_alive"]
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(
         f"{spec.name}: grid {spec.grid.shape}, {n_parts} particles, order {spec.deposition.order}, "
-        f"deposition {spec.deposition.mode}, gather {spec.deposition.resolved_gather}, "
-        f"backend {spec.deposition.backend}, window {window}, device {dev} ({name})"
+        f"deposition {spec.deposition.mode}, gather {spec.deposition.resolved_gather}, sort {spec.sort.mode}, "
+        f"backend {spec.deposition.backend}, {f'window {window}' if window else 'host-driven loop'}, "
+        f"device {dev} ({name})"
     )
-    sim.run(min(window, n_steps), window=window)  # warm-up
+    sim.run(min(window or 2, n_steps), window=window)  # warm-up
     reads0, windows0 = sim.host_reads, sim.windows
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -152,12 +181,13 @@ def main(argv=None) -> None:
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     d = sim.diagnostics()
-    windows = max(sim.windows - windows0, 1)
+    reads = sim.host_reads - reads0
+    per = f"host reads/window={reads / max(sim.windows - windows0, 1):.1f}" if window else \
+        f"host reads/step={reads / n_steps:.2f}"
     print(
         f"{n_steps} steps in {dt:.3f}s ({1e3 * dt / n_steps:.3f} ms/step, "
         f"{d['n_alive'] * n_steps / dt:.3e} particle-steps/s); "
-        f"sorts={sim.sorts} rebuilds={sim.rebuilds} growths={sim.growths['capacity']} "
-        f"host reads/window={(sim.host_reads - reads0) / windows:.1f}"
+        f"sorts={sim.sorts} rebuilds={sim.rebuilds} growths={sim.growths['capacity']} {per}"
     )
     print(f"energies: field={d['field_energy']:.4e} kinetic={d['kinetic_energy']:.4e} total={d['total_energy']:.4e}")
     if dev.type == "cuda":

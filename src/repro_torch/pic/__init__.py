@@ -1,5 +1,6 @@
 """PIC substrate on PyTorch: Yee fields, Boris pusher, plasma init, the
-windowed simulation loop. Counterpart of `repro.pic` (single device)."""
+single-device simulation loop (windowed and host-driven). Counterpart of
+`repro.pic` (single device)."""
 
 from repro_torch.pic.grid import B_STAGGER, E_STAGGER, FieldState, GridSpec  # noqa: F401
 from repro_torch.pic.laser import LaserSpec, inject_laser  # noqa: F401

@@ -1,31 +1,53 @@
-"""The Matrix-PIC simulation loop (paper Algorithm 1), windowed driver.
+"""The Matrix-PIC simulation loop (paper Algorithm 1): the single-device
+driver, windowed and host-driven.
 
-Counterpart of the single-device windowed path of `repro.pic.simulation`.
-One step (`_pic_step`):
+Counterpart of the single-device part of `repro.pic.simulation`. One step
+(`_pic_step`):
   1. field gather of the six components at the particles: fused, from the
      `BinSlab` the state carries (``gather="matrix"``), six calls of the
      binned matrix gather (``matrix_unfused``) or per particle
      (``scatter``);
   2. relativistic Boris push and periodic wrap;
-  3. incremental GPMA bin update;
+  3. the bin update of the sort mode: the incremental GPMA update
+     (``incremental``), a rebuild of the bins from scratch (``rebuild``,
+     and ``global``, whose window then sorts every step), or none
+     (``none``, for the paths that need no bins);
   4. current deposition: one slot-table staging of positions and q·w·v,
      then the fused deposition of Jx/Jy/Jz (``deposition="matrix"``), or one
      component at a time (``matrix_unfused``, ``scatter``, ``rhocell``);
      rhocell reduction and guard fold;
   5. Yee/CKC Maxwell update.
 
-`Simulation.run(n, window=K)` runs windows of K steps. A window step
-(`_window_step`) runs the step, the re-sort policy (`core.resort_policy`)
-and, when the policy says so, the global sort (`global_sort_device`), all in
-place on the window's buffers; a sort that still overflows halts the
-window. The two decisions go to a decider (`kernels.conditional`): on the
-CPU they are tested on the host; on a CUDA device the guarded step is
-captured once as a CUDA graph in which they are IF nodes, and a window is k
-replays and one read of a bundle of counters and per-step diagnostics. The
-host then grows the bin capacity after a halt (the shapes change, so the
-step is captured anew) and re-enters for the remaining steps.
+The sort modes are the paper's ablation axes: ``incremental`` is FullOpt
+(GPMA and the adaptive policy), ``rebuild`` Matrix-only (bins rebuilt every
+step, no attribute permutation), ``global`` Hybrid-GlobalSort (a full sort,
+attributes permuted, every step), ``none`` the scatter baseline's.
+
+Two drivers wrap the step:
+
+* `Simulation.run(n, window=K)` runs windows of K steps. A window step
+  (`_window_step`) runs the step and the mode's decision in place on the
+  window's buffers: in ``incremental`` the re-sort policy
+  (`core.resort_policy`) and, on its word or on an overflow, the global
+  sort (`global_sort_device`); in ``global`` the global sort every step; in
+  ``rebuild`` nothing. A sort, or a rebuild, that still overflows halts
+  the window. A decision goes to a decider (`kernels.conditional`): on the
+  CPU it is tested on the host; on a CUDA device the guarded step is
+  captured once as a CUDA graph in which decisions are IF nodes, and a
+  window is k replays and one read of a bundle of counters and per-step
+  diagnostics. The host then grows the bin capacity after a halt (the
+  shapes change, so the step is captured anew) and re-enters for the
+  remaining steps.
+* `Simulation.run(n, window=None)` (a spec's ``run.window == 0``) is the
+  host-driven loop the reference keeps for comparison: one eager step per
+  iteration, its statistics read on the host and the host policy
+  (`ResortPolicy`, with its wall-clock performance trigger) deciding.
+  No CUDA graph is used.
+
 `Simulation.host_reads` counts every device-to-host read a run makes: one
-per window, two more per capacity growth.
+per window, two more per capacity growth; about three a step in the
+host-driven loop. `Simulation.save` and `Simulation.restore` write and read
+the reference's checkpoint format (`repro_torch.checkpoint`).
 """
 
 from __future__ import annotations
@@ -58,6 +80,7 @@ from repro_torch.core.deposition import (
 from repro_torch.core.gather import EB_STAGGERS, gather_fields_fused, gather_matrix, gather_scatter
 from repro_torch.core.gpma import GPMAStats, gpma_update
 from repro_torch.core.resort_policy import (
+    ResortPolicy,
     SortPolicyConfig,
     SortPolicyState,
     policy_init,
@@ -82,19 +105,20 @@ HALT_NAMES = ("none", "bin_overflow")
 
 DEPOSITION_MODES = ("matrix", "matrix_unfused", "scatter", "rhocell")
 GATHER_MODES = ("matrix", "matrix_unfused", "scatter")
+SORT_MODES = ("incremental", "rebuild", "global", "none")
 
 
 @dataclasses.dataclass(frozen=True)
 class PICConfig:
-    """Single-device step configuration: every deposition x gather mode of
-    the reference; the incremental GPMA sort."""
+    """Single-device step configuration: every deposition x gather x sort
+    mode of the reference."""
 
     grid: GridSpec
     dt: float
     order: int = 1
     deposition: str = "matrix"   # matrix (fused) | matrix_unfused | scatter | rhocell
     gather: str = "matrix"       # matrix (fused) | matrix_unfused (six-call) | scatter
-    sort_mode: str = "incremental"
+    sort_mode: str = "incremental"  # incremental | rebuild | global | none
     charge: float = -1.0
     mass: float = 1.0
     ckc_beta: float = 0.0
@@ -106,8 +130,8 @@ class PICConfig:
             raise ValueError(f"unknown deposition mode {self.deposition!r}; known: {DEPOSITION_MODES}")
         if self.gather not in GATHER_MODES:
             raise ValueError(f"unknown gather mode {self.gather!r}; known: {GATHER_MODES}")
-        if self.sort_mode != "incremental":
-            raise NotImplementedError(f"sort_mode={self.sort_mode!r} is not ported to repro_torch yet (only 'incremental')")
+        if self.sort_mode not in SORT_MODES:
+            raise ValueError(f"unknown sort mode {self.sort_mode!r}; known: {SORT_MODES}")
         object.__setattr__(self, "backend", dispatch.canonical(self.backend))
 
     @property
@@ -232,10 +256,19 @@ def _pic_step(state: PICState, config: PICConfig) -> tuple[PICState, GPMAStats]:
         pos_new = wrap_periodic(advance_positions(p.pos, u_new, config.dt, config.grid.dx), shape)
         pos_new = torch.where(alive_col, pos_new, p.pos)
 
-    # 3. incremental sort
+    # 3. the bin update of the sort mode
     with record_function("pic.gpma"):
         new_cells = cell_index(pos_new, shape)
-        layout, stats = gpma_update(state.layout, new_cells, p.alive)
+        if config.sort_mode == "incremental":
+            layout, stats = gpma_update(state.layout, new_cells, p.alive)
+        elif config.sort_mode in ("rebuild", "global"):
+            layout, overflow = build_bins(new_cells, p.alive, n_cells=config.grid.n_cells, capacity=config.capacity)
+            stats = GPMAStats(n_moved=torch.sum(new_cells != cell_index(p.pos, shape)), n_overflow=overflow,
+                              n_empty=layout.n_empty(), n_alive=torch.sum(p.alive))
+        else:  # none: the layout stays as it is
+            layout = state.layout
+            zero = torch.zeros((), dtype=torch.int64, device=p.pos.device)
+            stats = GPMAStats(n_moved=zero, n_overflow=zero, n_empty=zero, n_alive=torch.sum(p.alive))
 
     # 4. the step's one slab staging (the fused deposition stages positions
     #    and q·w·v together), then deposition at x^{n+1}, v^{n+1/2}
@@ -283,7 +316,8 @@ def _energies(state: PICState, config: PICConfig) -> tuple[torch.Tensor, torch.T
 
 
 def state_from_reference(arrays: dict[str, np.ndarray], config: PICConfig, device) -> tuple[PICState, SortPolicyState]:
-    """The port's state from a reference run's, as numpy arrays.
+    """The port's state from a run's numpy arrays: a reference run's, or a
+    checkpoint's (`repro_torch.checkpoint.restore_simulation`).
 
     ``arrays`` holds the reference `PICState` and `SortPolicyState` leaves
     under these names: ``fields.{ex,ey,ez,bx,by,bz}``,
@@ -376,16 +410,22 @@ class _WindowBuffers:
 def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfig, *, with_energies: bool,
                  decider) -> None:
     """One step of a window, in place on ``buf``; nothing once the window
-    has halted. The step, then the re-sort policy, then the global sort
-    under the policy's word, then the step's diagnostics at row
-    ``buf.n_done``. A sort that still overflows halts the window after its
-    step. The two decisions go to ``decider.run_if`` (see
-    `kernels.conditional`: tested on the host, or IF nodes of a captured
-    graph)."""
+    has halted. The step, then its sort mode's decision, then the step's
+    diagnostics at row ``buf.n_done``:
+
+    - ``incremental``: the re-sort policy, and the global sort under its
+      word or on an overflow; a sort that still overflows halts the window;
+    - ``global``: the global sort, every step (not a policy sort); its
+      overflow halts the window;
+    - ``rebuild``: the step rebuilt the bins; their overflow halts the window;
+    - ``none``: nothing.
+
+    Only ``incremental`` touches the policy state. The decisions go to
+    ``decider.run_if`` (see `kernels.conditional`: tested on the host, or IF
+    nodes of a captured graph)."""
     n_slots = config.grid.n_cells * config.capacity
 
-    def step():
-        new, stats = _pic_step(buf.state(), config)
+    def policy_sort(stats: GPMAStats) -> None:
         with record_function("pic.policy"):
             if config.needs_bins:
                 mandatory = stats.n_overflow > 0
@@ -396,7 +436,6 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
                 n_empty=stats.n_empty, n_slots=n_slots,
             )
             do_pol = do_pol & ~mandatory
-        buf.store(new)
         _copy_tree(buf.pstate, recorded)
 
         def sort():
@@ -409,6 +448,19 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
         decider.run_if(do_pol | mandatory, sort)
         buf.sorts.add_(do_pol.to(torch.int64))
         buf.rebuilds.add_(mandatory.to(torch.int64))
+
+    def step():
+        new, stats = _pic_step(buf.state(), config)
+        buf.store(new)
+        if config.sort_mode == "incremental":
+            policy_sort(stats)
+        elif config.sort_mode == "global":
+            with record_function("pic.global_sort"):
+                state, overflow = global_sort_device(buf.state(), config)
+                buf.store(state)
+                buf.halted.logical_or_(overflow > 0)
+        elif config.sort_mode == "rebuild":
+            buf.halted.logical_or_(stats.n_overflow > 0)
         row = [stats.n_moved, stats.n_alive]
         if with_energies:
             row.extend(_energies(buf.state(), config))
@@ -422,14 +474,17 @@ UNSET = object()
 
 
 class Simulation:
-    """Windowed single-device driver: step, device re-sort policy, global
-    sort on the policy's word, capacity growth on a persistent overflow.
+    """Single-device driver: step, re-sort policy, global sort on the
+    policy's word, capacity growth on a persistent overflow.
 
     Build it with `repro_torch.api.make_simulation(spec)`; the state's
-    tensors decide the device. On a CUDA device each window replays one
-    captured CUDA graph of the step, with the policy's sort decision and the
-    window's halt as IF nodes (``use_graphs``, default on for CUDA); the
-    state's tensors are then the graph's, updated in place.
+    tensors decide the device. ``run(n, window=K)`` runs windows: on a CUDA
+    device each window replays one captured CUDA graph of the step, with
+    the sort decision and the window's halt as IF nodes (``use_graphs``,
+    default on for CUDA); the state's tensors are then the graph's, updated
+    in place. ``run(n, window=None)`` runs the host-driven loop, with its
+    own policy counters (``host_policy``), as in the reference: pick one
+    driver per simulation.
     """
 
     def __init__(self, fields: FieldState, particles: ParticleState, config: PICConfig,
@@ -443,6 +498,7 @@ class Simulation:
             assert overflow == 0, "initial binning overflow after capacity growth"
         self.device = particles.pos.device
         self.policy = policy or SortPolicyConfig()
+        self.host_policy = ResortPolicy(self.policy)
         self.state = state
         self.policy_state = policy_init(self.device)
         self.use_graphs = self.device.type == "cuda"
@@ -458,6 +514,10 @@ class Simulation:
         self.graph_captures = 0
         self.graph_setup_seconds = 0.0
         self._host_step = 0
+        #: the reference's fault-tolerance counters (retries, restarts,
+        #: discarded_steps), which this driver does not keep: carried
+        #: through a checkpoint unchanged
+        self.carried_counters: dict[str, int] = {}
 
     # -- state: assigning it drops the window's buffers and graph ----------
 
@@ -486,12 +546,11 @@ class Simulation:
         self.host_reads += 1
         return tensor.cpu()
 
-    # -- the windowed driver ------------------------------------------------
-
     def run(self, n_steps: int | None = None, *, diagnostics_every: int | None = None, window=UNSET) -> None:
         """Advance `n_steps` (default: the spec's) in windows of `window`
-        steps (default: the spec's). The legacy host-driven loop
-        (``window=None``) is not ported."""
+        steps (default: the spec's; a spec's ``run.window == 0`` and a
+        spec-less driver mean None), or with ``window=None`` in the
+        host-driven loop."""
         run = None if self.spec is None else self.spec.run
         if n_steps is None:
             if run is None:
@@ -502,7 +561,8 @@ class Simulation:
         if window is UNSET:
             window = None if run is None else (run.window or None)
         if window is None:
-            raise NotImplementedError("the host-driven per-step loop is not ported: pass window=K")
+            self._run_host(n_steps, diagnostics_every)
+            return
         if window <= 0:
             raise ValueError(f"window must be positive, got {window}")
         target = self._host_step + n_steps
@@ -516,6 +576,64 @@ class Simulation:
                 self._grow_capacity()
             elif n_done < k:
                 raise RuntimeError("windowed driver made no progress without a halt")
+
+    def save(self, path: str) -> None:
+        """Checkpoint to `path` in the reference's format (see
+        `repro_torch.checkpoint.save_simulation`)."""
+        from repro_torch.checkpoint import save_simulation
+
+        save_simulation(self, path)
+
+    def restore(self, path: str) -> None:
+        """Restore a checkpoint of a compatible run, written by either
+        package (see `repro_torch.checkpoint.restore_simulation`)."""
+        from repro_torch.checkpoint import restore_simulation
+
+        restore_simulation(self, path)
+
+    # -- the host-driven loop -------------------------------------------------
+
+    def _run_host(self, n_steps: int, diagnostics_every: int) -> None:
+        """One eager step per iteration, its statistics read on the host
+        and `host_policy` deciding, as the reference's `_run_host`: about
+        three host reads a step in ``incremental``."""
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            self.state, stats = _pic_step(self.state, self.config)
+            self._host_step += 1
+            mode = self.config.sort_mode
+            if mode == "incremental":
+                n_overflow = int(self._read(stats.n_overflow))
+                n_empty = int(self._read(stats.n_empty))
+                n_slots = self.config.grid.n_cells * self.config.capacity
+                if self.config.needs_bins and n_overflow > 0:
+                    self._host_sort()  # the mandatory rebuild
+                    self.rebuilds += 1
+                    self.host_policy.reset()
+                else:
+                    dt = time.perf_counter() - t0
+                    perf = float(int(self._read(stats.n_alive))) / max(dt, 1e-9)
+                    self.host_policy.record_step(rebuilt=False, perf=perf)
+                    do, _reason = self.host_policy.should_sort(empty_ratio=n_empty / max(n_slots, 1))
+                    if do:
+                        self._host_sort()
+                        self.sorts += 1
+                        self.host_policy.reset()
+            elif mode == "global":
+                self._host_sort()
+            elif mode == "rebuild" and int(self._read(stats.n_overflow)) > 0:
+                self._grow_capacity()
+            if diagnostics_every and self._host_step % diagnostics_every == 0:
+                self.history.append(self._diagnostics(self._read))
+
+    def _host_sort(self) -> None:
+        """The global sort, its overflow read on the host; a capacity growth
+        when it persists."""
+        self.state, overflow = global_sort_device(self.state, self.config)
+        if int(self._read(overflow)):
+            self._grow_capacity()
+
+    # -- the windowed driver ------------------------------------------------
 
     def _window_for(self, with_energies: bool, n_diag: int) -> dict:
         """The window's buffers and, on CUDA with ``use_graphs``, its
@@ -640,13 +758,20 @@ class Simulation:
     # -- diagnostics --------------------------------------------------------
 
     def diagnostics(self) -> dict:
+        return self._diagnostics(torch.Tensor.cpu)
+
+    def _diagnostics(self, read) -> dict:
+        """Step, energies and live particles of the current state, in one
+        read through ``read``."""
         s = self.state
         field_e, kinetic_e = _energies(s, self.config)
-        em, kinetic = float(field_e), float(kinetic_e)
+        host = read(torch.stack([field_e.to(torch.float64), kinetic_e.to(torch.float64),
+                                 torch.sum(s.particles.alive).to(torch.float64)]))
+        em, kinetic = float(host[0]), float(host[1])
         return {
             "step": s.step,
             "field_energy": em,
             "kinetic_energy": kinetic,
             "total_energy": em + kinetic,
-            "n_alive": int(torch.sum(s.particles.alive)),
+            "n_alive": int(host[2]),
         }

@@ -50,11 +50,8 @@ def _plain(obj):
 def test_scenarios_match_reference(name, overrides):
     spec_t = tapi.scenario(name, **overrides)
     spec_r = rapi.scenario(name, **overrides)
-    for node in ("grid", "plasma", "laser", "run"):
-        mine, theirs = _plain(getattr(spec_t, node)), _plain(getattr(spec_r, node))
-        if node == "run":  # the port's RunSpec has no autosave fields yet
-            theirs = {k: theirs[k] for k in mine}
-        assert mine == theirs, node
+    for node in ("grid", "plasma", "laser", "run", "mesh", "comm", "health", "fault"):
+        assert _plain(getattr(spec_t, node)) == _plain(getattr(spec_r, node)), node
     assert spec_t.dt == spec_r.dt
     assert (spec_t.sort.capacity, spec_t.sort.mode) == (spec_r.sort.capacity, spec_r.sort.mode)
     assert _plain(spec_t.sort.policy) == _plain(spec_r.sort.policy)
@@ -67,14 +64,18 @@ def test_scenarios_match_reference(name, overrides):
 def test_overrides_map_reference_backend_names_and_reject_unported():
     assert tapi.scenario("uniform", backend="pallas_reduced").deposition.backend == "cuda_reduced"
     assert tapi.scenario("uniform", backend="xla").deposition.backend == "torch"
-    with pytest.raises(TypeError):
+    assert tapi.scenario("uniform", backend="pallas").to_dict()["deposition"]["backend"] == "pallas"
+    with pytest.raises(NotImplementedError, match="mesh.shape"):
         tapi.scenario("uniform", mesh="2x2")
+    with pytest.raises(TypeError):
+        tapi.scenario("uniform", meshes="2x2")
     with pytest.raises(ValueError):
         tapi.scenario("uniform", deposition="cic")
-    with pytest.raises(NotImplementedError):
-        tapi.scenario("uniform", sort="global")
+    with pytest.raises(ValueError):
+        tapi.scenario("uniform", sort="bucket")
+    assert tapi.scenario("uniform", sort="global").sort.mode == "global"
     with pytest.raises(KeyError):
-        tapi.scenario("two_stream")
+        tapi.scenario("ion_acoustic")
 
 
 @pytest.mark.parametrize("mode", ["matrix", "matrix_unfused", "scatter", "rhocell"])
@@ -126,8 +127,8 @@ def test_entry_points_default_to_cuda():
         tapi.build_particles(spec)
     sim = tapi.make_simulation(spec, device="cpu")
     assert sim.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        sim.run(2, window=None)
+    sim.run(2, window=None)  # the host-driven loop
+    assert sim.state.step == 2 and sim.windows == 0
 
 
 def test_pic_run_cli_on_cpu(capsys):

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each held to its plain PyTorch
 version; the windowed simulation run through every backend and mode; the
-window captured as a CUDA graph against the same window run eagerly.
+window captured as a CUDA graph against the same window run eagerly; the
+host-driven loop against the captured window, and a run saved, loaded and
+continued against the same run uninterrupted.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode). They import neither JAX nor `repro`, so they run where only the
@@ -18,7 +20,9 @@ after 8 windowed steps, 1e-4 of the field's largest magnitude (those sums
 compound through the field solve); `matrix_scatter_add` against a plain
 scatter-add, 1e-5 of the output's magnitude (both add the overflow items
 with float atomics, in orders that change from run to run); the captured
-window against the eager one, exact (the same kernels on the same inputs).
+window against the eager one, exact (the same kernels on the same inputs);
+the host-driven loop against the captured window and a resumed run against
+an uninterrupted one, exact.
 """
 
 import numpy as np
@@ -29,7 +33,7 @@ torch = pytest.importorskip("torch")
 import dataclasses  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
-from repro_torch.api import SortPolicyConfig, make_simulation, scenario  # noqa: E402
+from repro_torch.api import SortPolicyConfig, load_simulation, make_simulation, scenario  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     CURRENT_STAGGER,
     EB_STAGGERS,
@@ -449,3 +453,88 @@ def test_bin_gather_outside_the_templated_shapes(m, n, cap, cuda):
     assert all(x.data_ptr() % 16 == 4 and x.is_contiguous() for x in shifted)
     _close(gat.bin_gather(*shifted), want)
     torch.cuda.synchronize()
+
+
+def _assert_bit_equal(a, b, *, policy=True):
+    assert (a.sorts, a.rebuilds, a.growths, a.state.step) == (b.sorts, b.rebuilds, b.growths, b.state.step)
+    for part in ("fields", "particles", "layout", "slab"):
+        x, y = getattr(a.state, part), getattr(b.state, part)
+        assert (x is None) == (y is None), part
+        for f in dataclasses.fields(x) if x is not None else ():
+            assert torch.equal(getattr(x, f.name), getattr(y, f.name)), f"{part}.{f.name}"
+    if policy:
+        for f in dataclasses.fields(a.policy_state):
+            assert torch.equal(getattr(a.policy_state, f.name), getattr(b.policy_state, f.name)), f.name
+
+
+SMALL = dict(grid=(32, 32, 32), ppc=2, order=3,
+             policy=SortPolicyConfig(sort_interval=7, min_sort_interval=3, sort_trigger_perf_enable=False))
+
+
+@pytest.mark.gpu
+def test_host_loop_is_bit_equal_to_captured_window(cuda):
+    """20 steps of the host-driven loop (eager, decisions read on the host,
+    the performance trigger off) give the captured window's state exactly,
+    sorts included; each step launches each kernel once, without a graph."""
+    host, wind = make_simulation(scenario("uniform", **SMALL)), make_simulation(scenario("uniform", **SMALL))
+    kernels.reset_launch_counts()
+    host.run(20, window=None)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "fused_bin_deposit_reduced": 20, "fused_bin_gather": 20}
+    assert host.graph_captures == 0 and host.windows == 0 and host.host_reads >= 3 * 20
+    wind.run(20, window=10)
+    assert wind.graph_captures == 1 and host.sorts >= 2
+    _assert_bit_equal(host, wind, policy=False)  # the host loop keeps its policy on the host
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sort", ["incremental", "global"])
+def test_checkpoint_resume_is_bit_equal(sort, cuda, tmp_path):
+    """Saved at step 10, loaded into a fresh driver on the card and run 10
+    more steps: the uninterrupted 20-step run, bit for bit, history
+    included."""
+    kw = dict(SMALL, sort=sort, window=5, diagnostics_every=1)
+    whole = make_simulation(scenario("uniform", **kw))
+    whole.run(20)
+    first = make_simulation(scenario("uniform", **kw))
+    first.run(10)
+    first.save(str(tmp_path / "ck"))
+    resumed = load_simulation(str(tmp_path / "ck"))
+    assert resumed.device.type == "cuda" and resumed.state.step == 10
+    resumed.run(10)
+    _assert_bit_equal(whole, resumed)
+    assert whole.history == resumed.history
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "sort,extra",
+    [("rebuild", dict(capacity=8, u_thermal=0.4)), ("global", {}), ("none", dict(deposition="scatter", gather="scatter"))],
+    ids=["rebuild-growth", "global", "none-scatter"],
+)
+def test_sort_modes_captured_match_eager(sort, extra, cuda):
+    """Each ablation sort mode captured (its decision an IF node, one host
+    read a window; two more at a growth) against the same window run
+    eagerly: exactly, but for the scatter deposition's float atomics
+    (``none``), whose fields agree to 1e-4 of their largest magnitude, as the
+    modes do in `test_windowed_backends_agree`;
+    ``rebuild`` in bins of 8 grows its capacity."""
+    spec = scenario("uniform", grid=(8, 8, 8), order=2, sort=sort, **extra)
+    sims = {}
+    for graphs in (True, False):
+        sim = make_simulation(spec)
+        sim.use_graphs = graphs
+        sim.run(12, window=6, diagnostics_every=1)
+        sims[graphs] = sim
+    g, e = sims[True], sims[False]
+    assert g.host_reads == g.windows + 2 * g.growths["capacity"]
+    assert g.halts == e.halts
+    if sort == "rebuild":
+        assert g.growths["capacity"] >= 1
+    if sort != "none":
+        assert g.history == e.history
+        _assert_bit_equal(g, e)
+        return
+    assert torch.equal(g.state.layout.slots, e.state.layout.slots)
+    for a, b in zip(g.state.fields.all(), e.state.fields.all()):
+        _close(a, b, rtol=0, atol=1e-4 * max(float(b.abs().max()), 1e-30))
