@@ -36,7 +36,8 @@ Phases, in order; any failure exits non-zero:
 6. the other backends and modes at 32^3 ("cuda" and "torch"; matrix_unfused,
    scatter, rhocell) against the default "cuda_reduced" run;
 7. lwfa at its registry size: laser, density step, dead particles, cap 48;
-8. `matrix_scatter_add` at the two language-model shapes of phase 3b;
+8. `matrix_scatter_add` at the two language-model shapes of phase 3b, on
+   its default backend (``auto``, which must resolve to the kernel untimed);
 9. the sort-mode ablation at the main shapes (window 8): ``rebuild`` and
    ``global`` on the default path, 8 steps after a warm-up window, and
    ``none`` with the scatter deposition and gather (the scatter baseline
@@ -51,7 +52,32 @@ Phases, in order; any failure exits non-zero:
 12. the two_stream and weibel growth rates at their registry sizes (300 and
    260 steps) within 0.75-1.25 of the analytic rates;
 13. examples/torch_pm_nbody.py at its default size (4096 bodies, 16^3, 40
-   steps): kernels #4 and #5 launched, finite energies, mass conserved.
+   steps): kernels #4 and #5 launched, finite energies, mass conserved;
+14. fault tolerance on the card, at the main shapes: the health sentinel on
+   and no fault, bit-equal to the sentinel off (step time, peak memory,
+   one host read a window); a NaN in ``ez`` and doubled weights injected at
+   step 20, each one halt, one retry and a final state bit-equal to the
+   clean run's, one host read per window entered; the snapshot's bytes and
+   its copy time; at 32^3 a persistent NaN from ``cuda_reduced`` that walks
+   the ladder down to ``torch`` and ends in `SimulationHealthError`, and a
+   crash at step 8 restored from its autosave, bit-equal;
+15. the dispatcher's autotune: each ``deposit_fused`` key the run timed
+   (phases 4-14, and orders 1 and 2 at the main grid), its two kernel
+   candidates' medians at the driver's mean occupancy and the winner,
+   and where the timing overruled the priority order; at the main shapes a
+   second driver of the same key resolved from the memo and, after the
+   memo is cleared, from the cache file, with no second timing, and
+   ``gather_fused`` untimed (one kernel); the seconds the timing adds to
+   set-up; the main path's step time under the resolved backend against
+   phase 4's.
+
+Every ``auto`` path resolves through the dispatcher, into a fresh cache
+file made for the run; on the card ``auto`` picks among the kernels only.
+Where a phase holds an ``auto`` run's launch counts, it holds them to the
+backends the dispatcher resolved, prints them, and fails if an op of the
+path resolved to no kernel; from phase 4 on, every phase fails if a
+dispatcher resolution ran a plain PyTorch version on the card, except
+phase 6's forced ``torch`` and phase 14's ladder, which must.
 
 The packed deposition's plain version is evaluated on the CPU wherever the
 kernel is held to it bit for bit: PyTorch on CUDA divides by a Python
@@ -67,7 +93,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -96,6 +124,14 @@ SCATTER = dict(MAIN, steps=4, window=4, deposition="scatter", gather="scatter")
 # capacity 16, d_model 3072: the most frequent ids overflow their bins)
 MOE = dict(tokens=8192, top_k=2, d=6144)
 EMBED = dict(tokens=8192, vocab=32064, capacity=16, d=3072)
+
+
+# the kernel that a dispatcher op's backend launches once a step
+KERNEL_OF = {("deposit_fused", "cuda_reduced"): "fused_bin_deposit_reduced", ("deposit_fused", "cuda"): "fused_bin_deposit",
+             ("gather_fused", "cuda"): "fused_bin_gather"}
+FUSED = ("fused_bin_deposit", "fused_bin_deposit_reduced", "fused_bin_gather")
+ROOT = Path(__file__).resolve().parent
+AUTOTUNE_CACHE = ROOT / "build" / "chip_smoke_autotune.json"
 
 
 def say(*args):
@@ -228,10 +264,59 @@ def run_path(torch, kernels, sim, label: str, n_steps: int | None = None, warmup
     return out
 
 
+def resolved(dispatch, sim) -> dict[str, str]:
+    """The backend of each dispatcher op of a driver's step, as the step
+    resolves it (from the memo: the driver resolved its keys at set-up)."""
+    c = sim.config
+    return dispatch.prewarm(dispatch.ops_for_modes(c.deposition, c.gather), device=sim.device, order=c.order,
+                            grid_shape=c.grid.shape, capacity=c.capacity, dtype=sim.state.particles.pos.dtype,
+                            requested=c.backend)
+
+
+def path_launches(chosen: dict[str, str], n: int) -> dict[str, int]:
+    """The fused kernels' launches in n steps under the resolved backends:
+    one entry per dispatcher op of the step, each of which must have
+    resolved to a kernel."""
+    plain = {op: b for op, b in chosen.items() if (op, b) not in KERNEL_OF}
+    if plain:
+        fail(f"the dispatcher resolved {plain} to no kernel on the card")
+    return {KERNEL_OF[kv]: n for kv in chosen.items()}
+
+
+def no_plain(dispatch, where: str) -> None:
+    """Fail if a dispatcher resolution since the counter was last zeroed
+    handed the card's tensors to a plain PyTorch version (a forced
+    ``torch`` or a demotion to it)."""
+    n = dispatch.counters["plain_on_card"]
+    if n:
+        fail(f"{where}: {n} dispatcher resolution(s) ran a plain PyTorch version on the card")
+
+
+def fused_counts(counts: dict[str, int]) -> dict[str, int]:
+    return {k: counts[k] for k in FUSED if counts.get(k)}
+
+
+def host_copy(sim):
+    """The driver's counters, state and policy state with every tensor
+    copied to the host: a stand-in for the driver in `same_state`."""
+    import dataclasses
+    import types
+
+    def cpu(tree):
+        return None if tree is None else dataclasses.replace(
+            tree, **{f.name: getattr(tree, f.name).cpu() for f in dataclasses.fields(tree)})
+
+    state = dataclasses.replace(sim.state, **{part: cpu(getattr(sim.state, part))
+                                              for part in ("fields", "particles", "layout", "slab")})
+    return types.SimpleNamespace(sorts=sim.sorts, rebuilds=sim.rebuilds, growths=dict(sim.growths), state=state,
+                                 policy_state=cpu(sim.policy_state), history=list(sim.history))
+
+
 def same_state(torch, a, b, *, policy: bool = True) -> bool:
     """Two drivers' states, counters and (with ``policy``) device policy
-    states bit for bit. The host-driven loop keeps its policy on the host,
-    so its device policy state is not compared."""
+    states bit for bit, on the host (a driver or its `host_copy`). The
+    host-driven loop keeps its policy on the host, so its device policy
+    state is not compared."""
     import dataclasses
 
     if (a.sorts, a.rebuilds, a.growths, a.state.step) != (b.sorts, b.rebuilds, b.growths, b.state.step):
@@ -240,10 +325,10 @@ def same_state(torch, a, b, *, policy: bool = True) -> bool:
         x, y = getattr(a.state, part), getattr(b.state, part)
         if (x is None) != (y is None):
             return False
-        if x is not None and not all(torch.equal(getattr(x, f.name), getattr(y, f.name))
+        if x is not None and not all(torch.equal(getattr(x, f.name).cpu(), getattr(y, f.name).cpu())
                                      for f in dataclasses.fields(x)):
             return False
-    return not policy or all(torch.equal(getattr(a.policy_state, f.name), getattr(b.policy_state, f.name))
+    return not policy or all(torch.equal(getattr(a.policy_state, f.name).cpu(), getattr(b.policy_state, f.name).cpu())
                              for f in dataclasses.fields(a.policy_state))
 
 
@@ -276,15 +361,20 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     say(smi)
-    kind = torch.cuda.get_device_name(0)
-    say(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible")
+    card = torch.cuda.get_device_name(0)
+    say(f"device: {card}, torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # every run times the dispatcher's candidates from nothing
+    AUTOTUNE_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    AUTOTUNE_CACHE.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(AUTOTUNE_CACHE)
 
     from repro_torch import kernels
     from repro_torch.api import (
+        SimulationHealthError,
         SortPolicyConfig,
         load_simulation,
         make_simulation,
@@ -310,7 +400,7 @@ def main() -> None:
         support,
         unified_support,
     )
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, dispatch
     from repro_torch.kernels.deposition import ops as dep
     from repro_torch.kernels.deposition import ref as dep_ref
     from repro_torch.kernels.gather import ops as gat
@@ -697,7 +787,12 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 4. the main path at full size -----------------------------------------
+    # from here on no path but phase 6's forced torch and phase 14's ladder
+    # may resolve to a plain version (the comparisons above call them)
+    dispatch.counters["plain_on_card"] = 0
     sim = make_simulation(scenario("uniform", **MAIN))
+    chosen = resolved(dispatch, sim)
+    say(f"main path: the dispatcher resolved {chosen}")
     charge0 = float(torch.sum(sim.state.particles.w * sim.state.particles.alive))
     main = run_path(torch, kernels, sim, f"main path: uniform {MAIN['grid']}, order {MAIN['order']}")
     counts, steps, n0 = main["counts"], main["steps"], main["n0"]
@@ -706,25 +801,36 @@ def main() -> None:
     say(f"  energies: field {diag['field_energy']:.6e} kinetic {diag['kinetic_energy']:.6e} "
         f"total {diag['total_energy']:.6e}; charge {charge0:.7e} -> {charge1:.7e}")
     per_run = steps + main["captures"]  # each capture's warm-up step launches too
-    if counts.get("fused_bin_deposit_reduced") != per_run or counts.get("fused_bin_gather") != per_run:
-        fail(f"the main path did not launch the kernels once per step: {counts}")
+    want = path_launches(chosen, per_run)
+    if fused_counts(counts) != want:
+        fail(f"the main path did not launch the resolved backends' kernels ({chosen}) once per step: {counts}")
     if not all(math.isfinite(diag[k]) for k in ("field_energy", "kinetic_energy")) or diag["field_energy"] <= 0:
         fail(f"energies not finite and positive: {diag}")
     if diag["step"] != steps or diag["n_alive"] != n0 or abs(charge1 - charge0) > 1e-5 * abs(charge0):
         fail("step count, particle count or total charge not conserved")
-    results["fused_bin_deposit_reduced"]["launches"] = counts["fused_bin_deposit_reduced"]
-    results["fused_bin_gather"]["launches"] = counts["fused_bin_gather"]
+    for name, n in want.items():
+        results[name]["launches"] = n
     del sim
     torch.cuda.empty_cache()
 
-    # the same path through the packed deposition kernel (backend "cuda")
-    sim = make_simulation(scenario("uniform", **{**MAIN, "steps": 16}, backend="cuda"))
-    out = run_path(torch, kernels, sim, "main path, backend cuda")
-    if out["counts"].get("fused_bin_deposit") != 16 + out["captures"] or out["counts"].get("fused_bin_deposit_reduced"):
-        fail(f"backend cuda did not run the packed deposition kernel once per step: {out['counts']}")
-    results["fused_bin_deposit"]["launches"] = out["counts"]["fused_bin_deposit"]
-    del sim
-    torch.cuda.empty_cache()
+    # the same path through each fused deposition kernel the autotune did
+    # not pick (16 steps)
+    forced = {}
+    for backend in ("cuda", "cuda_reduced"):
+        if chosen["deposit_fused"] == backend:
+            continue
+        sim = make_simulation(scenario("uniform", **{**MAIN, "steps": 16}, backend=backend))
+        out = run_path(torch, kernels, sim, f"main path, backend {backend}")
+        want = path_launches(resolved(dispatch, sim), 16 + out["captures"])
+        if fused_counts(out["counts"]) != want:
+            fail(f"backend {backend} did not run its kernels once per step: {out['counts']}")
+        for name, n in want.items():
+            if results[name]["launches"] is None:
+                results[name]["launches"] = n
+        forced[backend] = out
+        say(f"  against the main path ({chosen['deposit_fused']}): {out['ms_step'] / main['ms_step']:.3f}x its step time")
+        del sim
+        torch.cuda.empty_cache()
 
     # -- 5. the unfused path and the scatter baseline at full size -------------
     sim = make_simulation(scenario("uniform", **UNFUSED))
@@ -752,10 +858,11 @@ def main() -> None:
     say(f"  the fused main path against this baseline: {out['ms_step'] / main['ms_step']:.2f}x faster a step")
     del sim
     torch.cuda.empty_cache()
+    no_plain(dispatch, "phases 4-5")
 
     # -- 6. the other backends and modes at 32^3 against the default -----------
     fields = {}
-    runs = {"cuda_reduced": {}, "cuda": dict(backend="cuda"), "torch": dict(backend="torch"),
+    runs = {"cuda_reduced": dict(backend="cuda_reduced"), "cuda": dict(backend="cuda"), "torch": dict(backend="torch"),
             "matrix_unfused": dict(deposition="matrix_unfused", gather="matrix_unfused"),
             "scatter": dict(deposition="scatter", gather="scatter"),
             "rhocell": dict(deposition="rhocell", gather="scatter")}
@@ -768,6 +875,9 @@ def main() -> None:
             f"{ {k: v for k, v in kernels.launch_counts().items() if v} }, energies {sim.diagnostics()['total_energy']:.6e}")
         if sim.host_reads != sim.windows + 2 * sim.growths["capacity"]:
             fail(f"32^3 {label}: not one host read a window")
+        if label == "torch":  # the one path that asks for the plain version
+            dispatch.counters["plain_on_card"] = 0
+        no_plain(dispatch, f"32^3 {label}")
     for label in runs:
         if label == "cuda_reduced":
             continue
@@ -792,16 +902,28 @@ def main() -> None:
     if not (math.isfinite(diag["total_energy"]) and diag["n_alive"] == out["n0"] and out["n0"] < p.n
             and abs(charge1 - charge0) <= 1e-5 * abs(charge0) and diag["field_energy"] > 0):
         fail(f"lwfa run not sane: {diag}")
+    chosen_l = resolved(dispatch, sim)
+    say(f"  resolved {chosen_l}")
+    if any(out["counts"].get(k, 0) < n for k, n in path_launches(chosen_l, out["steps"]).items()):
+        fail(f"lwfa did not launch the resolved kernels {chosen_l} every step: {out['counts']}")
+    no_plain(dispatch, "lwfa")
     del sim
     torch.cuda.empty_cache()
 
     # -- 8. matrix_scatter_add at the language-model shapes ----------------------
     # in float32 (the kernel rows above are bfloat16), against a float32
-    # scatter-add of the same items: the two sum in different orders
+    # scatter-add of the same items: the two sum in different orders; the
+    # default backend ("auto"), which must resolve to the kernel, untimed
     kernels.reset_launch_counts()
+    bench0 = dispatch.counters["benchmark"]
     for label, idx, upd, wts, capacity, n_bins in items:
         upd32 = upd.float()
         w32 = None if wts is None else wts.float()
+        chosen_seg = dispatch.resolve("segment_accumulate", "auto", device=dev, capacity=capacity, n_bins=n_bins,
+                                      dtype=upd32.dtype, width=upd32.shape[1])
+        say(f"matrix_scatter_add, {label}: auto resolves segment_accumulate to {chosen_seg!r}")
+        if chosen_seg != "cuda":
+            fail(f"auto resolved segment_accumulate to {chosen_seg!r} at {label}, not the kernel")
         got = matrix_scatter_add(idx, upd32, n_bins=n_bins, capacity=capacity, weights=w32)
         ones = torch.ones(idx.shape, device=dev)
         want = torch.zeros((n_bins, upd.shape[1]), device=dev).index_add_(
@@ -815,8 +937,9 @@ def main() -> None:
             fail(f"matrix_scatter_add disagrees with the scatter-add: {label}")
         del got, want, upd32
     n_seg = kernels.launch_counts()["segment_accumulate"]
-    if n_seg != len(items):
-        fail(f"matrix_scatter_add did not launch segment_accumulate once per call: {n_seg}")
+    if n_seg != len(items) or dispatch.counters["benchmark"] != bench0:
+        fail(f"matrix_scatter_add did not launch segment_accumulate once per call ({n_seg}), or timed it")
+    no_plain(dispatch, "matrix_scatter_add")
     results["segment_accumulate"]["launches"] = n_seg
 
     # -- 9. the sort-mode ablation at the main shapes ---------------------------
@@ -828,9 +951,9 @@ def main() -> None:
         out = run_path(torch, kernels, sim, f"sort {mode}{' (scatter deposition and gather)' if kw else ''}",
                        n_timed, warmup=n_timed)
         per_run = out["steps"] + out["captures"]
-        want = {} if mode == "none" else {"fused_bin_deposit_reduced": per_run, "fused_bin_gather": per_run}
+        want = path_launches(resolved(dispatch, sim), per_run)
         if out["counts"] != want:
-            fail(f"sort {mode}: launches {out['counts']}, expected {want}")
+            fail(f"sort {mode}: launches {out['counts']}, expected {want} (resolved {resolved(dispatch, sim)})")
         if out["reads_per_window"] != 1.0 or sim.sorts or sim.rebuilds:
             fail(f"sort {mode}: {out['reads_per_window']} host reads a window, {sim.sorts} sorts, "
                  f"{sim.rebuilds} rebuilds: expected 1.0 and no policy sort")
@@ -847,9 +970,11 @@ def main() -> None:
         + "; ".join(f"{m} {o['ms_step']:.2f} | {o['ms_step_setup']:.2f} | {o['rate']:.4e} | {o['peak_gb']:.2f} | "
                     f"{o['reads_per_window']:.2f} | {o['ms_step'] / main['ms_step']:.3f}"
                     for m, o in [("incremental", main)] + list(ablation.items())))
+    no_plain(dispatch, "the sort-mode ablation")
 
     # -- 10. the host-driven loop ------------------------------------------------
     sim = make_simulation(scenario("uniform", **MAIN))
+    chosen_host = resolved(dispatch, sim)
     sim.run(1, window=None)  # first-call allocations
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -862,8 +987,8 @@ def main() -> None:
     host_reads = (sim.host_reads - reads0) / 8
     say(f"host-driven loop, main path: 8 steps at {host_ms:.2f} ms/step ({host_ms / main['ms_step']:.3f}x the "
         f"windowed {main['ms_step']:.2f}), {host_reads:.2f} host reads/step, sorts {sim.sorts}, launches {counts}, "
-        f"{sim.graph_captures} graph captures")
-    if counts != {"fused_bin_deposit_reduced": 8, "fused_bin_gather": 8} or sim.graph_captures or sim.windows:
+        f"{sim.graph_captures} graph captures, resolved {chosen_host}")
+    if counts != path_launches(chosen_host, 8) or sim.graph_captures or sim.windows:
         fail(f"the host-driven loop did not run each kernel once a step without a graph: {counts}")
     del sim
     torch.cuda.empty_cache()
@@ -877,11 +1002,12 @@ def main() -> None:
     say(f"32^3: 20 host-loop steps bit-equal to 20 windowed steps: fields, particles, slots, slab, "
         f"sorts {host.sorts}, rebuilds {host.rebuilds}; host reads {host.host_reads} against {wind.host_reads}")
     del host, wind
+    no_plain(dispatch, "the host-driven loop")
 
     # -- 11. checkpoints on the card -------------------------------------------
     import shutil
 
-    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoint"
+    ckpt = ROOT / "build" / "chip_smoke_checkpoint"
     try:
         for mode in ("incremental", "global"):
             kw = dict(small, sort=mode, window=5, diagnostics_every=1)
@@ -896,14 +1022,17 @@ def main() -> None:
             counts = {k: v for k, v in kernels.launch_counts().items() if v}
             if not same_state(torch, whole, resumed) or whole.history != resumed.history:
                 fail(f"sort {mode}: saved at step 10, loaded and run 10 more steps is not bit-equal to 20 steps")
-            if counts.get("fused_bin_deposit_reduced", 0) < 10:
-                fail(f"sort {mode}: the resumed run did not launch the kernels: {counts}")
+            want = path_launches(resolved(dispatch, resumed), 10 + resumed.graph_captures)
+            if fused_counts(counts) != want:
+                fail(f"sort {mode}: the resumed run did not launch the resolved kernels {want}: {counts}")
             say(f"checkpoint, sort {mode}, 32^3: saved at step 10, loaded, 10 more steps bit-equal to 20 "
-                f"uninterrupted steps (sorts {whole.sorts}, history of {len(whole.history)} steps)")
+                f"uninterrupted steps (sorts {whole.sorts}, history of {len(whole.history)} steps, resolved "
+                f"{resolved(dispatch, resumed)})")
             del whole, first, resumed
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
+    no_plain(dispatch, "checkpoints")
 
     # -- 12. growth-rate anchors ------------------------------------------------
     for name, rate in (("two_stream", two_stream_growth_rate), ("weibel", weibel_growth_rate)):
@@ -915,17 +1044,20 @@ def main() -> None:
         gamma = rate(spec_g)
         slope = energy_slope(np, sim.history, spec_g.dt)
         ratio = slope / (2.0 * gamma)
+        chosen_g = resolved(dispatch, sim)
         say(f"{name} {spec_g.grid.shape}, {spec_g.run.steps} steps: field-energy growth {slope:.4f} against the "
-            f"analytic 2*gamma {2 * gamma:.4f}: ratio {ratio:.3f} (window 0.75-1.25), launches {counts}")
-        if not 0.75 < ratio < 1.25 or not counts.get("fused_bin_gather"):
-            fail(f"{name}: growth ratio {ratio:.3f} outside 0.75-1.25, or the kernels did not run")
+            f"analytic 2*gamma {2 * gamma:.4f}: ratio {ratio:.3f} (window 0.75-1.25), launches {counts}, "
+            f"resolved {chosen_g}")
+        if not 0.75 < ratio < 1.25 or any(not counts.get(k) for k in path_launches(chosen_g, 1)):
+            fail(f"{name}: growth ratio {ratio:.3f} outside 0.75-1.25, or the resolved kernels did not run")
         del sim
+    no_plain(dispatch, "growth-rate anchors")
 
     # -- 13. the PM N-body example ------------------------------------------------
     import importlib.util
 
     spec_pm = importlib.util.spec_from_file_location(
-        "torch_pm_nbody", Path(__file__).resolve().parent / "examples" / "torch_pm_nbody.py")
+        "torch_pm_nbody", ROOT / "examples" / "torch_pm_nbody.py")
     pm = importlib.util.module_from_spec(spec_pm)
     spec_pm.loader.exec_module(pm)
     kernels.reset_launch_counts()
@@ -940,12 +1072,163 @@ def main() -> None:
         fail(f"torch_pm_nbody did not launch bin_outer_product and bin_gather every step: {counts}")
     if not all(math.isfinite(e) for e in energies) or out["mass_err"] > 1e-5:
         fail(f"torch_pm_nbody: energies not finite or mass not conserved ({out['mass_err']:.2e})")
+    no_plain(dispatch, "torch_pm_nbody")
+
+    # -- 14. fault tolerance on the card ------------------------------------------
+    t0 = time.perf_counter()
+    sim = make_simulation(scenario("uniform", **MAIN))
+    off = run_path(torch, kernels, sim, "sentinel off, main shapes")
+    clean = host_copy(sim)
+    del sim
+    torch.cuda.empty_cache()
+    sim = make_simulation(scenario("uniform", **MAIN, health={"enable": True}))
+    on = run_path(torch, kernels, sim, "sentinel on, no fault, main shapes")
+    if not same_state(torch, sim, clean) or sim.halts or sim.retries or on["reads_per_window"] != 1.0:
+        fail(f"sentinel on: not bit-equal to the sentinel off, or halts {sim.halts}, {on['reads_per_window']} reads "
+             "a window")
+    snap_bytes = sum(getattr(t, f).numel() * getattr(t, f).element_size() for t in sim._snapshot["trees"]
+                     for f in t.__dataclass_fields__)
+    snap_ms = time_ms(torch, sim._take_snapshot, 5)
+    say(f"  bit-equal to the sentinel off; {on['ms_step']:.2f} against {off['ms_step']:.2f} ms/step "
+        f"({on['ms_step'] / off['ms_step'] - 1:+.2%}), peak {on['peak_gb']:.2f} against {off['peak_gb']:.2f} GB, "
+        f"{on['reads_per_window']:.2f} host reads a window (off {off['reads_per_window']:.2f}); the snapshot "
+        f"{snap_bytes / 1e9:.3f} GB, copied in {snap_ms:.3f} ms a window ({snap_ms / MAIN['window']:.4f} ms a step)")
+    del sim
+    torch.cuda.empty_cache()
+    for fault, want_halts in ((dict(kind="nan_field", step=20, component="ez"), {"nonfinite": 1}),
+                              (dict(kind="charge_scale", step=20), {"invariant": 1})):
+        sim = make_simulation(scenario("uniform", **MAIN, health={"enable": True}, fault=fault))
+        out = run_path(torch, kernels, sim, f"{fault['kind']} at step 20, main shapes")
+        ok = same_state(torch, sim, clean) and sim.history == clean.history
+        say(f"  halts {sim.halts}, retries {sim.retries}, fired {sim.fault_injector.fired}, host reads "
+            f"{sim.host_reads} in {sim.windows} windows entered (one halted), bit-equal to the clean run: {ok}; "
+            f"{out['ms_step']:.2f} ms/step against {on['ms_step']:.2f} clean")
+        if (sim.halts != want_halts or sim.retries != 1 or sim.fault_injector.fired != 1 or not ok
+                or sim.host_reads != sim.windows):
+            fail(f"{fault['kind']}: expected one halt {want_halts}, one retry and a bit-equal final state")
+        del sim
+        torch.cuda.empty_cache()
+    del clean
+    no_plain(dispatch, "the sentinel and the rolled-back faults")
+
+    small_ft = dict(grid=(32, 32, 32), ppc=2, order=3, steps=12, window=6, diagnostics_every=3)
+    sim = make_simulation(scenario("uniform", **small_ft, backend="cuda_reduced",
+                                   health={"enable": True, "max_retries": 6},
+                                   fault={"kind": "nan_field", "step": 4, "component": "ex", "count": 0}))
+    ladder, demote = ["cuda_reduced"], sim._demote_backend
+
+    def logged_demote():
+        moved = demote()
+        if moved:
+            ladder.append(sim.config.backend)
+        return moved
+
+    sim._demote_backend = logged_demote
+    try:
+        sim.run()
+        fail("a persistent NaN did not end in SimulationHealthError")
+    except SimulationHealthError as e:
+        err = e
+    say(f"persistent nan_field, 32^3: SimulationHealthError halt {err.halt!r} at step {err.step}, invariant "
+        f"{err.invariant!r}, measured {err.measured}, retries {err.retries}; backends {' -> '.join(ladder)}")
+    demoted = dispatch.counters["plain_on_card"]
+    say(f"  the demotion to torch is counted: {demoted} resolution(s) ran the plain version on the card")
+    if ((err.halt, err.step, err.invariant, err.retries) != ("nonfinite", 5, "fields_nonfinite", 6)
+            or ladder != ["cuda_reduced", "cuda", "torch"] or sim.config.backend != "torch" or not err.measured > 0
+            or not demoted):
+        fail("the remedy ladder did not end on torch with the CPU's halt, step, invariant and retries, "
+             "or the move to the plain version went uncounted")
+    dispatch.counters["plain_on_card"] = 0
+    del sim._demote_backend, sim  # (the logging wrapper referred to the driver)
+    auto = ROOT / "build" / "chip_smoke_autosave"
+    try:
+        shutil.rmtree(auto, ignore_errors=True)
+        whole = make_simulation(scenario("uniform", **small_ft, health={"enable": True}))
+        whole.run()
+        crash = make_simulation(scenario("uniform", **small_ft, health={"enable": True},
+                                         fault={"kind": "crash", "step": 8}))
+        crash.run(autosave_every=6, autosave_path=str(auto))
+        ok = same_state(torch, whole, crash) and whole.history == crash.history
+        say(f"crash at step 8, 32^3, autosave every 6: restarts {crash.restarts}, bit-equal to the uninterrupted run: "
+            f"{ok}; autosaves {sorted(os.listdir(auto))}")
+        if crash.restarts != 1 or not ok:
+            fail("the crash was not restored from its autosave bit for bit")
+        del whole, crash
+    finally:
+        shutil.rmtree(auto, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. the dispatcher's autotune -----------------------------------------------
+    # on the card auto chooses among the kernels only: deposit_fused times
+    # cuda_reduced (#2 and its tail) against cuda (#1 and the z pass) on a
+    # slab at the driver's mean occupancy; every other op has one kernel
+    t0 = time.perf_counter()
+    for order in (1, 2):  # the other orders at the main grid, for their timings
+        sim = make_simulation(scenario("uniform", **{**MAIN, "order": order}))
+        del sim
+        torch.cuda.empty_cache()
+    entries = json.loads(AUTOTUNE_CACHE.read_text())["entries"]
+    flips = []
+    for key, e in sorted(entries.items()):
+        say(f"autotune {key}, fill {e['fill']}: medians "
+            + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us in e["timings_us"].items()) + f"; winner {e['backend']}")
+        if set(e["timings_us"]) != {"cuda_reduced", "cuda"}:
+            fail(f"autotune {key}: candidates {sorted(e['timings_us'])}, expected the two deposition kernels")
+        if e["backend"] != "cuda_reduced":
+            flips.append(key)
+    say(f"autotune: {len(entries)} keys timed in this run; the timing overruled the priority order "
+        f"(cuda_reduced) at {len(flips)}: {flips}")
+    spec_main = scenario("uniform", **MAIN)
+    cap_main = spec_main.sort.resolved_capacity(spec_main.plasma.ppc)
+    main_key = dict(device=dev, order=MAIN["order"], grid_shape=MAIN["grid"], capacity=cap_main, dtype=torch.float32)
+    # the seconds the timing adds to set-up: the main key timed from an
+    # empty cache and a cold memo, then resolved from the memo
+    AUTOTUNE_CACHE.unlink()
+    dispatch.clear_memo()
+    dispatch.reset_counters()
+    t1 = time.perf_counter()
+    sim = make_simulation(spec_main)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t1
+    del sim
+    torch.cuda.empty_cache()
+    n_bench = dispatch.counters["benchmark"]
+    t1 = time.perf_counter()
+    sim = make_simulation(spec_main)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    memo = dispatch.counters["memo_hit"]
+    del sim
+    torch.cuda.empty_cache()
+    dispatch.clear_memo()
+    again = {op: dispatch.resolve(op, "auto", **main_key) for op in ("deposit_fused", "gather_fused")}
+    e = json.loads(AUTOTUNE_CACHE.read_text())["entries"][dispatch.make_key("deposit_fused", **main_key).cache_key()]
+    say(f"autotune deposit_fused, main shapes, timed again (fill {e['fill']}): medians "
+        + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us in e["timings_us"].items()) + f"; winner {e['backend']}")
+    say(f"set-up of the main path: {cold_s:.2f} s timing from nothing ({n_bench} benchmark), {warm_s:.2f} s from the "
+        f"memo: the timing adds {cold_s - warm_s:.2f} s; after clear_memo: {again} ({dispatch.counters['cache_hit']} "
+        f"cache hit, gather_fused untimed: one kernel), {dispatch.counters['benchmark']} benchmark in all")
+    if (n_bench != 1 or dispatch.counters["benchmark"] != 1 or memo < 2 or dispatch.counters["cache_hit"] != 1
+            or again["gather_fused"] != "cuda"):
+        fail("the autotune timed a key more than once, timed the gather, or the memo or the cache file were not used")
+    sim = make_simulation(spec_main)
+    chosen15 = resolved(dispatch, sim)
+    out = run_path(torch, kernels, sim, f"main path under the resolved backends {chosen15}")
+    if fused_counts(out["counts"]) != path_launches(chosen15, out["steps"] + out["captures"]):
+        fail(f"the main path did not launch the resolved kernels {chosen15} once a step: {out['counts']}")
+    say(f"  against phase 4: {out['ms_step']:.2f} against {main['ms_step']:.2f} ms/step; phase 15: "
+        f"{time.perf_counter() - t0:.1f} s")
+    del sim
+    torch.cuda.empty_cache()
+    no_plain(dispatch, "the autotune")
+    AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     order_of = ("fused_bin_deposit", "fused_bin_deposit_reduced", "fused_bin_gather", "bin_outer_product",
                 "bin_gather", "segment_accumulate")
     say(json.dumps({"kernels": [results[k] for k in order_of]}))
-    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

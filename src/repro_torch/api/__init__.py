@@ -1,6 +1,8 @@
 """Public API of the port: the declarative spec (JSON shared with
 `repro.api`), the scenario registry (uniform, lwfa, two_stream, weibel),
-the single-device driver facade and its checkpoints.
+the single-device driver facade, its checkpoints and its fault tolerance
+(the health sentinel's `HealthConfig`, the chaos harness's `FaultSpec`,
+`SimCheckpointer` autosave, `SimulationHealthError`).
 
     from repro_torch.api import scenario, make_simulation, load_simulation
     sim = make_simulation(scenario("uniform", grid=(64, 64, 64), order=3))
@@ -11,6 +13,8 @@ the single-device driver facade and its checkpoints.
 """
 
 from repro_torch.api.facade import (  # noqa: F401
+    SimCheckpointer,
+    clean_stale_tmp,
     build_fields,
     build_particles,
     load_simulation,
@@ -42,6 +46,7 @@ from repro_torch.api.spec import (  # noqa: F401
     SimSpec,
     SortSpec,
 )
+from repro_torch.core.health import SimulationHealthError  # noqa: F401
 from repro_torch.core.resort_policy import SortPolicyConfig  # noqa: F401
 from repro_torch.pic.grid import GridSpec  # noqa: F401
 from repro_torch.pic.laser import LaserSpec  # noqa: F401

@@ -1,6 +1,7 @@
 """The driver facade: spec -> initial conditions -> `Simulation`, and the
 checkpoints (`save_simulation`, `restore_simulation`, `load_simulation`,
-from `repro_torch.checkpoint`). Counterpart of the single-device part of
+the autosave's `SimCheckpointer` and `clean_stale_tmp`, from
+`repro_torch.checkpoint`). Counterpart of the single-device part of
 `repro.api.facade`.
 
 Entry points run on ``cuda`` unless the caller names another device; with
@@ -13,14 +14,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.api.spec import SimSpec
-from repro_torch.checkpoint import load_simulation, restore_simulation, save_simulation
+from repro_torch.checkpoint import (
+    SimCheckpointer,
+    clean_stale_tmp,
+    load_simulation,
+    restore_simulation,
+    save_simulation,
+)
 from repro_torch.pic.grid import FieldState
 from repro_torch.pic.laser import inject_laser
 from repro_torch.pic.plasma import ParticleState, apply_counter_drift, perturb_velocity, profiled_plasma, uniform_plasma
 
 __all__ = [
+    "SimCheckpointer",
     "build_fields",
     "build_particles",
+    "clean_stale_tmp",
     "load_simulation",
     "make_simulation",
     "pic_config",

@@ -10,10 +10,11 @@ Kernel backends are kept under the port's names (``torch``, ``cuda``,
 
 The nodes of what the port does not run yet load, and their defaults are
 accepted, but a value other than the default is refused by name with
-`NotImplementedError`: a device mesh, a communication option, the health
-sentinel, an injected fault and autosave (see `SimSpec.__post_init__`).
-`HealthConfig`, `CommSpec` and `FaultSpec` are copies of the reference's
-field lists and checks.
+`NotImplementedError`: a device mesh and a communication option (see
+`SimSpec.__post_init__`). `CommSpec` is a copy of the reference's field list
+and checks; `HealthConfig` (`repro_torch.core.health`) and `FaultSpec`
+(`repro_torch.distributed.fault`) are the port's own copies, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import math
 import warnings
 from typing import Any
 
+from repro_torch.core.health import HealthConfig
 from repro_torch.core.resort_policy import SortPolicyConfig
+from repro_torch.distributed.fault import FaultSpec
 from repro_torch.kernels import dispatch
 from repro_torch.pic.grid import GridSpec
 from repro_torch.pic.laser import LaserSpec
@@ -294,51 +297,6 @@ class CommSpec(_Node):
 
 
 @dataclasses.dataclass(frozen=True)
-class HealthConfig(_Node):
-    """The health sentinel's configuration (the reference's
-    `repro.core.health.HealthConfig` fields)."""
-
-    enable: bool = False
-    check_nonfinite: bool = True
-    check_charge: bool = True
-    check_energy: bool = True
-    charge_rtol: float = 1e-4
-    energy_rtol: float = 0.25
-    energy_atol: float = 1e-3
-    max_retries: int = 3
-    max_restarts: int = 3
-
-    def __post_init__(self):
-        if self.charge_rtol <= 0 or self.energy_rtol <= 0:
-            raise ValueError("health tolerances must be positive")
-        if self.max_retries < 1 or self.max_restarts < 0:
-            raise ValueError("max_retries must be >= 1 and max_restarts >= 0")
-
-
-FAULT_KINDS = ("nan_field", "nan_momentum", "charge_scale", "recv_drop", "crash")
-FIELD_COMPONENTS = ("ex", "ey", "ez", "bx", "by", "bz")
-
-
-@dataclasses.dataclass(frozen=True)
-class FaultSpec(_Node):
-    """A fault to inject (the reference's `repro.distributed.fault.FaultSpec`
-    fields)."""
-
-    kind: str = "nan_field"
-    step: int = 0
-    component: str = "ez"
-    count: int = 1
-
-    def __post_init__(self):
-        if self.kind not in FAULT_KINDS:
-            raise ValueError(f"unknown fault kind {self.kind!r}; expected one of {sorted(FAULT_KINDS)}")
-        if self.component not in FIELD_COMPONENTS:
-            raise ValueError(f"unknown field component {self.component!r}")
-        if self.step < 0 or self.count < 0:
-            raise ValueError("FaultSpec step and count must be >= 0")
-
-
-@dataclasses.dataclass(frozen=True)
 class RunSpec(_Node):
     """Run schedule: default step count, window length (``window=0`` selects
     the host-driven per-step loop), diagnostics cadence, timestep (``dt=0``
@@ -392,12 +350,9 @@ class SimSpec(_Node):
             raise _not_ported("mesh.shape", self.mesh.shape, "the distributed driver")
         if self.comm != CommSpec():
             raise _not_ported("comm", self.comm, "the distributed driver's communication")
-        if self.health.enable:
-            raise _not_ported("health.enable", True, "the health sentinel (fault tolerance)")
-        if self.fault is not None:
-            raise _not_ported("fault", self.fault, "fault injection (fault tolerance)")
-        if self.run.autosave_every > 0:
-            raise _not_ported("run.autosave_every", self.run.autosave_every, "autosave (fault tolerance)")
+        if self.fault is not None and self.fault.kind == "recv_drop" and self.mesh.shape is None:
+            raise ValueError("fault kind 'recv_drop' targets the distributed migration path — "
+                             "single-device runs have no recv buffer to drop from")
 
     @property
     def dt(self) -> float:

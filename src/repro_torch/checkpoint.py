@@ -15,6 +15,10 @@ checkpoint is a directory holding
 It is written to a temporary directory and renamed into place, so a crash
 leaves the old checkpoint or the new one. A run moves between the two
 packages in mid-flight: a checkpoint that one writes, the other loads.
+
+`SimCheckpointer` keeps a rolling set of step-stamped checkpoints for the
+supervisor's autosave (`Simulation.run(autosave_every=N)`), and
+`clean_stale_tmp` sweeps what killed writers left behind.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from repro_torch.pic.grid import FieldState
 from repro_torch.pic.plasma import ParticleState
 from repro_torch.pic.simulation import state_from_reference
 
-__all__ = ["load_simulation", "restore_simulation", "save_simulation"]
+__all__ = ["SimCheckpointer", "clean_stale_tmp", "load_simulation", "restore_simulation", "save_simulation"]
 
 _ARRAYS = "arrays.npz"
 _META = "checkpoint.json"
@@ -119,7 +123,6 @@ def save_simulation(sim, path: str) -> None:
     """Checkpoint a single-device `Simulation` to `path`."""
     pairs = _flatten(sim)
     st = sim.host_policy.state
-    carried = sim.carried_counters
     scalars = {
         "sorts": sim.sorts,
         "rebuilds": sim.rebuilds,
@@ -134,9 +137,9 @@ def save_simulation(sim, path: str) -> None:
         "history": sim.history,
         "growths": dict(sim.growths),
         "halts": dict(sim.halts),
-        "retries": carried.get("retries", 0),
-        "restarts": carried.get("restarts", 0),
-        "discarded_steps": carried.get("discarded_steps", 0),
+        "retries": sim.retries,
+        "restarts": sim.restarts,
+        "discarded_steps": sim.discarded_steps,
     }
     meta = {"driver": "single", "spec": None if sim.spec is None else sim.spec.to_dict(), "scalars": scalars}
     _write_dir(path, [n for n, _ in pairs], [_host(leaf) for _, leaf in pairs], meta)
@@ -157,7 +160,8 @@ def _shape_ok(name: str, saved: tuple, tmpl: tuple) -> bool:
 
 def restore_simulation(sim, path: str) -> None:
     """Restore a checkpoint into a compatible driver: the same grid and
-    particle count; the capacity is the checkpoint's."""
+    particle count; the capacity is the checkpoint's. The window's captured
+    step is dropped (the next window captures anew)."""
     arrays, meta = _read_dir(path)
     if meta["driver"] != "single":
         raise ValueError(f"checkpoint was written by the {meta['driver']!r} driver; the port runs 'single'")
@@ -186,11 +190,17 @@ def restore_simulation(sim, path: str) -> None:
     sim.history = list(scal["history"])
     sim.growths = dict(scal.get("growths", sim.growths))
     sim.halts = dict(scal.get("halts", {}))
-    sim.carried_counters = {k: int(scal.get(k, 0)) for k in ("retries", "restarts", "discarded_steps")}
+    sim.retries = int(scal.get("retries", 0))
+    sim.restarts = int(scal.get("restarts", 0))
+    sim.discarded_steps = int(scal.get("discarded_steps", 0))
+    sim._remedy_level = 0
     hp = scal["host_policy"]
     st = sim.host_policy.state
     st.steps_since_sort, st.rebuilds_since_sort = hp["steps_since_sort"], hp["rebuilds_since_sort"]
     st.baseline_perf, st.perf_ema = hp["baseline_perf"], hp["perf_ema"]
+    # the restored capacity is part of the dispatch key: resolve it before
+    # the next window captures its step
+    sim._prewarm_dispatch()
 
 
 def load_simulation(path: str, device=None):
@@ -206,3 +216,95 @@ def load_simulation(path: str, device=None):
     sim = make_simulation(SimSpec.from_dict(meta["spec"]), device=device)
     restore_simulation(sim, path)
     return sim
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def clean_stale_tmp(directory: str) -> list[str]:
+    """Remove the ``*.tmp-<pid>`` and ``*.old-<pid>`` entries that killed
+    writers left (a clean exit leaves none); those of a live pid stay.
+    Returns the removed paths."""
+    removed = []
+    if not os.path.isdir(directory):
+        return removed
+    for name in os.listdir(directory):
+        for marker in (".tmp-", ".old-"):
+            if marker in name:
+                suffix = name.rsplit(marker, 1)[1]
+                if suffix.isdigit() and _pid_alive(int(suffix)):
+                    continue
+                path = os.path.join(directory, name)
+                if os.path.isdir(path):
+                    shutil.rmtree(path, ignore_errors=True)
+                else:
+                    try:
+                        os.remove(path)
+                    except OSError:
+                        pass
+                removed.append(path)
+                break
+    return removed
+
+
+class SimCheckpointer:
+    """Rolling autosave of a driver: `save_simulation` directories
+    ``step_<step:09d>`` under one root, the newest ``keep`` kept, and
+    `latest_path` for a restore. Stale temporaries are swept at
+    construction.
+
+    `maybe_save(step)` saves once at least ``every`` steps have passed since
+    the last save: windows rarely end on a multiple, so the cadence is
+    "every N, or the first window boundary after it"."""
+
+    def __init__(self, sim, directory: str, *, every: int, keep: int = 2):
+        if every <= 0:
+            raise ValueError(f"autosave interval must be positive, got {every}")
+        if keep < 1:
+            raise ValueError(f"keep must be >= 1, got {keep}")
+        self.sim = sim
+        self.directory = directory or "checkpoints"
+        self.every = every
+        self.keep = keep
+        os.makedirs(self.directory, exist_ok=True)
+        clean_stale_tmp(self.directory)
+        self._last: int | None = None
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:09d}")
+
+    def _steps(self) -> list[int]:
+        out = []
+        for name in os.listdir(self.directory):
+            if not name.startswith("step_") or ".tmp-" in name or ".old-" in name:
+                continue
+            try:
+                out.append(int(name[len("step_"):]))
+            except ValueError:
+                continue
+        return sorted(out)
+
+    def latest_path(self) -> str:
+        steps = self._steps()
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        return self._path(steps[-1])
+
+    def maybe_save(self, step: int, force: bool = False) -> bool:
+        if not force and self._last is not None and step - self._last < self.every:
+            return False
+        if not force and self._last is None:
+            self._last = step  # the baseline: count `every` steps from here
+            return False
+        save_simulation(self.sim, self._path(step))
+        self._last = step
+        for old in self._steps()[: -self.keep]:
+            shutil.rmtree(self._path(old), ignore_errors=True)
+        return True

@@ -143,7 +143,8 @@ def deposit_matrix(pos, values, layout: BinnedLayout, *, grid_shape, order: int,
     g = sf.max_guard(order) if guard is None else guard
     (tx, ty, tz), bases = _taps_and_bases(order, stagger)
     a, b = binned_shape_factors(pos, values, layout, grid_shape=grid_shape, order=order, stagger=stagger)
-    if dispatch.resolve("deposit_unfused", backend, device=pos.device) == "cuda":
+    if dispatch.resolve("deposit_unfused", backend, device=pos.device, order=order, grid_shape=grid_shape,
+                        capacity=layout.slots.shape[1], dtype=values.dtype) == "cuda":
         from repro_torch.kernels.deposition.ops import bin_outer_product
 
         rho = bin_outer_product(a.contiguous(), b.contiguous())
@@ -212,7 +213,8 @@ def fused_deposit_grids(d, val, *, grid_shape, order: int, guard: int | None = N
 
     grid_shape = tuple(grid_shape)
     g = sf.max_guard(order) if guard is None else guard
-    name = dispatch.resolve("deposit_fused", backend, device=d.device, grid_shape=grid_shape)
+    name = dispatch.resolve("deposit_fused", backend, device=d.device, order=order, grid_shape=grid_shape,
+                            capacity=d.shape[1], dtype=val.dtype)
     if name == "cuda_reduced":
         from repro_torch.kernels.deposition.ops import fused_bin_deposit_reduced
 

@@ -91,7 +91,8 @@ def gather_matrix(pos, grid_padded, layout: BinnedLayout, *, grid_shape, order: 
     wy = sf.shape_weights(d[..., 1], order, stagger[1])
     wz = sf.shape_weights(d[..., 2], order, stagger[2])
     byz = (wy[..., :, None] * wz[..., None, :]).reshape(n_cells, cap, ty * tz)
-    if dispatch.resolve("bin_gather", backend, device=pos.device) == "cuda":
+    if dispatch.resolve("bin_gather", backend, device=pos.device, order=order, grid_shape=grid_shape, capacity=cap,
+                        dtype=pos.dtype) == "cuda":
         from repro_torch.kernels.gather.ops import bin_gather
 
         e_bins = bin_gather(wx.contiguous(), byz.contiguous(), neigh.contiguous()) * valid
@@ -153,7 +154,8 @@ def fused_gather_bins(d, padded, *, grid_shape, order: int, guard: int | None = 
 
     grid_shape = tuple(grid_shape)
     g = sf.max_guard(order) if guard is None else guard
-    name = dispatch.resolve("gather_fused", backend, device=d.device, grid_shape=grid_shape)
+    name = dispatch.resolve("gather_fused", backend, device=d.device, order=order, grid_shape=grid_shape,
+                            capacity=d.shape[1], dtype=d.dtype)
     if name == "cuda":
         from repro_torch.kernels.gather.ops import fused_bin_gather
 

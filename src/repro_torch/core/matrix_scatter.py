@@ -70,7 +70,8 @@ def matrix_scatter_add(indices, updates, *, n_bins: int, capacity: int, weights=
                                                    weights=weights)
     if not updates.dtype.is_floating_point:
         out = torch.sum(binned_w[..., None] * binned_u, dim=1, dtype=updates.dtype)
-    elif dispatch.resolve("segment_accumulate", backend, device=updates.device) == "cuda":
+    elif dispatch.resolve("segment_accumulate", backend, device=updates.device, capacity=capacity, n_bins=n_bins,
+                          dtype=updates.dtype, width=updates.shape[1]) == "cuda":
         from repro_torch.kernels.scatter_matrix.ops import segment_accumulate
 
         out = segment_accumulate(binned_w, binned_u)

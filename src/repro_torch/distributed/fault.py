@@ -1,0 +1,280 @@
+"""The chaos harness and the windowed-run supervisor of the single-device
+driver. Counterpart of the PIC half of `repro.distributed.fault`.
+
+A declarative frozen `FaultSpec` (serialised on the `SimSpec`) drives a
+deterministic fault: NaN into one field component or into the momenta, a
+doubling of the weights that breaks charge conservation (all three injected
+into the step's input on the device), or a simulated crash on the host.
+`run_supervised_windows` runs the windowed loop under the health sentinel:
+a health halt rolls the window back to its entry snapshot and retries under
+an escalating remedy ladder; an exception restores the latest autosave.
+
+The training loop's generic pieces of the reference's module
+(`FailureInjector`, `StragglerMonitor`, `Supervisor`) belong to the
+language-model stack and are not here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import torch
+
+from repro_torch.core.health import (
+    HALT_INVARIANT,
+    HALT_NAMES,
+    HALT_NONFINITE,
+    INVARIANT_NAMES,
+    SimulationHealthError,
+)
+
+log = logging.getLogger("repro_torch.fault")
+
+
+class SimulatedFailure(RuntimeError):
+    pass
+
+
+# Injected fault kinds, encoded into a device vector [kind, step,
+# component], so that arming a fault never recaptures the window's graph.
+FAULT_NONE = 0
+FAULT_NAN_FIELD = 1
+FAULT_NAN_MOMENTUM = 2
+FAULT_CHARGE_SCALE = 3
+FAULT_RECV_DROP = 4
+
+FIELD_COMPONENTS = ("ex", "ey", "ez", "bx", "by", "bz")
+
+# "crash" is the host's alone (raises SimulatedFailure between windows)
+FAULT_KINDS = {
+    "nan_field": FAULT_NAN_FIELD,
+    "nan_momentum": FAULT_NAN_MOMENTUM,
+    "charge_scale": FAULT_CHARGE_SCALE,
+    "recv_drop": FAULT_RECV_DROP,
+    "crash": FAULT_NONE,
+}
+
+GRAPH_FAULT_KINDS = frozenset(k for k in FAULT_KINDS if k != "crash")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultSpec:
+    """A fault to inject (the reference's fields and checks).
+
+    ``kind``: ``nan_field`` (NaN into ``component`` before the step),
+    ``nan_momentum`` (NaN into the momenta), ``charge_scale`` (the weights
+    doubled), ``recv_drop`` (the distributed driver's migration drop),
+    ``crash`` (`SimulatedFailure` on the host before the window holding
+    ``step``). ``step``: the step counter at which it fires; an injected
+    fault corrupts the input of step ``step + 1``, the step the sentinel
+    reports. ``count``: how many times it fires, 0 for every time."""
+
+    kind: str = "nan_field"
+    step: int = 0
+    component: str = "ez"
+    count: int = 1
+
+    def __post_init__(self):
+        if self.kind not in FAULT_KINDS:
+            raise ValueError(f"unknown fault kind {self.kind!r}; expected one of {sorted(FAULT_KINDS)}")
+        if self.component not in FIELD_COMPONENTS:
+            raise ValueError(f"unknown field component {self.component!r}")
+        if self.step < 0 or self.count < 0:
+            raise ValueError("FaultSpec step and count must be >= 0")
+
+    @staticmethod
+    def from_dict(d: dict) -> "FaultSpec":
+        names = {f.name for f in dataclasses.fields(FaultSpec)}
+        unknown = set(d) - names
+        if unknown:
+            raise ValueError(f"FaultSpec has unknown keys {sorted(unknown)}")
+        return FaultSpec(**d)
+
+
+def no_fault_vec(device=None) -> torch.Tensor:
+    """A fault vector that never fires (step -1 matches no counter)."""
+    return torch.tensor([FAULT_NONE, -1, 0], dtype=torch.int64, device=device)
+
+
+def _fires(kind: int, step_count, fault_vec) -> torch.Tensor:
+    return (fault_vec[0] == kind) & (step_count == fault_vec[1])
+
+
+def inject_fields(fields, step_count, fault_vec):
+    """The six field tensors (`FIELD_COMPONENTS` order), one of them NaN
+    where a ``nan_field`` fault fires at ``step_count`` (a 0-d tensor): a
+    masked select, the inputs' values unchanged otherwise."""
+    fire = _fires(FAULT_NAN_FIELD, step_count, fault_vec)
+    return tuple(torch.where(fire & (fault_vec[2] == i), torch.full_like(f, float("nan")), f)
+                 for i, f in enumerate(fields))
+
+
+def inject_momenta(u, step_count, fault_vec):
+    """Momenta, NaN where a ``nan_momentum`` fault fires."""
+    return torch.where(_fires(FAULT_NAN_MOMENTUM, step_count, fault_vec), torch.full_like(u, float("nan")), u)
+
+
+def inject_weights(w, step_count, fault_vec):
+    """Weights, doubled where a ``charge_scale`` fault fires."""
+    return torch.where(_fires(FAULT_CHARGE_SCALE, step_count, fault_vec), w * 2.0, w)
+
+
+def injected_recv_drop(step_count, fault_vec):
+    """int32 1 where a ``recv_drop`` fault fires, else 0."""
+    return _fires(FAULT_RECV_DROP, step_count, fault_vec).to(torch.int32)
+
+
+class PICFaultInjector:
+    """The host side of a `FaultSpec`: arms the fault vector for the windows
+    that cover ``spec.step``, raises the simulated crash, and retires the
+    fault once it has fired ``spec.count`` times, so that a retried window
+    runs clean."""
+
+    def __init__(self, spec: FaultSpec):
+        self.spec = spec
+        self.remaining = spec.count if spec.count > 0 else None  # None: every time
+        self.fired = 0
+
+    def _armed(self) -> bool:
+        return self.remaining is None or self.remaining > 0
+
+    def _consume(self) -> None:
+        self.fired += 1
+        if self.remaining is not None:
+            self.remaining -= 1
+
+    def window_vec(self, host_step: int, k: int) -> torch.Tensor | None:
+        """The (CPU, int64) fault vector of a window of k steps from
+        ``host_step``, or None when no injected fault is armed for it."""
+        if self.spec.kind not in GRAPH_FAULT_KINDS or not self._armed():
+            return None
+        if not host_step <= self.spec.step < host_step + k:
+            return None
+        comp = FIELD_COMPONENTS.index(self.spec.component)
+        return torch.tensor([FAULT_KINDS[self.spec.kind], self.spec.step, comp], dtype=torch.int64)
+
+    def maybe_crash(self, host_step: int, k: int) -> None:
+        if self.spec.kind != "crash" or not self._armed():
+            return
+        if host_step <= self.spec.step < host_step + k:
+            self._consume()
+            raise SimulatedFailure(f"injected crash before window at step {host_step}")
+
+    def note_halt(self, code: int, halt_step: int) -> None:
+        """Count a halt at step ``spec.step + 1`` (the step whose input the
+        fault corrupted) as one firing of the armed fault."""
+        if self.spec.kind in GRAPH_FAULT_KINDS and self._armed() and halt_step == self.spec.step + 1:
+            self._consume()
+
+
+def run_supervised_windows(sim, n_steps: int, diagnostics_every: int, window: int, *, autosave_every: int = 0,
+                           autosave_path: str = "") -> None:
+    """Run ``n_steps`` of the windowed driver under fault supervision.
+
+    ``sim`` exposes the reference's hooks: ``_take_snapshot`` and
+    ``_restore_snapshot`` (the window's entry state), ``_enter_window``
+    (run one window, return its host bundle), ``_consume_bundle`` (commit a
+    window), ``_handle_halt`` (grow and continue after an overflow),
+    ``_remedy_sort`` and ``_demote_backend`` (rungs of the ladder), and the
+    counters ``halts``, ``retries``, ``restarts``, ``discarded_steps``.
+
+    * A health halt (``HALT_NONFINITE``, ``HALT_INVARIANT``) restores the
+      snapshot and retries: level 1 halves the window, level 2 forces a
+      global sort, each level from 3 demotes the kernel backend one rung;
+      past ``max_retries``, or with nothing left to demote to, it raises
+      `SimulationHealthError` naming the halt, its step and the invariant.
+    * An overflow halt goes to the driver's grow-and-continue handler.
+    * An exception restores the latest autosave (``autosave_every`` makes a
+      `SimCheckpointer`) and resumes, up to ``max_restarts`` times.
+    """
+    health = sim._health
+    inj = sim.fault_injector
+    max_retries = health.max_retries if health is not None else 3
+    max_restarts = health.max_restarts if health is not None else 3
+
+    ckpt = None
+    if autosave_every:
+        from repro_torch.checkpoint import SimCheckpointer
+
+        ckpt = SimCheckpointer(sim, autosave_path, every=autosave_every)
+        ckpt.maybe_save(sim._host_step, force=True)
+
+    target = sim._host_step + n_steps
+    retry_target = 0  # nonzero: the ladder's level 1 capped the window
+    while True:
+        try:
+            while sim._host_step < target:
+                k = min(window, target - sim._host_step)
+                if retry_target:
+                    k = min(k, retry_target)
+                if inj is not None:
+                    inj.maybe_crash(sim._host_step, k)
+                fault_vec = inj.window_vec(sim._host_step, k) if inj is not None else None
+                snap = sim._take_snapshot() if health is not None else None
+                host = sim._enter_window(k, window, diagnostics_every, fault_vec)
+                code = int(host.get("halt_code", 0))
+
+                if code in (HALT_NONFINITE, HALT_INVARIANT):
+                    sim._restore_snapshot(snap)
+                    name = HALT_NAMES[code]
+                    sim.halts[name] = sim.halts.get(name, 0) + 1
+                    if inj is not None:
+                        inj.note_halt(code, int(host.get("halt_step", -1)))
+                    sim.retries += 1
+                    sim._remedy_level += 1
+                    level = sim._remedy_level
+                    exhausted = level > max_retries
+                    if not exhausted and level >= 3:
+                        exhausted = not sim._demote_backend()
+                    if exhausted:
+                        raise SimulationHealthError(
+                            halt=name,
+                            step=int(host.get("halt_step", -1)),
+                            invariant=INVARIANT_NAMES[int(host.get("halt_inv", 0))],
+                            measured=float(host.get("halt_measured", float("nan"))),
+                            reference=float(host.get("halt_reference", float("nan"))),
+                            retries=sim.retries,
+                        )
+                    if level == 1:
+                        retry_target = max(1, k // 2)
+                    elif level == 2:
+                        sim._remedy_sort()
+                    log.warning("health halt %s at step %s: rollback, remediation level %d", name,
+                                host.get("halt_step"), level)
+                    continue
+
+                n_done = sim._consume_bundle(host, diagnostics_every)
+                sim.discarded_steps += int(host.get("n_discarded", 0))
+                sim._remedy_level = 0
+                retry_target = 0
+                if code:
+                    name = HALT_NAMES[code]
+                    sim.halts[name] = sim.halts.get(name, 0) + 1
+                    if inj is not None:
+                        inj.note_halt(code, int(host.get("halt_step", -1)))
+                    sim._handle_halt(code, host)
+                elif n_done < k:
+                    raise RuntimeError("windowed driver made no progress without a halt")
+                if ckpt is not None:
+                    ckpt.maybe_save(sim._host_step)
+            break
+        except SimulationHealthError:
+            raise
+        except Exception as exc:  # noqa: BLE001 — any failure is a lost node: restore and resume
+            if ckpt is None:
+                raise
+            sim.restarts += 1
+            if sim.restarts > max_restarts:
+                raise
+            restarts = sim.restarts
+            log.warning("window at step %d failed (%s); restoring latest checkpoint", sim._host_step, exc)
+            from repro_torch.checkpoint import restore_simulation
+
+            restore_simulation(sim, ckpt.latest_path())
+            # the checkpoint predates the crash: keep the live restart count
+            sim.restarts = restarts
+            sim._remedy_level = 0
+            retry_target = 0
+    if ckpt is not None:
+        ckpt.maybe_save(sim._host_step, force=True)

@@ -24,7 +24,9 @@ import subprocess
 
 import torch
 
-MAIN = dict(grid=(128, 128, 128), ppc=2, order=3, steps=1, window=1)
+# a named backend: only the initial state is used, so the driver's set-up
+# need not time the dispatcher's candidates
+MAIN = dict(grid=(128, 128, 128), ppc=2, order=3, steps=1, window=1, backend="cuda_reduced")
 
 
 def time_ms(fn, reps: int) -> float:

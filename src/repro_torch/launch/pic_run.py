@@ -8,6 +8,8 @@
     PYTHONPATH=src python -m repro_torch.launch.pic_run --window 0
     PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario lwfa --dump-spec lwfa.json
     PYTHONPATH=src python -m repro_torch.launch.pic_run --spec lwfa.json --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --sentinel --fault nan_field:20:ez
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --sentinel --fault crash:20 --autosave-every 8
 
 Runs on the CUDA device unless ``--device`` names another. One warm-up
 window (kernel build, the step's CUDA graph capture) runs first, then the
@@ -15,7 +17,12 @@ timed run; the launcher prints particle-steps/s, the sort counters, the
 host reads and the energies. ``--deposition``, ``--gather`` and ``--sort``
 pick the comparison modes of the reference; ``--window 0`` runs the
 host-driven per-step loop (two warm-up steps; the timed line then gives host
-reads per step). ``--spec`` runs a SimSpec JSON file, written by this
+reads per step). ``--sentinel`` turns on the health sentinel and its
+rollback-and-retry supervisor, ``--fault`` injects a fault (``nan_field``,
+``nan_momentum``, ``charge_scale``) at a step counter or crashes the host
+there (``crash``), ``--autosave-every`` keeps rolling checkpoints (under
+``--autosave-path``, default ``checkpoints/<scenario>``) that a crash
+restores; the timed line then gives the halts, retries and restarts. ``--spec`` runs a SimSpec JSON file, written by this
 launcher's ``--dump-spec`` or by the reference's, with the other options as
 overrides; ``--dump-spec`` writes the resolved spec and exits. ``--profile``
 then runs two more
@@ -44,14 +51,34 @@ PORT_KERNELS = ("fused_deposit_kernel", "fused_deposit_reduced_kernel", "fused_g
                 "bin_outer_product_kernel", "bin_gather_kernel", "segment_accumulate_kernel")
 
 
+def parse_fault(text: str) -> dict:
+    """``KIND:STEP[:COMPONENT[:COUNT]]`` -> a FaultSpec dict, e.g.
+    ``nan_field:40:ez``, ``crash:100`` or ``nan_momentum:10::0`` (count 0:
+    every time)."""
+    parts = text.split(":")
+    if len(parts) < 2:
+        raise ValueError(f"--fault wants KIND:STEP[:COMPONENT[:COUNT]], got {text!r}")
+    out = {"kind": parts[0], "step": int(parts[1])}
+    if len(parts) > 2 and parts[2]:
+        out["component"] = parts[2]
+    if len(parts) > 3 and parts[3]:
+        out["count"] = int(parts[3])
+    return out
+
+
 def build_spec(args):
     overrides = {}
-    for name in ("steps", "window", "order", "ppc", "backend", "deposition", "gather", "sort"):
+    for name in ("steps", "window", "order", "ppc", "backend", "deposition", "gather", "sort", "autosave_every",
+                 "autosave_path"):
         value = getattr(args, name)
         if value is not None:
             overrides[name] = value
     if args.grid is not None:
         overrides["grid"] = tuple(args.grid)
+    if args.sentinel:
+        overrides["health"] = {"enable": True}
+    if args.fault is not None:
+        overrides["fault"] = parse_fault(args.fault)
     if args.spec is not None:
         with open(args.spec) as f:
             return apply_overrides(SimSpec.from_json(f.read()), **overrides)
@@ -140,6 +167,17 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--profile", action="store_true",
                     help="profile two more windows, captured and eager, and print their breakdowns")
+    ft = ap.add_argument_group("fault tolerance")
+    ft.add_argument("--sentinel", action="store_true",
+                    help="the health sentinel (NaN/Inf, charge and energy checks in the window step) and the "
+                         "rollback-and-retry supervisor")
+    ft.add_argument("--autosave-every", type=int, default=None, metavar="N",
+                    help="checkpoint every N steps (and at the run's start and end); an exception restores the "
+                         "latest checkpoint and resumes")
+    ft.add_argument("--autosave-path", default=None, metavar="DIR",
+                    help="autosave directory (default: checkpoints/<scenario>)")
+    ft.add_argument("--fault", default=None, metavar="KIND:STEP[:COMP[:COUNT]]",
+                    help="inject a deterministic fault: nan_field:20:ez, nan_momentum:20, charge_scale:20, crash:20")
     args = ap.parse_args(argv)
     if args.scenario and args.spec:
         ap.error("--scenario and --spec are mutually exclusive")
@@ -187,7 +225,8 @@ def main(argv=None) -> None:
     print(
         f"{n_steps} steps in {dt:.3f}s ({1e3 * dt / n_steps:.3f} ms/step, "
         f"{d['n_alive'] * n_steps / dt:.3e} particle-steps/s); "
-        f"sorts={sim.sorts} rebuilds={sim.rebuilds} growths={sim.growths['capacity']} {per}"
+        f"sorts={sim.sorts} rebuilds={sim.rebuilds} growths={sim.growths['capacity']} {per} "
+        f"halts={sim.halts} retries={sim.retries} restarts={sim.restarts}"
     )
     print(f"energies: field={d['field_energy']:.4e} kinetic={d['kinetic_energy']:.4e} total={d['total_energy']:.4e}")
     if dev.type == "cuda":

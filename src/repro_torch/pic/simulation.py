@@ -44,15 +44,30 @@ Two drivers wrap the step:
   (`ResortPolicy`, with its wall-clock performance trigger) deciding.
   No CUDA graph is used.
 
+The windowed driver runs under the supervisor of
+`repro_torch.distributed.fault` (`run_supervised_windows`). With the spec's
+``health.enable`` the window step ends with the health sentinel
+(`core.health`): non-finite fields or momenta, or charge or energy drifting
+from their values at window entry, halt the window, and the host rolls it
+back to a snapshot taken at its entry and retries under the remedy ladder
+(halve the window, force a global sort, demote the kernel backend). A
+spec's ``fault`` injects a fault into the step's input on the device, or a
+crash on the host; ``run(autosave_every=N)`` keeps rolling checkpoints and
+restores the latest after an exception. The halt's code, step, invariant
+and measured and reference values travel in the window's one bundle.
+
 `Simulation.host_reads` counts every device-to-host read a run makes: one
-per window, two more per capacity growth; about three a step in the
-host-driven loop. `Simulation.save` and `Simulation.restore` write and read
-the reference's checkpoint format (`repro_torch.checkpoint`).
+per window (a halted window included), two more per capacity growth, one
+per forced sort of the ladder; about three a step in the host-driven loop.
+`Simulation.save` and `Simulation.restore` write and read the reference's
+checkpoint format (`repro_torch.checkpoint`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 import time
 
 import numpy as np
@@ -79,6 +94,14 @@ from repro_torch.core.deposition import (
 )
 from repro_torch.core.gather import EB_STAGGERS, gather_fields_fused, gather_matrix, gather_scatter
 from repro_torch.core.gpma import GPMAStats, gpma_update
+from repro_torch.core.health import (
+    HALT_BIN_OVERFLOW,
+    HALT_NAMES,
+    HALT_NONE,
+    HealthConfig,
+    classify_health,
+    nonfinite_count,
+)
 from repro_torch.core.resort_policy import (
     ResortPolicy,
     SortPolicyConfig,
@@ -91,16 +114,19 @@ from repro_torch.core.rhocell import fold_guards, unfold_guards
 from repro_torch.core.shape_functions import max_guard
 from repro_torch import kernels
 from repro_torch.kernels import dispatch
+from repro_torch.distributed.fault import (
+    FAULT_NONE,
+    PICFaultInjector,
+    inject_fields,
+    inject_momenta,
+    inject_weights,
+    run_supervised_windows,
+)
 from repro_torch.kernels.conditional import EveryBranch, GraphCapture, HostDecider
 from repro_torch.pic.grid import FieldState, GridSpec
 from repro_torch.pic.maxwell import maxwell_step
 from repro_torch.pic.plasma import ParticleState
 from repro_torch.pic.pusher import advance_positions, boris_push, lorentz_gamma, wrap_periodic
-
-# halt codes of the windowed driver (the first two of repro.core.health's)
-HALT_NONE = 0
-HALT_BIN_OVERFLOW = 1
-HALT_NAMES = ("none", "bin_overflow")
 
 
 DEPOSITION_MODES = ("matrix", "matrix_unfused", "scatter", "rhocell")
@@ -315,6 +341,40 @@ def _energies(state: PICState, config: PICConfig) -> tuple[torch.Tensor, torch.T
     return state.fields.energy(config.grid.cell_volume), kinetic
 
 
+def _total_charge(state: PICState) -> torch.Tensor:
+    """The sum of the alive weights, float32: the step conserves it exactly,
+    so the sentinel holds it to its value at window entry."""
+    p = state.particles
+    return torch.sum(p.w.to(torch.float32) * p.alive.to(torch.float32))
+
+
+def _apply_fault(state: PICState, step_count: torch.Tensor, fault_vec: torch.Tensor) -> PICState:
+    """The chaos harness's hook: the step's input, corrupted where the armed
+    fault vector fires at ``step_count`` (see `distributed.fault.FaultSpec`).
+    Only a window of a driver with a fault spec runs it."""
+    fields = FieldState(*inject_fields(state.fields.all(), step_count, fault_vec))
+    p = state.particles
+    particles = dataclasses.replace(p, u=inject_momenta(p.u, step_count, fault_vec),
+                                    w=inject_weights(p.w, step_count, fault_vec))
+    return dataclasses.replace(state, fields=fields, particles=particles)
+
+
+def _sentinel(state: PICState, health: HealthConfig, energies, ref_charge, ref_energy):
+    """The health sentinel's reads of a post-step state, classified
+    (`core.health.classify_health`): (code, invariant, measured,
+    reference). ``energies`` is the step's (field, kinetic) pair, or None
+    when the energy check is off."""
+    p = state.particles
+    zero_i = torch.zeros((), dtype=torch.int32, device=p.pos.device)
+    ff = mf = zero_i
+    if health.check_nonfinite:
+        ff = nonfinite_count(state.fields.all())
+        mf = nonfinite_count([p.u, p.pos], mask=p.alive)
+    energy = torch.zeros((), dtype=torch.float32, device=p.pos.device) if energies is None else energies[0] + energies[1]
+    return classify_health(health, fields_nonfinite=ff, momenta_nonfinite=mf, charge=_total_charge(state),
+                           charge_ref=ref_charge, energy=energy, energy_ref=ref_energy)
+
+
 def state_from_reference(arrays: dict[str, np.ndarray], config: PICConfig, device) -> tuple[PICState, SortPolicyState]:
     """The port's state from a run's numpy arrays: a reference run's, or a
     checkpoint's (`repro_torch.checkpoint.restore_simulation`).
@@ -367,9 +427,16 @@ def _copy_tree(dst, src) -> None:
 
 class _WindowBuffers:
     """The window's state held in place: the tensors a step reads and then
-    overwrites, the policy state, the window's counters and its per-step
-    diagnostics table. On the card they are the captured graph's inputs and
-    outputs, at fixed addresses; the step function is the same everywhere."""
+    overwrites, the policy state, the window's counters, the sentinel's
+    halt latch and the per-step diagnostics table. On the card they are the
+    captured graph's inputs and outputs, at fixed addresses; the step
+    function is the same everywhere.
+
+    ``entry`` is what the host writes at the entry of a window of a driver
+    with a fault spec, in one copy: the absolute step the window starts at
+    (``step0``) and the fault vector (``fault``: kind, step, component).
+    ``ref_charge`` and ``ref_energy`` are the sentinel's references, taken
+    on the device at window entry."""
 
     def __init__(self, state: PICState, pstate: SortPolicyState, names: tuple[str, ...], n_diag: int):
         dev = state.particles.pos.device
@@ -381,10 +448,15 @@ class _WindowBuffers:
         self.pstate = _clone_tree(pstate)
         self.names = names
         self.diag = torch.zeros((len(names), n_diag), dtype=torch.float64, device=dev)
-        self.n_done = torch.zeros((), dtype=torch.int64, device=dev)
-        self.halted = torch.zeros((), dtype=torch.bool, device=dev)
-        self.sorts = torch.zeros((), dtype=torch.int64, device=dev)
-        self.rebuilds = torch.zeros((), dtype=torch.int64, device=dev)
+        zeros = lambda dtype: torch.zeros((), dtype=dtype, device=dev)
+        self.n_done, self.sorts, self.rebuilds = zeros(torch.int64), zeros(torch.int64), zeros(torch.int64)
+        self.halted = zeros(torch.bool)
+        # the sentinel's halt latch: code, invariant, measured, reference
+        self.halt_code, self.halt_inv = zeros(torch.int32), zeros(torch.int32)
+        self.halt_meas, self.halt_ref = zeros(torch.float32), zeros(torch.float32)
+        self.entry = torch.tensor([0, FAULT_NONE, -1, 0], dtype=torch.int64, device=dev)
+        self.step0, self.fault = self.entry[0], self.entry[1:]
+        self.ref_charge, self.ref_energy = zeros(torch.float32), zeros(torch.float32)
 
     def state(self, step: int = 0) -> PICState:
         return PICState(fields=self.fields, particles=self.particles, layout=self.layout, step=step, slab=self.slab)
@@ -396,22 +468,41 @@ class _WindowBuffers:
         if self.slab is not None:
             _copy_tree(self.slab, state.slab)
 
+    def enter(self, step0: int, fault_vec: torch.Tensor | None) -> None:
+        """Write the window's entry vector from the host without waiting on
+        the device: on CUDA an asynchronous copy from pinned memory (the
+        caching host allocator keeps the block until the copy is done)."""
+        host = torch.tensor([step0, *(fault_vec.tolist() if fault_vec is not None else (FAULT_NONE, -1, 0))],
+                            dtype=torch.int64)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        self.entry.copy_(host, non_blocking=True)
+
     def reset_counters(self) -> None:
-        for t in (self.n_done, self.halted, self.sorts, self.rebuilds):
+        for t in (self.n_done, self.halted, self.sorts, self.rebuilds, self.halt_code, self.halt_inv, self.halt_meas,
+                  self.halt_ref):
             t.zero_()
 
     def bundle(self, k: int) -> torch.Tensor:
-        """The window's counters and first k diagnostics rows as one float64
-        vector: n_done, halted, sorts, rebuilds, then the table."""
-        head = torch.stack([t.to(torch.float64) for t in (self.n_done, self.halted, self.sorts, self.rebuilds)])
+        """The window's counters, the sentinel's halt latch and the first k
+        diagnostics rows as one float64 vector: n_done, halted, sorts,
+        rebuilds, halt_code, halt_inv, halt_measured, halt_reference, then
+        the table."""
+        head = torch.stack([t.to(torch.float64) for t in (
+            self.n_done, self.halted, self.sorts, self.rebuilds, self.halt_code, self.halt_inv, self.halt_meas,
+            self.halt_ref)])
         return torch.cat([head, self.diag[:, :k].reshape(-1)])
 
 
+_BUNDLE_HEAD = 8
+
+
 def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfig, *, with_energies: bool,
-                 decider) -> None:
+                 health: HealthConfig | None, with_fault: bool, decider) -> None:
     """One step of a window, in place on ``buf``; nothing once the window
-    has halted. The step, then its sort mode's decision, then the step's
-    diagnostics at row ``buf.n_done``:
+    has halted. With ``with_fault``, the armed fault first corrupts the
+    step's input where it fires. Then the step, its sort mode's decision,
+    the step's diagnostics at row ``buf.n_done``, and the halt:
 
     - ``incremental``: the re-sort policy, and the global sort under its
       word or on an overflow; a sort that still overflows halts the window;
@@ -419,6 +510,12 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
       overflow halts the window;
     - ``rebuild``: the step rebuilt the bins; their overflow halts the window;
     - ``none``: nothing.
+
+    With ``health``, the sentinel reads the post-step state; a health halt
+    latches its code, its invariant and the values compared, and outranks
+    an overflow halt of the same step (a corrupt state rolls back before
+    any capacity growth). A halt ends the window's steps, so the first halt
+    is the only one, and its step is the window's last.
 
     Only ``incremental`` touches the policy state. The decisions go to
     ``decider.run_if`` (see `kernels.conditional`: tested on the host, or IF
@@ -450,6 +547,8 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
         buf.rebuilds.add_(mandatory.to(torch.int64))
 
     def step():
+        if with_fault:
+            buf.store(_apply_fault(buf.state(), buf.step0 + buf.n_done, buf.fault))
         new, stats = _pic_step(buf.state(), config)
         buf.store(new)
         if config.sort_mode == "incremental":
@@ -461,10 +560,19 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
                 buf.halted.logical_or_(overflow > 0)
         elif config.sort_mode == "rebuild":
             buf.halted.logical_or_(stats.n_overflow > 0)
-        row = [stats.n_moved, stats.n_alive]
-        if with_energies:
-            row.extend(_energies(buf.state(), config))
+        energies = None
+        if with_energies or (health is not None and health.check_energy):
+            energies = _energies(buf.state(), config)
+        row = [stats.n_moved, stats.n_alive] + (list(energies) if with_energies else [])
         buf.diag.index_copy_(1, buf.n_done.reshape(1), torch.stack([r.to(torch.float64) for r in row])[:, None])
+
+        if health is not None:
+            with record_function("pic.sentinel"):
+                h_code, *h_info = _sentinel(buf.state(), health, energies, buf.ref_charge, buf.ref_energy)
+                bad = h_code != HALT_NONE
+                for dst, value in zip((buf.halt_code, buf.halt_inv, buf.halt_meas, buf.halt_ref), (h_code, *h_info)):
+                    dst.copy_(torch.where(bad, value, dst))
+                buf.halted.logical_or_(bad)
         buf.n_done.add_(1)
 
     decider.run_if(~buf.halted, step)
@@ -473,9 +581,48 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
 UNSET = object()
 
 
+def resolve_run_args(spec, n_steps, diagnostics_every, window, autosave_every=None, autosave_path=None):
+    """`Simulation.run`'s arguments against the driver's spec (None or
+    UNSET: the spec's value; a spec-less driver keeps the historical
+    defaults). ``autosave_every=N`` with no path saves under
+    ``checkpoints/<spec.name>``; autosave needs the windowed driver."""
+    run = None if spec is None else spec.run
+    if n_steps is None:
+        if run is None:
+            raise TypeError("run() needs n_steps (this driver has no spec defaults)")
+        n_steps = run.steps
+    if diagnostics_every is None:
+        diagnostics_every = 0 if run is None else run.diagnostics_every
+    if window is UNSET:
+        window = None if run is None else (run.window or None)
+    if autosave_every is None:
+        autosave_every = 0 if run is None else run.autosave_every
+    if autosave_path is None:
+        autosave_path = "" if run is None else run.autosave_path
+    if autosave_every and not autosave_path:
+        autosave_path = os.path.join("checkpoints", getattr(spec, "name", None) or "sim")
+    if autosave_every and window is None:
+        raise ValueError("autosave_every requires the windowed driver (window=K)")
+    return n_steps, diagnostics_every, window, autosave_every, autosave_path
+
+
+def _trees(state: PICState, pstate: SortPolicyState) -> list:
+    """The tensor trees of a window's state: fields, particles, layout,
+    policy state and, when the step carries one, the slab."""
+    return [state.fields, state.particles, state.layout, pstate] + ([] if state.slab is None else [state.slab])
+
+
+def _same_shapes(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        type(x) is type(y) and all(getattr(x, f.name).shape == getattr(y, f.name).shape
+                                   for f in dataclasses.fields(x))
+        for x, y in zip(a, b))
+
+
 class Simulation:
     """Single-device driver: step, re-sort policy, global sort on the
-    policy's word, capacity growth on a persistent overflow.
+    policy's word, capacity growth on a persistent overflow, and the fault
+    supervisor's rollback, remedy ladder and autosave.
 
     Build it with `repro_torch.api.make_simulation(spec)`; the state's
     tensors decide the device. ``run(n, window=K)`` runs windows: on a CUDA
@@ -484,7 +631,8 @@ class Simulation:
     default on for CUDA); the state's tensors are then the graph's, updated
     in place. ``run(n, window=None)`` runs the host-driven loop, with its
     own policy counters (``host_policy``), as in the reference: pick one
-    driver per simulation.
+    driver per simulation. The health sentinel, the remedy ladder and
+    autosave apply to the windowed driver.
     """
 
     def __init__(self, fields: FieldState, particles: ParticleState, config: PICConfig,
@@ -501,6 +649,7 @@ class Simulation:
         self.host_policy = ResortPolicy(self.policy)
         self.state = state
         self.policy_state = policy_init(self.device)
+        self._prewarm_dispatch()
         self.use_graphs = self.device.type == "cuda"
         self.sorts = 0
         self.rebuilds = 0
@@ -514,10 +663,16 @@ class Simulation:
         self.graph_captures = 0
         self.graph_setup_seconds = 0.0
         self._host_step = 0
-        #: the reference's fault-tolerance counters (retries, restarts,
-        #: discarded_steps), which this driver does not keep: carried
-        #: through a checkpoint unchanged
-        self.carried_counters: dict[str, int] = {}
+        # fault tolerance: the supervisor's counters, the sentinel's
+        # configuration, the chaos harness's injector and the rollback
+        # snapshot's buffers
+        self.retries = 0
+        self.restarts = 0
+        self.discarded_steps = 0
+        self._remedy_level = 0
+        self._health = spec.health if (spec is not None and spec.health.enable) else None
+        self.fault_injector = PICFaultInjector(spec.fault) if (spec is not None and spec.fault is not None) else None
+        self._snapshot: dict | None = None
 
     # -- state: assigning it drops the window's buffers and graph ----------
 
@@ -539,6 +694,18 @@ class Simulation:
         self._policy_state = value
         self._window = None
 
+    def _install(self, state: PICState, pstate: SortPolicyState) -> None:
+        """Make (state, pstate), of the current shapes, the driver's: copied
+        into the window's buffers when there is a window (its captured step
+        stays valid), else assigned."""
+        if self._window is None:
+            self.state, self.policy_state = state, pstate
+            return
+        buf = self._window["buffers"]
+        buf.store(state)
+        _copy_tree(buf.pstate, pstate)
+        self._state = buf.state(state.step)
+
     # -- host reads ---------------------------------------------------------
 
     def _read(self, tensor: torch.Tensor):
@@ -546,36 +713,23 @@ class Simulation:
         self.host_reads += 1
         return tensor.cpu()
 
-    def run(self, n_steps: int | None = None, *, diagnostics_every: int | None = None, window=UNSET) -> None:
+    def run(self, n_steps: int | None = None, *, diagnostics_every: int | None = None, window=UNSET,
+            autosave_every: int | None = None, autosave_path: str | None = None) -> None:
         """Advance `n_steps` (default: the spec's) in windows of `window`
         steps (default: the spec's; a spec's ``run.window == 0`` and a
         spec-less driver mean None), or with ``window=None`` in the
-        host-driven loop."""
-        run = None if self.spec is None else self.spec.run
-        if n_steps is None:
-            if run is None:
-                raise TypeError("run() needs n_steps (this driver has no spec defaults)")
-            n_steps = run.steps
-        if diagnostics_every is None:
-            diagnostics_every = 0 if run is None else run.diagnostics_every
-        if window is UNSET:
-            window = None if run is None else (run.window or None)
+        host-driven loop. ``autosave_every=N`` checkpoints the windowed run
+        every N steps (and at its start and end) under ``autosave_path``,
+        and an exception restores the latest checkpoint and resumes."""
+        n_steps, diagnostics_every, window, autosave_every, autosave_path = resolve_run_args(
+            self.spec, n_steps, diagnostics_every, window, autosave_every, autosave_path)
         if window is None:
             self._run_host(n_steps, diagnostics_every)
             return
         if window <= 0:
             raise ValueError(f"window must be positive, got {window}")
-        target = self._host_step + n_steps
-        while self._host_step < target:
-            k = min(window, target - self._host_step)
-            host = self._run_window(k, with_energies=bool(diagnostics_every), n_diag=window)
-            n_done = self._consume(host, diagnostics_every)
-            code = int(host["halt_code"])
-            if code == HALT_BIN_OVERFLOW:
-                self.halts[HALT_NAMES[code]] = self.halts.get(HALT_NAMES[code], 0) + 1
-                self._grow_capacity()
-            elif n_done < k:
-                raise RuntimeError("windowed driver made no progress without a halt")
+        run_supervised_windows(self, n_steps, diagnostics_every, window, autosave_every=autosave_every,
+                               autosave_path=autosave_path)
 
     def save(self, path: str) -> None:
         """Checkpoint to `path` in the reference's format (see
@@ -637,21 +791,28 @@ class Simulation:
 
     def _window_for(self, with_energies: bool, n_diag: int) -> dict:
         """The window's buffers and, on CUDA with ``use_graphs``, its
-        captured step; made anew when the configuration, the diagnostics or
-        the state's shapes change."""
+        captured step; made anew when the configuration, the diagnostics,
+        the sentinel or the state's shapes change. A driver with a fault
+        spec captures the injection into every window (an unarmed window's
+        vector never fires), so that arming a fault never recaptures."""
         names = ("n_moved", "n_alive") + (("field_energy", "kinetic_energy") if with_energies else ())
-        key = (self.config, self.policy, names, n_diag, self.use_graphs)
+        with_fault = self.fault_injector is not None
+        key = (self.config, self.policy, names, n_diag, self.use_graphs, self._health, with_fault)
         if self._window is not None and self._window["key"] == key:
             return self._window
         buf = _WindowBuffers(self._state, self._policy_state, names, n_diag)
         w = {"key": key, "buffers": buf, "graph": None, "launches": {}}
+        # (no closure over the driver: the window must not keep it alive)
+        step = functools.partial(_window_step, config=self.config, policy=self.policy, with_energies=with_energies,
+                                 health=self._health, with_fault=with_fault)
         if self.use_graphs:
-            self._capture(w, with_energies)
+            self._capture(w, step)
+        w["step"] = step
         self._window = w
         self._state, self._policy_state = buf.state(self._state.step), buf.pstate
         return w
 
-    def _capture(self, w: dict, with_energies: bool) -> None:
+    def _capture(self, w: dict, step) -> None:
         """Capture one guarded step of ``w``'s buffers as a CUDA graph, after
         one warm-up step on a copy of them that takes both branches (it
         brings every lazily built library object, such as a BLAS handle,
@@ -659,22 +820,20 @@ class Simulation:
         when they run, which during a capture means once per recorded
         launch: those counts are taken back and added per replay."""
         buf = w["buffers"]
-        step = lambda b, decider: _window_step(b, self.config, self.policy, with_energies=with_energies,
-                                               decider=decider)
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         scratch = _WindowBuffers(buf.state(), buf.pstate, buf.names, buf.diag.shape[1])
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            step(scratch, EveryBranch())
+            step(scratch, decider=EveryBranch())
         torch.cuda.current_stream(self.device).wait_stream(side)
         del scratch
         graph = torch.cuda.CUDAGraph()
         capture = GraphCapture(graph, self.device)
         before = kernels.launch_counts()
         with capture.capturing():
-            step(buf, capture)
+            step(buf, decider=capture)
         after = kernels.launch_counts()
         w["launches"] = {name: after[name] - before[name] for name in after}
         kernels.add_launches(w["launches"], -1)
@@ -683,36 +842,60 @@ class Simulation:
         self.graph_captures += 1
         self.graph_setup_seconds += time.perf_counter() - t0
 
-    def _run_window(self, k: int, *, with_energies: bool, n_diag: int) -> dict:
-        """Up to k <= n_diag steps; stops after a step whose global sort
-        still overflows. Returns the window's host bundle (one read)."""
+    def _run_window(self, k: int, *, with_energies: bool, n_diag: int, fault_vec=None) -> dict:
+        """Up to k <= n_diag steps; stops after a step that halts. Returns
+        the window's host bundle (one read)."""
         w = self._window_for(with_energies, n_diag)
         buf = w["buffers"]
         buf.reset_counters()
+        step0 = self._state.step
+        if self.fault_injector is not None:
+            buf.enter(step0, fault_vec)
+        if self._health is not None:
+            # the sentinel's references, from the state the window starts at
+            fe, ke = _energies(self._state, self.config)
+            buf.ref_charge.copy_(_total_charge(self._state))
+            buf.ref_energy.copy_(fe + ke)
         if w["graph"] is not None:
             for _ in range(k):
                 w["graph"].replay()
         else:
             decider = HostDecider(self._read)
             for _ in range(k):
-                _window_step(buf, self.config, self.policy, with_energies=with_energies, decider=decider)
+                w["step"](buf, decider=decider)
         self.windows += 1
         # the window's one bundle read
         host = self._read(buf.bundle(k)).numpy()
         n_done = int(host[0])
         if w["graph"] is not None:
             kernels.add_launches(w["launches"], n_done)
-        self._state = buf.state(self._state.step + n_done)
-        table = host[4:].reshape(len(buf.names), k)
+        self._state = buf.state(step0 + n_done)
+        table = host[_BUNDLE_HEAD:].reshape(len(buf.names), k)
+        halted = bool(host[1])
+        # a halted window's last step is the halting one; a halt without the
+        # sentinel's code is an overflow
         return {
             "n_done": n_done,
             "n_sorts": int(host[2]),
             "n_rebuilds": int(host[3]),
-            "halt_code": HALT_BIN_OVERFLOW if host[1] else HALT_NONE,
+            "halt_code": int(host[4]) or (HALT_BIN_OVERFLOW if halted else HALT_NONE),
+            "halt_step": step0 + n_done if halted else -1,
+            "halt_inv": int(host[5]),
+            "halt_measured": float(host[6]),
+            "halt_reference": float(host[7]),
             "per_step": dict(zip(buf.names, table)),
         }
 
-    def _consume(self, host: dict, diagnostics_every: int) -> int:
+    # -- the supervisor's hooks (distributed.fault.run_supervised_windows) ---
+
+    def _enter_window(self, k: int, window: int, diagnostics_every: int, fault_vec) -> dict:
+        """One window of k steps (its table sized for ``window``), and its
+        bundle: the window's one device-to-host read."""
+        return self._run_window(k, with_energies=bool(diagnostics_every), n_diag=window, fault_vec=fault_vec)
+
+    def _consume_bundle(self, host: dict, diagnostics_every: int) -> int:
+        """Commit a window that did not halt on health: its diagnostics and
+        counters."""
         n_done = host["n_done"]
         if diagnostics_every:
             per = host["per_step"]
@@ -734,6 +917,70 @@ class Simulation:
         self._host_step += n_done
         return n_done
 
+    def _take_snapshot(self) -> dict:
+        """The window's entry state (fields, particles, layout, policy state,
+        slab and step), copied on the device into buffers of the driver's
+        own, made once for each set of shapes."""
+        trees = _trees(self._state, self._policy_state)
+        snap = self._snapshot
+        if snap is None or not _same_shapes(snap["trees"], trees):
+            snap = self._snapshot = {"trees": [_clone_tree(t) for t in trees]}
+        else:
+            for dst, src in zip(snap["trees"], trees):
+                _copy_tree(dst, src)
+        snap["step"] = self._state.step
+        return snap
+
+    def _restore_snapshot(self, snap: dict) -> None:
+        """Roll back to a snapshot, in place in the window's buffers: the
+        captured step stays valid and is replayed as it is."""
+        fields, particles, layout, pstate, *slab = snap["trees"]
+        self._install(PICState(fields=fields, particles=particles, layout=layout, step=snap["step"],
+                               slab=slab[0] if slab else None), pstate)
+
+    def _handle_halt(self, code: int, host: dict) -> None:
+        if code == HALT_BIN_OVERFLOW:
+            self._grow_capacity()
+        else:
+            raise RuntimeError(f"single-device driver cannot handle halt code {code} ({HALT_NAMES[code]})")
+
+    def _remedy_sort(self) -> None:
+        """The ladder's second rung: a forced global sort (fresh bins, the
+        attributes permuted) and a reset of the device policy state."""
+        state, overflow = global_sort_device(self.state, self.config)
+        self._install(state, policy_init(self.device))
+        if int(self._read(overflow)):
+            self._grow_capacity()
+
+    def _demote_backend(self) -> bool:
+        """The ladder's last rungs: the kernel backend one step down the
+        dispatcher's priority ladder (``cuda_reduced`` -> ``cuda`` ->
+        ``torch``). False when already at the bottom. `dispatch.demote`
+        answers from the memo or the cache, never running the kernels
+        suspected of the halt."""
+        nxt = dispatch.demote(self.config.backend, device=self.device, order=self.config.order,
+                              grid_shape=self.config.grid.shape, capacity=self.config.capacity,
+                              dtype=self.state.particles.pos.dtype)
+        if nxt is None:
+            return False
+        self.config = dataclasses.replace(self.config, backend=nxt)
+        return True
+
+    def _prewarm_dispatch(self) -> None:
+        """Resolve the config's ``auto`` dispatch keys eagerly (timed and
+        cached on first sight), so that the captured step finds the winner
+        in the memo. Run again after anything that changes a key: a capacity
+        growth, a checkpoint restore. A timing runs on a slab at the state's
+        mean occupancy, read here once (a set-up read, like the timing's
+        own, outside `host_reads`)."""
+        if self.config.backend != "auto":
+            return
+        p = self.state.particles
+        fill = -(-int(torch.count_nonzero(p.alive)) // self.config.grid.n_cells)
+        dispatch.prewarm(dispatch.ops_for_modes(self.config.deposition, self.config.gather), device=self.device,
+                         order=self.config.order, grid_shape=self.config.grid.shape,
+                         capacity=self.config.capacity, dtype=p.pos.dtype, fill=fill)
+
     # -- capacity growth ----------------------------------------------------
 
     def _needed_capacity(self) -> int:
@@ -754,6 +1001,7 @@ class Simulation:
         self.growths["capacity"] = self.growths.get("capacity", 0) + 1
         self.state, overflow = global_sort_device(self.state, self.config)
         assert int(self._read(overflow)) == 0, "binning overflow persists after sizing capacity to the densest cell"
+        self._prewarm_dispatch()  # the capacity is part of the dispatch key
 
     # -- diagnostics --------------------------------------------------------
 

@@ -248,21 +248,30 @@ def test_policy_update_matches_reference():
 # ---------------------------------------------------------------- dispatch
 
 
-def test_dispatch_resolution():
+def test_dispatch_resolution(monkeypatch):
+    """Forced names in both vocabularies, ``auto`` on the CPU (``torch``,
+    untimed) and, on a CUDA key left unmeasured, the priority order that a
+    capture or a demotion falls back to."""
+    monkeypatch.setattr(dispatch, "platform", lambda device: torch.device(device).type)
+    dispatch.clear_memo()
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
     g = (4, 4, 4)
-    assert dispatch.resolve("deposit_fused", "auto", device=cpu, grid_shape=g) == "torch"
-    assert dispatch.resolve("gather_fused", "auto", device=cpu, grid_shape=g) == "torch"
-    assert dispatch.resolve("deposit_fused", "auto", device=cuda, grid_shape=g) == "cuda_reduced"
-    assert dispatch.resolve("deposit_fused", "auto", device=cuda) == "cuda"
-    assert dispatch.resolve("gather_fused", "auto", device=cuda, grid_shape=g) == "cuda"
-    assert dispatch.resolve("gather_fused", "cuda_reduced", device=cuda, grid_shape=g) == "cuda"
-    assert dispatch.resolve("deposit_fused", "pallas_reduced", device=cpu, grid_shape=g) == "cuda_reduced"
-    assert dispatch.resolve("deposit_fused", "xla", device=cuda, grid_shape=g) == "torch"
+    kw = dict(order=1, capacity=4)
+    assert dispatch.resolve("deposit_fused", "auto", device=cpu, grid_shape=g, **kw) == "torch"
+    assert dispatch.resolve("gather_fused", "auto", device=cpu, grid_shape=g, **kw) == "torch"
+    untimed = dict(kw, allow_benchmark=False)
+    assert dispatch.resolve("deposit_fused", "auto", device=cuda, grid_shape=g, **untimed) == "cuda_reduced"
+    assert dispatch.resolve("deposit_fused", "auto", device=cuda, **untimed) == "cuda"
+    assert dispatch.resolve("gather_fused", "auto", device=cuda, grid_shape=g, **untimed) == "cuda"
+    assert dispatch.resolve("gather_fused", "cuda_reduced", device=cuda, grid_shape=g, **kw) == "cuda"
+    assert dispatch.resolve("deposit_fused", "pallas_reduced", device=cpu, grid_shape=g, **kw) == "cuda_reduced"
+    assert dispatch.resolve("deposit_fused", "xla", device=cuda, grid_shape=g, **kw) == "torch"
+    assert dispatch.counters["benchmark"] == 0
     # the demotion ladder of the reference, in the port's names
-    assert dispatch.demote("auto", device=cuda, grid_shape=g) == "cuda"
-    assert dispatch.demote("cuda", device=cuda, grid_shape=g) == "torch"
-    assert dispatch.demote("torch", device=cuda, grid_shape=g) is None
+    assert dispatch.demote("auto", device=cuda, grid_shape=g, **kw) == "cuda"
+    assert dispatch.demote("cuda", device=cuda, grid_shape=g, **kw) == "torch"
+    assert dispatch.demote("torch", device=cuda, grid_shape=g, **kw) is None
+    dispatch.clear_memo()
     with pytest.raises(ValueError):
         dispatch.canonical("triton")
     assert [dispatch.canonical(n) for n in ("xla", "pallas", "pallas_reduced")] == ["torch", "cuda", "cuda_reduced"]

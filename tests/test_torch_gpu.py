@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each held to its plain PyTorch
-version; the windowed simulation run through every backend and mode; the
-window captured as a CUDA graph against the same window run eagerly; the
-host-driven loop against the captured window, and a run saved, loaded and
-continued against the same run uninterrupted.
+version, and fed NaN and Inf; the windowed simulation run through every
+backend and mode; the window captured as a CUDA graph against the same
+window run eagerly; the host-driven loop against the captured window, and a
+run saved, loaded and continued against the same run uninterrupted; the
+health sentinel and a fault's rollback inside the captured window.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode). They import neither JAX nor `repro`, so they run where only the
@@ -22,7 +23,12 @@ scatter-add, 1e-5 of the output's magnitude (both add the overflow items
 with float atomics, in orders that change from run to run); the captured
 window against the eager one, exact (the same kernels on the same inputs);
 the host-driven loop against the captured window and a resumed run against
-an uninterrupted one, exact.
+an uninterrupted one, exact; the sentinel on against off, and a run that
+rolled back from an injected fault against the clean run, exact.
+
+Where a test holds an ``auto`` run's launch counts, it holds them to the
+backends the dispatcher's autotune resolved (into a cache file of the
+test's own).
 """
 
 import numpy as np
@@ -33,6 +39,7 @@ torch = pytest.importorskip("torch")
 import dataclasses  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.api import SortPolicyConfig, load_simulation, make_simulation, scenario  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     CURRENT_STAGGER,
@@ -63,6 +70,27 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.fixture(autouse=True)
+def _autotune_cache(tmp_path, monkeypatch):
+    monkeypatch.setenv(dispatch.CACHE_ENV, str(tmp_path / "autotune.json"))
+
+
+KERNEL_OF = {("deposit_fused", "cuda_reduced"): "fused_bin_deposit_reduced", ("deposit_fused", "cuda"): "fused_bin_deposit",
+             ("gather_fused", "cuda"): "fused_bin_gather"}
+
+
+def _want_launches(sim, n):
+    """The fused kernels' launches in n steps under the backends the
+    dispatcher resolves for the driver's step: every op of the step must
+    resolve to a kernel."""
+    c = sim.config
+    chosen = dispatch.prewarm(dispatch.ops_for_modes(c.deposition, c.gather), device=sim.device, order=c.order,
+                              grid_shape=c.grid.shape, capacity=c.capacity, dtype=sim.state.particles.pos.dtype,
+                              requested=c.backend)
+    assert chosen and all(kv in KERNEL_OF for kv in chosen.items()), f"resolved to no kernel: {chosen}"
+    return {KERNEL_OF[kv]: n for kv in chosen.items()}
 
 
 def _slab(grid, n, capacity, seed, device):
@@ -144,8 +172,10 @@ def test_matrix_scatter_add_on_the_card(cuda):
     upd = torch.from_numpy(gen.normal(size=(3000, 96)).astype(np.float32)).to(cuda)
     w = torch.from_numpy(gen.normal(size=3000).astype(np.float32)).to(cuda)
     kernels.reset_launch_counts()
-    got = matrix_scatter_add(idx, upd, n_bins=500, capacity=8, weights=w)
+    dispatch.reset_counters()
+    got = matrix_scatter_add(idx, upd, n_bins=500, capacity=8, weights=w)  # auto: the kernel, untimed
     assert kernels.launch_counts()["segment_accumulate"] == 1
+    assert dispatch.counters["benchmark"] == 0 and dispatch.counters["plain_on_card"] == 0
     # both add a bin's overflow (up to ~1600 items) with float atomics, in
     # orders that change from run to run: 1e-5 of the output's magnitude
     want = scatter_add_ref(idx, upd, n_bins=500, weights=w)
@@ -173,7 +203,7 @@ def test_windowed_backends_agree(kw, cuda):
         assert sim.host_reads == sim.windows
         counts = {k: v for k, v in kernels.launch_counts().items() if v}
         n = 8 + sim.graph_captures
-        want = {"default": {"fused_bin_deposit_reduced": n, "fused_bin_gather": n}}.get(label)
+        want = _want_launches(sim, n) if label == "default" else None
         if want is None:
             want = {
                 "cuda_reduced": {"fused_bin_deposit_reduced": n, "fused_bin_gather": n},
@@ -192,7 +222,7 @@ def test_captured_window_matches_eager_window(cuda):
     growth (a hot plasma in bins of 8): replays of the captured step give
     the eager window's state exactly, with one host read a window (two more
     at the growth) where the eager window reads every decision."""
-    spec = scenario("uniform", grid=(6, 6, 6), order=1, capacity=8, u_thermal=0.4,
+    spec = scenario("uniform", grid=(6, 6, 6), order=1, capacity=8, u_thermal=0.4, backend="cuda_reduced",
                     policy=SortPolicyConfig(sort_interval=7, min_sort_interval=3))
     sims = {}
     for graphs in (True, False):
@@ -479,8 +509,7 @@ def test_host_loop_is_bit_equal_to_captured_window(cuda):
     host, wind = make_simulation(scenario("uniform", **SMALL)), make_simulation(scenario("uniform", **SMALL))
     kernels.reset_launch_counts()
     host.run(20, window=None)
-    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
-        "fused_bin_deposit_reduced": 20, "fused_bin_gather": 20}
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == _want_launches(host, 20)
     assert host.graph_captures == 0 and host.windows == 0 and host.host_reads >= 3 * 20
     wind.run(20, window=10)
     assert wind.graph_captures == 1 and host.sorts >= 2
@@ -538,3 +567,121 @@ def test_sort_modes_captured_match_eager(sort, extra, cuda):
     assert torch.equal(g.state.layout.slots, e.state.layout.slots)
     for a, b in zip(g.state.fields.all(), e.state.fields.all()):
         _close(a, b, rtol=0, atol=1e-4 * max(float(b.abs().max()), 1e-30))
+
+
+# -- fault tolerance in the captured window --------------------------------------------
+
+FT = dict(grid=(32, 32, 32), ppc=2, order=3, steps=24, window=8, diagnostics_every=4)
+
+
+@pytest.mark.gpu
+def test_sentinel_on_is_bit_equal_to_off(cuda):
+    """The sentinel only reads: the captured run with it on is the run with
+    it off, bit for bit, with one host read a window."""
+    off = make_simulation(scenario("uniform", **FT))
+    on = make_simulation(scenario("uniform", **FT, health={"enable": True}))
+    off.run()
+    kernels.reset_launch_counts()
+    on.run()
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == _want_launches(on, 24 + on.graph_captures)
+    _assert_bit_equal(on, off)
+    assert on.history == off.history and on.halts == {} and on.retries == 0
+    assert on.host_reads == on.windows == off.windows == 3 and on.graph_captures == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,halt", [("nan_field", "nonfinite"), ("nan_momentum", "nonfinite"),
+                                       ("charge_scale", "invariant")])
+def test_fault_rolls_back_inside_the_captured_window(kind, halt, cuda):
+    """A fault armed at step 10 halts the captured window at step 11; the
+    window is rolled back in place (no recapture) and retried clean: one
+    halt, one retry, the clean run's state bit for bit, and one host read
+    per window entered: the three clean windows, the halted one and the
+    extra window of the halved retry."""
+    clean = make_simulation(scenario("uniform", **FT, health={"enable": True}))
+    clean.run()
+    dispatch.reset_counters()
+    sim = make_simulation(scenario("uniform", **FT, health={"enable": True},
+                                   fault={"kind": kind, "step": 10, "component": "ez"}))
+    sim.run()
+    assert sim.halts == {halt: 1} and sim.retries == 1 and sim.fault_injector.fired == 1
+    assert sim.config.backend == "auto" and dispatch.counters["plain_on_card"] == 0  # no demotion
+    _assert_bit_equal(sim, clean)
+    assert sim.history == clean.history
+    assert sim.host_reads == sim.windows == 5 and sim.graph_captures == 1
+
+
+def _nonfinite_cells(x, n_cells):
+    """Which of n_cells leading rows of x hold a non-finite value."""
+    return ~torch.isfinite(x.reshape(n_cells, -1)).all(dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("poison", ["nan", "inf"])
+@pytest.mark.parametrize("order", ORDERS)
+def test_kernels_tolerate_nonfinite_inputs(order, poison, cuda):
+    """NaN or Inf in an occupied slot's offsets or values, in a gap slot's
+    offsets (a gap slot aliases particle 0), or in the fields: each of
+    kernels #1-#5 runs without a CUDA error, the context stays usable, and
+    only cells a poisoned occupied slot (or a poisoned field point) reaches
+    come out non-finite."""
+    bad = float(poison)
+    grid, cap = (5, 4, 6), 24
+    nx, ny, nz = grid
+    n_cells = nx * ny * nz
+    g = max_guard(order)
+    d, val = _synthetic_slab(grid, cap, 40 + order, cuda, empty=(0,), full=(1,))
+    occupied = val.abs().sum(-1) != 0
+    held = occupied.any(dim=1).nonzero().flatten()
+    hit_cells = held[[1, len(held) // 2, -1]]
+    slot = occupied[hit_cells].float().argmax(dim=1)  # an occupied slot of each
+    d[hit_cells[0], slot[0], 1] = bad
+    val[hit_cells[1], slot[1], 2] = bad
+    d[hit_cells[2], slot[2], 0] = bad
+    gap = (~occupied).nonzero()[:5]
+    d[gap[:, 0], gap[:, 1]] = bad  # never read back, never counted
+    poisoned = torch.zeros(n_cells, dtype=torch.bool, device=cuda)
+    poisoned[hit_cells] = True
+
+    # #1: one (3, T, T*T) tile per cell
+    packed = dep.fused_bin_deposit(d, val, order=order)
+    assert not (_nonfinite_cells(packed, n_cells) & ~poisoned).any()
+    assert _nonfinite_cells(packed, n_cells)[hit_cells[1]]
+    # #2: one accumulator per z-column
+    reduced = dep.fused_bin_deposit_reduced(d, val, order=order, grid_shape=grid, guard=g)
+    col_poisoned = poisoned.reshape(nx * ny, nz).any(dim=1)
+    assert not (_nonfinite_cells(reduced, nx * ny) & ~col_poisoned).any()
+    # #3: poisoned field points reach the live slots of the cells whose
+    # window holds them; poisoned offsets reach no other slot
+    padded = torch.randn((6, *(k + 2 * g for k in grid)), device=cuda)
+    padded[2, g + 2, g + 1, g + 3] = bad
+    gathered = gat.fused_bin_gather(d, padded, grid_shape=grid, order=order, guard=g)
+    cells = torch.arange(n_cells, device=cuda).reshape(grid)
+    near = torch.zeros(n_cells, dtype=torch.bool, device=cuda)
+    t = support(order, False)[0] + 2
+    near[cells[max(0, 2 - t):2 + t, max(0, 1 - t):1 + t, max(0, 3 - t):3 + t].reshape(-1)] = True
+    live_bad = ~torch.isfinite(gathered).all(-1) & occupied
+    assert not (live_bad.any(dim=1) & ~(near | poisoned)).any()
+    # #4 and #5: one cell's operands reach that cell alone
+    m, n = support(order, True)[0], support(order, False)[0] ** 2
+    a = torch.randn((n_cells, cap, m), device=cuda)
+    b = torch.randn((n_cells, cap, n), device=cuda)
+    a[hit_cells[0], 3, 1] = bad
+    b[hit_cells[1], 0, 2] = bad
+    outer = dep.bin_outer_product(a, b)
+    assert not (_nonfinite_cells(outer, n_cells) & ~poisoned).any()
+    assert _nonfinite_cells(outer, n_cells)[hit_cells[:2]].all()
+    wx = torch.rand((n_cells, cap, m), device=cuda)
+    byz = torch.rand((n_cells, cap, n), device=cuda)
+    gn = torch.randn((n_cells, m, n), device=cuda)
+    gn[hit_cells[2], 0, 0] = bad
+    wx[hit_cells[0], 2, 0] = bad
+    e = gat.bin_gather(wx, byz, gn)
+    assert not (_nonfinite_cells(e, n_cells) & ~poisoned).any()
+    assert _nonfinite_cells(e, n_cells)[hit_cells[2]]
+    torch.cuda.synchronize()
+    # the context still runs kernels, and they still match their plain versions
+    d2, val2 = _synthetic_slab(grid, cap, 7, cuda)
+    assert torch.equal(dep.fused_bin_deposit(d2, val2, order=order).cpu(),
+                       dep_ref.fused_bin_deposit_ref(d2.cpu(), val2.cpu(), order=order))
+    torch.cuda.synchronize()
