@@ -69,7 +69,39 @@ Phases, in order; any failure exits non-zero:
    memo is cleared, from the cache file, with no second timing, and
    ``gather_fused`` untimed (one kernel); the seconds the timing adds to
    set-up; the main path's step time under the resolved backend against
-   phase 4's.
+   phase 4's;
+16. ensembles on the card: (a) `make_ensemble(EnsembleSpec.replicate(main,
+   2))` at the main shapes, one bucket advanced through one captured graph
+   a window step: each member bit-equal (fields, particles, slots, slab,
+   policy state, sorts, rebuilds) to its own solo windowed run (member 0's
+   is phase 4's run), 1.00 host read a window, one capture, each resolved
+   kernel launched once a member-step; ms per member-step against phase
+   4's ms/step and peak memory; (b) the sweep of docs/ensemble.md,
+   `two_stream` at its registry size with `--sweep drift=0.1,0.2,0.3
+   --ensemble 4` (12 members, one bucket, 300 steps): every member
+   bit-equal to its solo run, one read a window, one capture, the bucket's
+   ms per window and host reads against the 12 solo runs back to back;
+   every member's field energy within 0.5 decades (window means, linear
+   phase) of the cold linear solution of its own seed, and its fitted
+   growth within 0.75-1.25 of the seeded mode's analytic rate wherever the
+   same fit finds that rate in the linear solution (the drift-0.2
+   replicas: at 0.1 and 0.3 the fit's window opens on the velocity seed's
+   transient, in the linear solution as well);
+   (c) growth isolation, tests/test_torch_ensemble.py's members (6^3,
+   order 1, capacity 12, one hot member at u_th 0.5, two mild at 0.02, 28
+   steps, window 7): the hot member bit-equal to its solo run, which grows
+   the same way, the mild siblings bit-equal to solo runs that never grow,
+   each fused kernel giving the same bits at capacities 12 and 24 with the
+   same occupied slots, captures one plus one a growth;
+   (d) member checkpoints at 32^3: `save_member(1)` at step 8,
+   `load_simulation` and 4 more steps bit-equal to the bucket continuing,
+   and the same checkpoint restored into a fresh bucket, bit-equal;
+17. the simulation service at 32^3, order 3 (`SimService(max_batch=4)`):
+   four jobs of one signature make one batch and one capture, four more
+   none (a cache hit) and the same results, a job at order 2 its own
+   capture; jobs per second and ms per member-step; with `cache_size=1` a
+   second signature evicts the first, whose window and graph must then be
+   gone (weak references), with the memory reserved before and after.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -347,6 +379,335 @@ def energy_slope(np, history, dt: float) -> float:
         fail(f"growth run: linear window too short ({len(idx)} samples)")
     i0, i1 = idx[0], idx[-1]
     return float(np.polyfit(t[i0:i1 + 1], np.log(e[i0:i1 + 1]), 1)[0])
+
+
+def member_view(bucket, i):
+    """Member i of an ensemble bucket as a stand-in for a driver in
+    `same_state`: its counters, state and policy state (views of the
+    bucket's tensors)."""
+    import types
+
+    return types.SimpleNamespace(sorts=int(bucket.sorts[i]), rebuilds=int(bucket.rebuilds[i]),
+                                 growths=dict(bucket.growths), state=bucket.member_state(i),
+                                 policy_state=bucket.member_policy_state(i), history=bucket.histories[i])
+
+
+def lattice_members(torch, np, specs, dev, shape=(6, 6, 6)):
+    """tests/test_torch_ensemble.py's members: lattice plasmas, 2^3 a cell,
+    numpy thermal momenta, one (fields, particles) pair per (seed,
+    u_thermal)."""
+    from repro_torch.pic import FieldState, ParticleState
+
+    off = (np.arange(2) + 0.5) / 2
+    cells = np.stack(np.meshgrid(*(np.arange(n) for n in shape), indexing="ij"), -1).reshape(-1, 1, 3)
+    lattice = np.stack(np.meshgrid(off, off, off, indexing="ij"), -1).reshape(1, -1, 3)
+    pos = (cells + lattice).reshape(-1, 3).astype(np.float32)
+    out = []
+    for seed, u_thermal in specs:
+        u = (u_thermal * np.random.default_rng(seed).normal(size=pos.shape)).astype(np.float32)
+        out.append((FieldState.zeros(shape, device=dev),
+                    ParticleState(pos=torch.from_numpy(pos).to(dev), u=torch.from_numpy(u).to(dev),
+                                  w=torch.full((len(pos),), 1 / 8, device=dev),
+                                  alive=torch.ones(len(pos), dtype=torch.bool, device=dev))))
+    return out
+
+
+def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, dep, gat) -> None:
+    """Phase 16: ensembles on the card (see the module docstring)."""
+    import shutil
+
+    from repro_torch.api import (
+        EnsembleSpec,
+        SortPolicyConfig,
+        load_simulation,
+        make_ensemble,
+        make_simulation,
+        scenario,
+        two_stream_growth_rate,
+        two_stream_linear_energy,
+    )
+    from repro_torch.core import max_guard
+    from repro_torch.launch.pic_run import parse_sweeps
+    from repro_torch.pic import EnsembleSimulation, GridSpec, PICConfig, Simulation
+
+    # (a) the main path at full width, two members in one bucket
+    es = EnsembleSpec.replicate(scenario("uniform", **MAIN), 2)
+    members = es.members()
+    if members[0].plasma.seed != scenario("uniform", **MAIN).plasma.seed:
+        fail("the first replica does not have phase 4's seed")
+    solo = make_simulation(members[1])
+    solo.run()
+    solo_final = host_copy(solo)
+    del solo
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    ens = make_ensemble(es)
+    bucket = ens.sims[0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ens.run()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    member_steps = int(bucket.host_step.sum())
+    ms_ms = 1e3 * (t3 - t2 - bucket.graph_setup_seconds) / member_steps
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reads_w = bucket.host_reads / bucket.windows
+    per_ms = {k: (counts.get(k, 0) - bucket.graph_captures) / member_steps for k in FUSED if counts.get(k)}
+    equal = [same_state(torch, member_view(bucket, 0), main_final),
+             same_state(torch, member_view(bucket, 1), solo_final)]
+    say(f"ensemble (a), 2 x uniform {MAIN['grid']}, order {MAIN['order']}: {member_steps} member-steps, "
+        f"{ms_ms:.2f} ms/member-step against phase 4's {main['ms_step']:.2f} ms/step "
+        f"({ms_ms / main['ms_step']:.3f}x), set-up {t2 - t1:.2f} s build + {bucket.graph_setup_seconds:.2f} s "
+        f"capture, peak {peak:.2f} GB (phase 4: {main['peak_gb']:.2f}), host reads {bucket.host_reads} in "
+        f"{bucket.windows} windows ({reads_w:.2f}/window), captures {bucket.graph_captures}, launches {counts} "
+        f"({per_ms} per member-step, the capture's warm-up step aside), bit-equal to the solo runs: {equal} "
+        f"(member 0: phase 4's run)")
+    if not all(equal) or reads_w != 1.0 or bucket.graph_captures != 1:
+        fail("ensemble (a): members not bit-equal to their solo runs, or not one host read a window and one capture")
+    if counts != path_launches(chosen, member_steps + bucket.graph_captures) or set(per_ms.values()) != {1.0}:
+        fail(f"ensemble (a): each member did not launch the resolved kernels {chosen} once a step: {counts}")
+    del ens, bucket, solo_final
+    torch.cuda.empty_cache()
+
+    # (b) the sweep of docs/ensemble.md: two_stream, drift 0.1 / 0.2 / 0.3,
+    # four replicas each, as `pic_run --sweep drift=0.1,0.2,0.3 --ensemble 4`
+    es = EnsembleSpec.sweep(scenario("two_stream"), parse_sweeps(["drift=0.1,0.2,0.3"]), replicas=4)
+    members = es.members()
+    solo_s, solo_reads, solo_windows, solos = 0.0, 0, 0, []
+    for m in members:
+        sim = make_simulation(m)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        solo_s += time.perf_counter() - t1 - sim.graph_setup_seconds
+        solo_reads += sim.host_reads
+        solo_windows += sim.windows
+        solos.append(host_copy(sim))
+        del sim
+    ens = make_ensemble(es)
+    if len(ens.sims) != 1:
+        fail(f"the sweep made {len(ens.sims)} buckets, not one")
+    bucket = ens.sims[0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ens.run()
+    torch.cuda.synchronize()
+    bucket_s = time.perf_counter() - t1 - bucket.graph_setup_seconds
+    say(f"ensemble (b), two_stream sweep drift 0.1/0.2/0.3 x 4 replicas: {bucket.n_members} members in one bucket, "
+        f"{int(bucket.host_step[0])} steps, window {members[0].run.window}: {1e3 * bucket_s / bucket.windows:.2f} "
+        f"ms/window against {1e3 * solo_s / bucket.windows:.2f} for the 12 solo runs back to back "
+        f"({solo_s / bucket_s:.3f}x), {1e3 * bucket_s / int(bucket.host_step.sum()):.4f} ms/member-step against "
+        f"{1e3 * solo_s / int(bucket.host_step.sum()):.4f}; host reads {bucket.host_reads} in {bucket.windows} "
+        f"windows against {solo_reads} in {solo_windows}; captures {bucket.graph_captures}, set-up "
+        f"{bucket.graph_setup_seconds:.2f} s")
+    # Each member's field energy against the cold linear solution of its own
+    # seed, in window-long block means over the linear phase (below 10% of
+    # the run's largest energy); and its fitted growth against the seeded
+    # mode's analytic 2*gamma, where the fit finds that rate in the linear
+    # solution itself (the seed's growing root rules the fit window).
+    ratios, equal, anchored, deviation = [], [], [], []
+    for i, m in enumerate(members):
+        gamma = two_stream_growth_rate(m)
+        hist = bucket.histories[i]
+        equal.append(same_state(torch, member_view(bucket, i), solos[i]) and hist == solos[i].history)
+        steps = [h["step"] for h in hist]
+        e = np.array([h["field_energy"] for h in hist])
+        lin = two_stream_linear_energy(m, steps)
+        blocks = [float(np.log10(e[j:j + m.run.window].mean() / lin[j:j + m.run.window].mean()))
+                  for j in range(0, len(e), m.run.window) if (e[j:j + m.run.window] < 0.1 * e.max()).all()]
+        deviation.append(max(blocks, key=abs) if blocks else float("inf"))
+        lin_ratio = energy_slope(np, [dict(step=s, field_energy=w) for s, w in zip(steps, lin)], m.dt) / (2 * gamma)
+        ratios.append((energy_slope(np, hist, m.dt) / (2 * gamma), lin_ratio))
+        anchored.append(0.75 < lin_ratio < 1.25)
+    say("  each member's field energy against the cold linear solution of its seed (largest window-mean "
+        "log10 deviation over the linear phase; held within 0.5), and its fitted growth against the seeded "
+        "mode's analytic 2*gamma (the linear solution's own fit beside it; held to 0.75-1.25 where that is, "
+        "marked *): "
+        + ", ".join(f"m{i} drift {m.plasma.drift.u}: {d:+.3f}, {r:.3f} ({lr:.3f})" + ("*" if a else "")
+                    for i, (m, d, (r, lr), a) in enumerate(zip(members, deviation, ratios, anchored)))
+        + f"; each member bit-equal to its solo run: {equal}")
+    if not any(anchored) or any(a and not 0.75 < r < 1.25 for (r, _), a in zip(ratios, anchored)):
+        fail("ensemble (b): no member's fit can find the analytic rate, or a member's growth ratio is outside "
+             "0.75-1.25 where the linear solution's is inside")
+    if any(abs(d) > 0.5 for d in deviation):
+        fail("ensemble (b): a member's field energy strays more than 0.5 decades from the linear solution")
+    if not all(equal) or bucket.host_reads != bucket.windows or bucket.graph_captures != 1:
+        fail("ensemble (b): a member is not bit-equal to its solo run, or not one read a window and one capture")
+    del ens, bucket, solos
+
+    # (c) growth isolation: tests/test_ensemble.py's members (6^3, order 1,
+    # capacity 12, one hot member, two mild), 28 steps in windows of 7
+    specs = [(0, 0.5), (1, 0.02), (2, 0.02)]
+    interval_only = SortPolicyConfig(sort_interval=10, sort_trigger_perf_enable=False, sort_trigger_empty_ratio=2.0,
+                                     sort_trigger_full_ratio=2.0, sort_trigger_rebuild_count=10**6)
+    cfg = PICConfig(grid=GridSpec(shape=(6, 6, 6)), dt=0.2, order=1, capacity=12)
+    ens = EnsembleSimulation(lattice_members(torch, np, specs, dev), cfg, interval_only)
+    ens.run(28, window=7)
+    report = []
+    for i, member in enumerate(lattice_members(torch, np, specs, dev)):
+        solo = Simulation(*member, cfg, policy=interval_only)
+        solo.run(28, window=7)
+        if (i == 0) != (solo.growths["capacity"] > 0):
+            fail(f"ensemble (c): member {i}'s solo run grew {solo.growths['capacity']} times")
+        if i == 0:
+            ok = same_state(torch, member_view(ens, 0), solo)
+            report.append(f"hot member bit-equal to its solo run (capacity {solo.config.capacity}): {ok}")
+            if not ok:
+                fail("ensemble (c): the hot member is not bit-equal to its solo run")
+            continue
+        # a sibling shares the growth but not the sort: the kernels give the
+        # same bits at any capacity, so it must stay bit-equal to its solo run
+        st, so = ens.member_state(i), solo.state
+        diffs = {}
+        for part in ("fields", "particles"):
+            for name in getattr(st, part).__dataclass_fields__:
+                a, b = getattr(getattr(st, part), name), getattr(getattr(so, part), name)
+                diffs[f"{part}.{name}"] = 0.0 if torch.equal(a, b) else (
+                    float("inf") if a.dtype == torch.bool else float((a - b).abs().max()))
+        report.append(f"sibling {i} (solo capacity {solo.config.capacity}) bit-equal: "
+                      f"{all(d == 0.0 for d in diffs.values())} (max |diff| {max(diffs.values()):.3e})")
+        if any(diffs.values()):
+            fail(f"ensemble (c): sibling {i} is not bit-equal to its solo run: "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items() if v))
+        if (int(ens.sorts[i]), int(ens.rebuilds[i]), ens.member_state(i).step) != \
+                (solo.sorts, solo.rebuilds, solo.state.step):
+            fail(f"ensemble (c): sibling {i}'s sorts, rebuilds or steps differ from its solo run's")
+    say(f"ensemble (c), growth isolation: capacity 12 -> {ens.config.capacity}, growths {ens.growths['capacity']}, "
+        f"halts {ens.halts}, captures {ens.graph_captures}, host reads {ens.host_reads} in {ens.windows} windows; "
+        + "; ".join(report))
+    if ens.growths["capacity"] < 1 or ens.graph_captures != 1 + ens.growths["capacity"]:
+        fail("ensemble (c): no growth, or captures other than one plus one a growth")
+    # the kernels at a capacity and at twice it, the same occupied slots: a
+    # kernel that regroups with the capacity shows here
+    gen = torch.Generator(device=dev).manual_seed(5)
+    grid = (6, 6, 6)
+    g = max_guard(1)
+    d, val = synthetic_slab(torch, grid, 12, gen, dev)
+    d2 = torch.cat([d, d[:, :1].expand(-1, 12, -1)], dim=1).contiguous()
+    val2 = torch.cat([val, torch.zeros_like(val)], dim=1).contiguous()
+    padded = torch.randn((6, *(k + 2 * g for k in grid)), generator=gen, device=dev)
+    occupied = val.abs().sum(-1) != 0
+    probe = {
+        "fused_bin_deposit": torch.equal(dep.fused_bin_deposit(d, val, order=1), dep.fused_bin_deposit(d2, val2, order=1)),
+        "fused_bin_deposit_reduced": torch.equal(
+            dep.fused_bin_deposit_reduced(d, val, order=1, grid_shape=grid, guard=g),
+            dep.fused_bin_deposit_reduced(d2, val2, order=1, grid_shape=grid, guard=g)),
+        "fused_bin_gather": torch.equal(
+            gat.fused_bin_gather(d, padded, grid_shape=grid, order=1, guard=g)[occupied],
+            gat.fused_bin_gather(d2, padded, grid_shape=grid, order=1, guard=g)[:, :12][occupied]),
+    }
+    say(f"  the kernels at capacity 12 and 24, same occupied slots, bit-equal: {probe}")
+    if not all(probe.values()):
+        fail(f"ensemble (c): a kernel regroups its sums with the capacity: {probe}")
+    del ens
+
+    # (d) member checkpoints at 32^3
+    ckpt = ROOT / "build" / "chip_smoke_member"
+    try:
+        es = EnsembleSpec.replicate(scenario("uniform", grid=(32, 32, 32), ppc=2, order=3, steps=8, window=4,
+                                             diagnostics_every=1), 2)
+        ens = make_ensemble(es)
+        ens.run()
+        ens.save_member(1, str(ckpt))
+        loaded = load_simulation(str(ckpt))
+        loaded.run(4)
+        ens.run(4)
+        b, s_ = ens.slot(1)
+        ok_load = same_state(torch, member_view(ens.sims[b], s_), loaded) and ens.history(1) == loaded.history
+        fresh = make_ensemble(es)
+        fresh.restore_member(1, str(ckpt))
+        fresh.run(4)
+        fb, fs = fresh.slot(1)
+        ok_restore = same_state(torch, member_view(fresh.sims[fb], fs), member_view(ens.sims[b], s_)) and \
+            fresh.history(1) == ens.history(1)
+        say(f"ensemble (d), member checkpoints at 32^3: save_member(1) at step 8, load_simulation, 4 more steps "
+            f"bit-equal to the bucket continuing: {ok_load}; restored into a fresh bucket and run 4 steps, "
+            f"bit-equal: {ok_restore}")
+        if not (ok_load and ok_restore):
+            fail("ensemble (d): a member checkpoint did not continue bit for bit")
+        del ens, loaded, fresh
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def service_phase(torch, dev) -> None:
+    """Phase 17: the simulation service on the card (see the module
+    docstring)."""
+    import asyncio
+    import gc
+    import weakref
+
+    from repro_torch.api import apply_overrides, scenario, spec_signature
+    from repro_torch.launch.sim_serve import SimService
+
+    spec = scenario("uniform", grid=(32, 32, 32), ppc=2, order=3, steps=16, window=8)
+    other = apply_overrides(spec, order=2)
+
+    async def drain(svc, ids):
+        finals = {}
+        for job_id in ids:
+            async for event in svc.results(job_id):
+                finals[job_id] = event
+        return [finals[j] for j in ids]
+
+    async def body():
+        out = {}
+        svc = SimService(max_batch=4, batch_wait=0.5)
+        await svc.start()
+        for label, s_, n in (("first", spec, 4), ("repeat", spec, 4), ("order 2", other, 1)):
+            caps0, builds0 = svc.graph_captures, svc.window_builds
+            t1 = time.perf_counter()
+            finals = await drain(svc, [await svc.submit(s_.to_json()) for _ in range(n)])
+            secs = time.perf_counter() - t1
+            out[label] = dict(finals=finals, secs=secs, captures=svc.graph_captures - caps0,
+                              builds=svc.window_builds - builds0, member_steps=n * s_.run.steps)
+        out["stats"] = svc.cache.stats()
+        await svc.close()
+        # eviction: a cache of one signature, a second signature evicts the first
+        small = SimService(max_batch=4, batch_wait=0.25, cache_size=1)
+        await small.start()
+        await drain(small, [await small.submit(spec.to_json()) for _ in range(4)])
+        window = small.cache._entries[spec_signature(spec)][4]
+        refs = [weakref.ref(window)] + ([] if window.graph is None else [weakref.ref(window.graph)])
+        del window
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved_before = torch.cuda.memory_reserved(dev)
+        await drain(small, [await small.submit(other.to_json())])
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["evict"] = dict(alive=[r() is not None for r in refs], stats=small.cache.stats(),
+                            reserved_before=reserved_before, reserved_after=torch.cuda.memory_reserved(dev))
+        await small.close()
+        return out
+
+    out = asyncio.run(body())
+    for label in ("first", "repeat", "order 2"):
+        o = out[label]
+        ok = all(f["event"] == "done" and f["diagnostics"]["step"] == 16 for f in o["finals"])
+        sizes = sorted({f["batch_size"] for f in o["finals"]})
+        say(f"service, {label}: {len(o['finals'])} job(s) in batches of {sizes}, {o['secs']:.3f} s, "
+            f"{len(o['finals']) / o['secs']:.2f} jobs/s, {1e3 * o['secs'] / o['member_steps']:.3f} ms/member-step "
+            f"(set-up included), captures {o['captures']}, windows built {o['builds']}, all done: {ok}")
+        if not ok:
+            fail(f"service, {label}: a job did not finish its 16 steps")
+    if [out[k]["captures"] for k in ("first", "repeat", "order 2")] != [1, 0, 1] or \
+            {f["batch_size"] for f in out["first"]["finals"] + out["repeat"]["finals"]} != {4}:
+        fail("service: expected one batch of 4 and one capture, then a cache hit with none, then one for order 2")
+    if [f["history"] for f in out["repeat"]["finals"]] != [f["history"] for f in out["first"]["finals"]] or \
+            [f["diagnostics"] for f in out["repeat"]["finals"]] != [f["diagnostics"] for f in out["first"]["finals"]]:
+        fail("service: the repeat batch did not reproduce the first batch's results")
+    ev = out["evict"]
+    say(f"service cache {out['stats']}; with cache_size=1 a second signature evicts the first: its window and "
+        f"graph still alive {ev['alive']}, cache {ev['stats']}, memory reserved {ev['reserved_before'] / 1e9:.3f} "
+        f"-> {ev['reserved_after'] / 1e9:.3f} GB")
+    if any(ev["alive"]) or ev["stats"]["evictions"] != 1:
+        fail("service: evicting a signature did not free its window and graph")
 
 
 def main() -> None:
@@ -810,6 +1171,7 @@ def main() -> None:
         fail("step count, particle count or total charge not conserved")
     for name, n in want.items():
         results[name]["launches"] = n
+    main_final = host_copy(sim)  # phase 16 holds the ensemble's first member to it
     del sim
     torch.cuda.empty_cache()
 
@@ -1222,6 +1584,21 @@ def main() -> None:
     del sim
     torch.cuda.empty_cache()
     no_plain(dispatch, "the autotune")
+
+    # -- 16. ensembles on the card ----------------------------------------------------
+    t0 = time.perf_counter()
+    ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, dep, gat)
+    del main_final
+    torch.cuda.empty_cache()
+    no_plain(dispatch, "ensembles")
+    say(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # -- 17. the simulation service on the card ------------------------------------------
+    t0 = time.perf_counter()
+    service_phase(torch, dev)
+    torch.cuda.empty_cache()
+    no_plain(dispatch, "the service")
+    say(f"phase 17: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

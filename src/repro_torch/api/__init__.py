@@ -2,7 +2,8 @@
 `repro.api`), the scenario registry (uniform, lwfa, two_stream, weibel),
 the single-device driver facade, its checkpoints and its fault tolerance
 (the health sentinel's `HealthConfig`, the chaos harness's `FaultSpec`,
-`SimCheckpointer` autosave, `SimulationHealthError`).
+`SimCheckpointer` autosave, `SimulationHealthError`), and ensembles
+(`EnsembleSpec`, `make_ensemble`, `spec_signature`, member checkpoints).
 
     from repro_torch.api import scenario, make_simulation, load_simulation
     sim = make_simulation(scenario("uniform", grid=(64, 64, 64), order=3))
@@ -10,19 +11,29 @@ the single-device driver facade, its checkpoints and its fault tolerance
     print(sim.diagnostics())
     sim.save("ckpt")              # loads in repro_torch and in repro
     sim = load_simulation("ckpt")
+
+    ens = make_ensemble(EnsembleSpec.sweep(scenario("two_stream"), {"drift": [0.1, 0.2]}, replicas=4))
+    ens.run()                     # one bucket of 8 members, one host read a window
+    ens.save_member(3, "m3")      # a standard single-driver checkpoint
 """
 
 from repro_torch.api.facade import (  # noqa: F401
+    EnsembleRun,
     SimCheckpointer,
+    bucket_specs,
     clean_stale_tmp,
     build_fields,
     build_particles,
     load_simulation,
+    make_ensemble,
     make_simulation,
     pic_config,
     resolve_device,
+    restore_ensemble_member,
     restore_simulation,
+    save_ensemble_member,
     save_simulation,
+    spec_signature,
 )
 from repro_torch.api.registry import (  # noqa: F401
     apply_overrides,
@@ -30,12 +41,14 @@ from repro_torch.api.registry import (  # noqa: F401
     scenario,
     scenario_names,
     two_stream_growth_rate,
+    two_stream_linear_energy,
     weibel_growth_rate,
 )
 from repro_torch.api.spec import (  # noqa: F401
     CommSpec,
     DepositionSpec,
     DriftSpec,
+    EnsembleSpec,
     FaultSpec,
     HealthConfig,
     MeshSpec,

@@ -1,8 +1,10 @@
 """The driver facade: spec -> initial conditions -> `Simulation`, and the
 checkpoints (`save_simulation`, `restore_simulation`, `load_simulation`,
 the autosave's `SimCheckpointer` and `clean_stale_tmp`, from
-`repro_torch.checkpoint`). Counterpart of the single-device part of
-`repro.api.facade`.
+`repro_torch.checkpoint`); ensembles: `spec_signature`, `bucket_specs`,
+`make_ensemble` and its member-indexed `EnsembleRun`, and the member
+checkpoints `save_ensemble_member` / `restore_ensemble_member`.
+Counterpart of the single-device part of `repro.api.facade`.
 
 Entry points run on ``cuda`` unless the caller names another device; with
 no CUDA device and no device named they raise, never falling back to the
@@ -11,31 +13,44 @@ CPU.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
+
 import torch
 
-from repro_torch.api.spec import SimSpec
+from repro_torch.api.spec import EnsembleSpec, SimSpec
 from repro_torch.checkpoint import (
     SimCheckpointer,
     clean_stale_tmp,
     load_simulation,
+    restore_ensemble_member,
     restore_simulation,
+    save_ensemble_member,
     save_simulation,
 )
+from repro_torch.kernels import dispatch
 from repro_torch.pic.grid import FieldState
 from repro_torch.pic.laser import inject_laser
 from repro_torch.pic.plasma import ParticleState, apply_counter_drift, perturb_velocity, profiled_plasma, uniform_plasma
 
 __all__ = [
+    "EnsembleRun",
     "SimCheckpointer",
+    "bucket_specs",
     "build_fields",
     "build_particles",
     "clean_stale_tmp",
     "load_simulation",
+    "make_ensemble",
     "make_simulation",
     "pic_config",
     "resolve_device",
+    "restore_ensemble_member",
     "restore_simulation",
+    "save_ensemble_member",
     "save_simulation",
+    "spec_signature",
 ]
 
 
@@ -122,3 +137,116 @@ def make_simulation(spec: SimSpec, *, fields: FieldState | None = None,
     fields = build_fields(spec, device=device) if fields is None else FieldState(*(f.to(device) for f in fields.all()))
     particles = build_particles(spec, device=device) if particles is None else particles.to(device)
     return Simulation(fields, particles, pic_config(spec), policy=spec.sort.policy, spec=spec)
+
+
+# -- ensembles: signatures, buckets, the member-indexed facade ------------------
+
+
+def spec_signature(spec: SimSpec) -> str:
+    """The compiled shape of a single-device spec as 16 hex digits: specs
+    with one signature run the same window (`PICConfig`, sort policy,
+    window length and particle count) and share one ensemble bucket; it is
+    also the service's window-cache key. The payload and its hash are the
+    reference's (`repro.api.spec_signature`), the backend under its
+    reference name, so one spec JSON has one signature in both packages.
+    What lives in the initial conditions (seed, density, thermal spread,
+    drift, perturbation, laser, profile) changes values, not shapes, and
+    stays out."""
+    cfg = pic_config(spec)
+    payload = {
+        "grid": list(cfg.grid.shape),
+        "dx": list(cfg.grid.dx),
+        "dt": cfg.dt,
+        "order": cfg.order,
+        "deposition": cfg.deposition,
+        "gather": cfg.gather,
+        "sort_mode": cfg.sort_mode,
+        "charge": cfg.charge,
+        "mass": cfg.mass,
+        "ckc_beta": cfg.ckc_beta,
+        "capacity": cfg.capacity,
+        "backend": dispatch.reference_name(cfg.backend),
+        "policy": dataclasses.asdict(spec.sort.policy),
+        "window": spec.run.window,
+        "n_particles": spec.grid.n_cells * spec.plasma.ppc,
+    }
+    return hashlib.sha256(json.dumps(payload, sort_keys=True).encode()).hexdigest()[:16]
+
+
+def bucket_specs(specs) -> dict[str, list[int]]:
+    """Spec indices grouped by signature, in order of first appearance:
+    ``{signature: [indices]}``, one bucket each."""
+    buckets: dict[str, list[int]] = {}
+    for i, spec in enumerate(specs):
+        buckets.setdefault(spec_signature(spec), []).append(i)
+    return buckets
+
+
+class EnsembleRun:
+    """The member-indexed facade over one or more buckets: member i of the
+    `EnsembleSpec` is slot ``slot(i) = (bucket, index)``, and every accessor
+    takes the global index. `run` advances the buckets one after another."""
+
+    def __init__(self, spec: EnsembleSpec, members: list[SimSpec], sims: list, slots: list[tuple[int, int]]):
+        self.spec = spec
+        self.members = members
+        self.sims = sims
+        self._slots = slots
+
+    @property
+    def n_members(self) -> int:
+        return len(self.members)
+
+    @property
+    def signatures(self) -> list[str]:
+        return [spec_signature(m) for m in self.members]
+
+    def slot(self, i: int) -> tuple[int, int]:
+        """Global member index -> (bucket, slot in the bucket)."""
+        return self._slots[i]
+
+    def run(self, n_steps=None, *, diagnostics_every: int | None = None, window: int | None = None,
+            on_window=None) -> None:
+        for sim in self.sims:
+            sim.run(n_steps, diagnostics_every=diagnostics_every, window=window, on_window=on_window)
+
+    def diagnostics(self, i: int | None = None):
+        if i is None:
+            return [self.diagnostics(j) for j in range(self.n_members)]
+        b, s = self._slots[i]
+        return dict(self.sims[b].diagnostics(s), member=i)
+
+    def history(self, i: int) -> list[dict]:
+        b, s = self._slots[i]
+        return self.sims[b].histories[s]
+
+    def member_state(self, i: int):
+        b, s = self._slots[i]
+        return self.sims[b].member_state(s)
+
+    def save_member(self, i: int, path: str) -> None:
+        b, s = self._slots[i]
+        save_ensemble_member(self.sims[b], s, path)
+
+    def restore_member(self, i: int, path: str) -> None:
+        b, s = self._slots[i]
+        restore_ensemble_member(self.sims[b], s, path)
+
+
+def make_ensemble(spec: EnsembleSpec, *, device=None) -> EnsembleRun:
+    """Build the buckets an `EnsembleSpec` describes, on ``device`` (default
+    ``cuda``): its members grouped by `spec_signature`, one
+    `EnsembleSimulation` each, each with its own captured windows."""
+    from repro_torch.pic.ensemble import EnsembleSimulation
+
+    device = resolve_device(device)
+    members = spec.members()
+    slots: list[tuple[int, int]] = [(0, 0)] * len(members)
+    sims = []
+    for b, idxs in enumerate(bucket_specs(members).values()):
+        specs = [members[i] for i in idxs]
+        pairs = [(build_fields(m, device=device), build_particles(m, device=device)) for m in specs]
+        sims.append(EnsembleSimulation(pairs, pic_config(specs[0]), specs[0].sort.policy, specs=specs))
+        for s, i in enumerate(idxs):
+            slots[i] = (b, s)
+    return EnsembleRun(spec, members, sims, slots)

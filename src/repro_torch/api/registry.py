@@ -6,7 +6,7 @@ vocabulary:
 * ``lwfa``        laser-wakefield acceleration: gaussian pulse + density step;
 * ``two_stream``  symmetric cold counter-streaming beams along z with the
                   fastest-growing longitudinal mode seeded
-                  (`two_stream_growth_rate`);
+                  (`two_stream_growth_rate`, `two_stream_linear_energy`);
 * ``weibel``      counter-streaming beams along x with a transverse (k along
                   z) filamentation seed (`weibel_growth_rate`).
 """
@@ -16,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Callable
+
+import numpy as np
 
 from repro_torch.api.spec import (
     CommSpec,
@@ -38,6 +40,7 @@ __all__ = [
     "scenario",
     "scenario_names",
     "two_stream_growth_rate",
+    "two_stream_linear_energy",
     "weibel_growth_rate",
 ]
 
@@ -115,7 +118,10 @@ _OVERRIDE_PATHS = {
 def apply_overrides(spec: SimSpec, **overrides) -> SimSpec:
     """Route flat override names into the spec tree (``order=2`` ->
     ``spec.deposition.order``). ``ppc`` accepts an int (cubed) or a
-    3-tuple; ``grid`` a shape 3-tuple (keeps the spec's dx) or a GridSpec."""
+    3-tuple; ``grid`` a shape 3-tuple (keeps the spec's dx) or a GridSpec;
+    ``drift`` a DriftSpec or a number, the drift speed along the spec's
+    drift axis (a sweep's ``drift=0.1,0.2``; the reference stores the bare
+    number, which its `build_particles` cannot read)."""
     by_section: dict[str, dict] = {}
     top: dict = {}
     for key, value in overrides.items():
@@ -132,6 +138,8 @@ def apply_overrides(spec: SimSpec, **overrides) -> SimSpec:
             value = FaultSpec.from_dict(value)
         if key == "comm" and isinstance(value, dict):
             value = CommSpec.from_dict(value)
+        if key == "drift" and isinstance(value, (int, float)):
+            value = DriftSpec(u=float(value), axis=(spec.plasma.drift or DriftSpec()).axis)
         if len(path) == 1:
             top[path[0]] = value
         else:
@@ -247,6 +255,33 @@ def two_stream_growth_rate(spec: SimSpec) -> float:
     if y2 <= 0.0:
         return 0.0
     return math.sqrt(wb2 * y2)
+
+
+def two_stream_linear_energy(spec: SimSpec, steps) -> np.ndarray:
+    """Field energy after each of ``steps`` from the cold linearised
+    two-beam equations of `two_stream_growth_rate`, solved as an
+    initial-value problem for the spec's own seed, with all four roots of
+    its dispersion relation: two beams of density n/2 at +-v0 with
+    longitudinal mass gamma0^3, u along the drift seeded with A sin(kz), no
+    initial field. W = V |E_k|^2 / 4 for the field E_k sin(kz) over the
+    box's volume V. A velocity seed is not the growing eigenmode: the field
+    energy oscillates with the stable roots until the growing one rules,
+    which at a weak drift is late in a run."""
+    p, g = spec.plasma, spec.grid
+    g0 = math.sqrt(1.0 + p.drift.u * p.drift.u)
+    v0, mass, half = p.drift.u / g0, g0**3, 0.5 * p.density
+    k = _seeded_k(spec)
+    a = np.zeros((5, 5), complex)  # (dn+, dv+, dn-, dv-, E_k), electrons
+    for s, v in ((0, v0), (2, -v0)):
+        a[s, s] = a[s + 1, s + 1] = -1j * k * v
+        a[s, s + 1] = -1j * k * half
+        a[s + 1, 4] = -1.0 / mass
+        a[4, s], a[4, s + 1] = v, half
+    dv = p.perturb.amplitude / mass
+    lam, vec = np.linalg.eig(a)
+    weights = vec[4] * np.linalg.solve(vec, np.array([0.0, dv, 0.0, dv, 0.0], complex))
+    e_k = weights @ np.exp(np.outer(lam, np.asarray(steps, dtype=float) * spec.dt))
+    return math.prod(n * d for n, d in zip(g.shape, g.dx)) / 4.0 * np.abs(e_k) ** 2
 
 
 def weibel_growth_rate(spec: SimSpec) -> float:

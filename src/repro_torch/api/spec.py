@@ -8,6 +8,9 @@ Kernel backends are kept under the port's names (``torch``, ``cuda``,
 ``cuda_reduced``) and written under the reference's (``xla``, ``pallas``,
 ``pallas_reduced``); ``auto`` is ``auto`` in both.
 
+`EnsembleSpec` is N runs as one base spec and per-member flat overrides,
+with the reference's JSON.
+
 The nodes of what the port does not run yet load, and their defaults are
 accepted, but a value other than the default is refused by name with
 `NotImplementedError`: a device mesh and a communication option (see
@@ -36,6 +39,7 @@ __all__ = [
     "CommSpec",
     "DepositionSpec",
     "DriftSpec",
+    "EnsembleSpec",
     "FaultSpec",
     "HealthConfig",
     "MeshSpec",
@@ -382,3 +386,97 @@ class SimSpec(_Node):
         if kw.get("fault") is not None:
             kw["fault"] = FaultSpec.from_dict(kw["fault"])
         return cls(**kw)
+
+
+# -- ensembles: one base spec and per-member flat overrides ------------------
+
+
+_SINGLE_DEVICE = "the ensemble engine is single-device"
+
+
+@dataclasses.dataclass(frozen=True)
+class EnsembleSpec:
+    """N simulations as one base `SimSpec` and per-member flat overrides
+    (the registry's `apply_overrides` names: ``seed=3``, ``density=0.5``,
+    ``order=2``, ...), one dict per member; no overrides is one member equal
+    to the base. Members whose overrides keep the compiled shape
+    (`repro_torch.api.spec_signature`) share one bucket
+    (`repro_torch.api.make_ensemble`).
+
+    Build with `replicate` (seed-staggered copies) or `sweep` (a cartesian
+    product of values), or pass the dicts. Not hashable (the overrides are
+    dicts)."""
+
+    base: SimSpec
+    overrides: tuple = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "overrides", tuple(dict(o) for o in self.overrides))
+
+    @property
+    def n_members(self) -> int:
+        return max(1, len(self.overrides))
+
+    def members(self) -> list[SimSpec]:
+        """The per-member specs: the base with each member's overrides, named
+        ``<base>-m<i>`` unless an override names it."""
+        from repro_torch.api.registry import apply_overrides  # the registry imports this module
+
+        out = []
+        for i, ov in enumerate(self.overrides or ({},)):
+            ov = dict(ov)
+            if ov.get("mesh") is not None:
+                raise ValueError(f"ensemble member {i} overrides mesh={ov['mesh']}; {_SINGLE_DEVICE}")
+            ov.setdefault("name", f"{self.base.name}-m{i}")
+            out.append(apply_overrides(self.base, **ov))
+        return out
+
+    @staticmethod
+    def replicate(base: SimSpec, n: int, *, seed_stride: int = 1) -> "EnsembleSpec":
+        """``n`` copies of ``base`` with staggered plasma seeds: the same
+        physics from independent initial conditions, one bucket."""
+        if n < 1:
+            raise ValueError(f"ensemble size must be >= 1, got {n}")
+        seed0 = base.plasma.seed
+        return EnsembleSpec(base=base, overrides=tuple({"seed": seed0 + i * seed_stride} for i in range(n)))
+
+    @staticmethod
+    def sweep(base: SimSpec, axes: dict, *, replicas: int = 1, seed_stride: int = 1) -> "EnsembleSpec":
+        """The cartesian product over ``axes`` ({override name: [values]}),
+        each point with ``replicas`` seed-staggered copies."""
+        import itertools
+
+        names = list(axes)
+        seed0 = base.plasma.seed
+        overrides = []
+        for combo in itertools.product(*(axes[k] for k in names)):
+            point = dict(zip(names, combo))
+            for r in range(max(1, replicas)):
+                ov = dict(point)
+                if replicas > 1 and "seed" not in ov:
+                    ov["seed"] = seed0 + r * seed_stride
+                overrides.append(ov)
+        return EnsembleSpec(base=base, overrides=tuple(overrides))
+
+    def to_dict(self) -> dict:
+        return {"base": self.base.to_dict(),
+                "overrides": [{k: _to_jsonable(v) for k, v in ov.items()} for ov in self.overrides]}
+
+    def to_json(self, *, indent: int | None = 1) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=False)
+
+    @staticmethod
+    def from_dict(d: dict) -> "EnsembleSpec":
+        kw = _pick(EnsembleSpec, dict(d))
+        if "base" not in kw:
+            raise ValueError("EnsembleSpec requires a 'base' entry")
+        if (kw["base"].get("mesh") or {}).get("shape") is not None:
+            raise ValueError(f"{_SINGLE_DEVICE}: the base spec must have mesh.shape=None, got "
+                             f"{kw['base']['mesh']['shape']}")
+        kw["base"] = SimSpec.from_dict(kw["base"])
+        kw["overrides"] = tuple(dict(o) for o in kw.get("overrides", ()))
+        return EnsembleSpec(**kw)
+
+    @staticmethod
+    def from_json(s: str) -> "EnsembleSpec":
+        return EnsembleSpec.from_dict(json.loads(s))

@@ -19,6 +19,13 @@ packages in mid-flight: a checkpoint that one writes, the other loads.
 `SimCheckpointer` keeps a rolling set of step-stamped checkpoints for the
 supervisor's autosave (`Simulation.run(autosave_every=N)`), and
 `clean_stale_tmp` sweeps what killed writers left behind.
+
+An ensemble member (`repro_torch.pic.ensemble.EnsembleSimulation`) is saved
+as a standard single-driver checkpoint (`save_ensemble_member`, loadable by
+`load_simulation` in either package) and restored into an ensemble slot
+(`restore_ensemble_member`), in place in the bucket's stacked tensors
+(`tree_member_slice`, `tree_member_set`), so that a captured window stays
+valid.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from repro_torch.pic.grid import FieldState
 from repro_torch.pic.plasma import ParticleState
 from repro_torch.pic.simulation import state_from_reference
 
-__all__ = ["SimCheckpointer", "clean_stale_tmp", "load_simulation", "restore_simulation", "save_simulation"]
+__all__ = ["SimCheckpointer", "clean_stale_tmp", "load_simulation", "restore_ensemble_member", "restore_simulation",
+           "save_ensemble_member", "save_simulation", "tree_member_set", "tree_member_slice"]
 
 _ARRAYS = "arrays.npz"
 _META = "checkpoint.json"
@@ -49,12 +57,11 @@ def _leaf(path: tuple[str, ...]) -> str:
     return "/".join([f"['{path[0]}']"] + [f".{p}" for p in path[1:]])
 
 
-def _flatten(sim) -> list[tuple[str, torch.Tensor | int]]:
-    """(name, leaf) pairs of the driver's policy state and state, in the
-    reference's order (dict keys sorted, dataclass fields in order)."""
-    out = [(_leaf(("policy_state", f.name)), getattr(sim.policy_state, f.name))
+def _flatten(s, policy_state) -> list[tuple[str, torch.Tensor | int]]:
+    """(name, leaf) pairs of a policy state and a state, in the reference's
+    order (dict keys sorted, dataclass fields in order)."""
+    out = [(_leaf(("policy_state", f.name)), getattr(policy_state, f.name))
            for f in dataclasses.fields(SortPolicyState)]
-    s = sim.state
     for part, cls in (("fields", FieldState), ("particles", ParticleState), ("layout", BinnedLayout)):
         out += [(_leaf(("state", part, f.name)), getattr(getattr(s, part), f.name)) for f in dataclasses.fields(cls)]
     out.append((_leaf(("state", "step")), s.step))
@@ -121,7 +128,7 @@ def _read_dir(path: str) -> tuple[dict, dict]:
 
 def save_simulation(sim, path: str) -> None:
     """Checkpoint a single-device `Simulation` to `path`."""
-    pairs = _flatten(sim)
+    pairs = _flatten(sim.state, sim.policy_state)
     st = sim.host_policy.state
     scalars = {
         "sorts": sim.sorts,
@@ -158,14 +165,9 @@ def _shape_ok(name: str, saved: tuple, tmpl: tuple) -> bool:
     return saved == tmpl
 
 
-def restore_simulation(sim, path: str) -> None:
-    """Restore a checkpoint into a compatible driver: the same grid and
-    particle count; the capacity is the checkpoint's. The window's captured
-    step is dropped (the next window captures anew)."""
-    arrays, meta = _read_dir(path)
-    if meta["driver"] != "single":
-        raise ValueError(f"checkpoint was written by the {meta['driver']!r} driver; the port runs 'single'")
-    template = _flatten(sim)
+def _check_leaves(arrays: dict, template: list) -> None:
+    """Every leaf of ``template`` is in the checkpoint, at a shape that fits
+    (`_shape_ok`)."""
     for name, leaf in template:
         if name not in arrays:
             continue
@@ -177,13 +179,26 @@ def restore_simulation(sim, path: str) -> None:
     if missing:
         raise ValueError(f"checkpoint is missing leaves {missing[:4]}... ({len(missing)} total)")
 
+
+def _short_names(arrays: dict) -> dict:
+    """The checkpoint's arrays under `state_from_reference`'s names:
+    "['state']/.fields/.ex" -> "fields.ex", "['policy_state']/.proxy_ema"
+    -> "policy.proxy_ema"."""
+    return {".".join(["policy" if name.startswith("['policy_state']") else ""]
+                     + [p[1:] for p in name.split("/")[1:]]).lstrip("."): a for name, a in arrays.items()}
+
+
+def restore_simulation(sim, path: str) -> None:
+    """Restore a checkpoint into a compatible driver: the same grid and
+    particle count; the capacity is the checkpoint's. The window's captured
+    step is dropped (the next window captures anew)."""
+    arrays, meta = _read_dir(path)
+    if meta["driver"] != "single":
+        raise ValueError(f"checkpoint was written by the {meta['driver']!r} driver; the port runs 'single'")
+    _check_leaves(arrays, _flatten(sim.state, sim.policy_state))
     scal = meta["scalars"]
     sim.config = dataclasses.replace(sim.config, capacity=scal["capacity"])
-    # "['state']/.fields/.ex" -> "fields.ex", "['policy_state']/.proxy_ema" -> "policy.proxy_ema"
-    short = {name: ".".join(["policy" if name.startswith("['policy_state']") else ""]
-                            + [p[1:] for p in name.split("/")[1:]]).lstrip(".") for name in arrays}
-    sim.state, sim.policy_state = state_from_reference({short[n]: a for n, a in arrays.items()}, sim.config,
-                                                       sim.device)
+    sim.state, sim.policy_state = state_from_reference(_short_names(arrays), sim.config, sim.device)
     sim.sorts = scal["sorts"]
     sim.rebuilds = scal["rebuilds"]
     sim._host_step = scal["host_step"]
@@ -216,6 +231,96 @@ def load_simulation(path: str, device=None):
     sim = make_simulation(SimSpec.from_dict(meta["spec"]), device=device)
     restore_simulation(sim, path)
     return sim
+
+
+# -- ensemble members ------------------------------------------------------------
+
+
+def tree_member_slice(tree, i: int):
+    """Member ``i`` of a stacked tree (nested dataclasses of tensors): every
+    tensor ``t`` as its view ``t[i]``, so a member's tensors are the
+    bucket's; other leaves stay as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: tree_member_slice(getattr(tree, f.name), i)
+                                            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def tree_member_set(tree, i: int, member) -> None:
+    """Write ``member`` (no member axis) into slot ``i`` of a stacked tree,
+    in place (``copy_``): the stacked tensors keep their addresses, so a
+    CUDA graph captured over them stays valid. Shapes must match the slot
+    exactly: re-bin a member saved at another capacity first
+    (`restore_ensemble_member`). Leaves other than tensors are left
+    alone."""
+    if isinstance(tree, torch.Tensor):
+        if tuple(tree.shape[1:]) != tuple(member.shape):
+            raise ValueError(f"member leaf shape {tuple(member.shape)} does not fit stacked slot "
+                             f"{tuple(tree.shape)}[{i}]")
+        tree[i].copy_(member)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            tree_member_set(getattr(tree, f.name), i, getattr(member, f.name))
+
+
+def save_ensemble_member(ens, i: int, path: str) -> None:
+    """Checkpoint member ``i`` of an ensemble as a standard single-driver
+    checkpoint: `load_simulation` (of either package) rebuilds it as a
+    standalone `Simulation` when the member has a spec, and
+    `restore_ensemble_member` installs it back into an ensemble slot."""
+    spec = ens.specs[i]
+    pairs = _flatten(ens.member_state(i), ens.member_policy_state(i))
+    scalars = {
+        "sorts": int(ens.sorts[i]),
+        "rebuilds": int(ens.rebuilds[i]),
+        "host_step": int(ens.host_step[i]),
+        "capacity": ens.config.capacity,
+        # an ensemble drives the device policy only: a standalone resume
+        # starts its host-loop policy counters afresh
+        "host_policy": {"steps_since_sort": 0, "rebuilds_since_sort": 0, "baseline_perf": None, "perf_ema": None},
+        "history": ens.histories[i],
+        "growths": dict(ens.growths),
+        "halts": dict(ens.halts),
+        "retries": 0,
+        "restarts": 0,
+        "discarded_steps": 0,
+    }
+    meta = {"driver": "single", "spec": None if spec is None else spec.to_dict(), "scalars": scalars}
+    _write_dir(path, [n for n, _ in pairs], [_host(leaf) for _, leaf in pairs], meta)
+
+
+def restore_ensemble_member(ens, i: int, path: str) -> None:
+    """Install a single-driver checkpoint (of either package) into slot
+    ``i`` of an ensemble, in place. A checkpoint at another bin capacity is
+    re-binned at the ensemble's without a permutation (its particle order,
+    and so its continuation, is kept); one too dense for the ensemble's
+    capacity is refused. The grid and the particle count must match the
+    slot."""
+    arrays, meta = _read_dir(path)
+    if meta["driver"] != "single":
+        raise ValueError(f"ensemble member slots take 'single' driver checkpoints, got {meta['driver']!r}")
+    scal = meta["scalars"]
+    template = ens.member_state(i)
+    pos = arrays.get(_leaf(("state", "particles", "pos")))
+    if pos is not None and pos.shape != tuple(template.particles.pos.shape):
+        raise ValueError(f"checkpoint carries {pos.shape[0]} particles but ensemble slot {i} holds "
+                         f"{template.particles.pos.shape[0]}: the member belongs to a different bucket")
+    _check_leaves(arrays, _flatten(template, ens.member_policy_state(i)))
+    saved = dataclasses.replace(ens.config, capacity=int(scal["capacity"]))
+    state, pstate = state_from_reference(_short_names(arrays), saved, ens.device)
+    if saved.capacity != ens.config.capacity:
+        state, overflow = ens._rebin(state)
+        if int(overflow):
+            raise ValueError(f"checkpointed member is denser than the ensemble capacity {ens.config.capacity} "
+                             f"(saved capacity {saved.capacity}); grow the ensemble before restoring this member")
+    ens.set_member(i, state, pstate)
+    ens.host_step[i] = int(scal["host_step"])
+    ens.sorts[i] = int(scal["sorts"])
+    ens.rebuilds[i] = int(scal["rebuilds"])
+    ens.histories[i] = list(scal["history"])
+    ens._prewarm_dispatch()
 
 
 def _pid_alive(pid: int) -> bool:

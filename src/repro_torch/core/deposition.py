@@ -125,8 +125,15 @@ def binned_shape_factors(pos, values, layout: BinnedLayout, *, grid_shape, order
 
 
 def _bin_matmul(a, b):
-    """rhocell[c] = A_c^T B_c — the sum of outer products."""
-    return torch.einsum("cpm,cpn->cmn", a, b)
+    """rhocell[c] = A_c^T B_c — the sum of outer products, added slot by slot
+    in slot order. Not a batched matmul: its kernel, and so its summation
+    order, can change with the slot count, and an ensemble's re-binned
+    member (the same occupied slots, more zero-padded ones) must deposit
+    the same bits at any capacity."""
+    out = a[:, 0, :, None] * b[:, 0, None, :]
+    for p in range(1, a.shape[1]):
+        out.addcmul_(a[:, p, :, None], b[:, p, None, :])
+    return out
 
 
 def deposit_matrix(pos, values, layout: BinnedLayout, *, grid_shape, order: int, stagger: Stagger = NO_STAGGER,
@@ -135,7 +142,7 @@ def deposit_matrix(pos, values, layout: BinnedLayout, *, grid_shape, order: int,
     ``deposition="matrix_unfused"`` mode): build A and B
     (`binned_shape_factors`), contract them per cell through the dispatcher
     op ``deposit_unfused`` (``cuda``: the `bin_outer_product` kernel;
-    ``torch``: an einsum), reduce the rhocell tiles. Returns the
+    ``torch``: `_bin_matmul`, slot by slot), reduce the rhocell tiles. Returns the
     guard-padded grid."""
     from repro_torch.kernels import dispatch
 

@@ -124,25 +124,33 @@ def pack_neighborhoods(padded, *, grid_shape, order: int, guard: int):
 
 def _fused_gather_torch_bins(d, padded, *, grid_shape, order, guard):
     """Plain six-component gather: shared weights, per-component true-support
-    neighbourhoods, (C, cap, 6) per-bin values."""
-    n_cells, cap, _ = d.shape
+    neighbourhoods, (C, cap, 6) per-bin values.
+
+    Each slot's value is its taps' products added one tap at a time in a
+    fixed order, not a batched matmul: a matmul's kernel, and so its
+    summation order, can change with the slot count, and an ensemble's
+    re-binned member must gather the same bits at any capacity. Each
+    ``addcmul_`` has a broadcast or strided operand along its inner axis, so
+    it runs one code path for every slot whatever the capacity. The
+    accumulator is (C, cap, tx); no (C, cap, ty*tz) product is built."""
+    n_cells = d.shape[0]
     w_u = [sf.shape_weights(d[..., k], order, False) for k in range(3)]
     w_s = [sf.shape_weights(d[..., k], order, True) for k in range(3)]
-    byz = {}  # four distinct wy (x) wz products over the six components
     comps = []
     for comp, stagger in enumerate(EB_STAGGERS):
         taps, bases = _taps_and_bases(order, stagger)
         tx, ty, tz = taps
         neigh = extract_neighborhoods(padded[comp], grid_shape, taps=taps, bases=bases, guard=guard)
         neigh = neigh.reshape(n_cells, tx, ty * tz)
-        key = (stagger[1], stagger[2])
-        if key not in byz:
-            wy = w_s[1] if stagger[1] else w_u[1]
-            wz = w_s[2] if stagger[2] else w_u[2]
-            byz[key] = (wy[..., :, None] * wz[..., None, :]).reshape(n_cells, cap, ty * tz)
-        wx = w_s[0] if stagger[0] else w_u[0]
-        h = torch.einsum("cpn,cmn->cpm", byz[key], neigh)
-        comps.append(torch.sum(wx * h, dim=-1))
+        wx, wy, wz = (w_s[k] if stagger[k] else w_u[k] for k in range(3))
+        # h[c, p, i] = sum over the (y, z) taps of wy * wz * neigh[c, i]
+        h = (wy[..., 0] * wz[..., 0])[..., None] * neigh[:, None, :, 0]
+        for n in range(1, ty * tz):
+            h.addcmul_((wy[..., n // tz] * wz[..., n % tz])[..., None], neigh[:, None, :, n])
+        e = wx[..., 0] * h[..., 0]
+        for i in range(1, tx):
+            e.addcmul_(wx[..., i], h[..., i])
+        comps.append(e)
     return torch.stack(comps, dim=-1)
 
 

@@ -70,9 +70,11 @@ class GraphCapture:
     @contextlib.contextmanager
     def capturing(self):
         """Capture the work issued inside the block. Allocations, the IF
-        bodies' included, come from the graph's private memory pool."""
+        bodies' included, come from the graph's private memory pool. The
+        capture is this thread's alone (``thread_local``): another thread's
+        CUDA calls, such as a service's event loop, cannot invalidate it."""
         index, pool = self.device.index, torch.cuda.graph_pool_handle()
-        with torch.cuda.graph(self.graph, pool=pool, stream=self.stream):
+        with torch.cuda.graph(self.graph, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
             # The IF bodies are captured on streams of their own, whose
             # captures the graph's allocation filter (its capture id) does
             # not match, and the allocator takes one filter per pool: swap

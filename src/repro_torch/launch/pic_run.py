@@ -10,6 +10,7 @@
     PYTHONPATH=src python -m repro_torch.launch.pic_run --spec lwfa.json --steps 20
     PYTHONPATH=src python -m repro_torch.launch.pic_run --sentinel --fault nan_field:20:ez
     PYTHONPATH=src python -m repro_torch.launch.pic_run --sentinel --fault crash:20 --autosave-every 8
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario two_stream --sweep drift=0.1,0.2,0.3 --ensemble 4
 
 Runs on the CUDA device unless ``--device`` names another. One warm-up
 window (kernel build, the step's CUDA graph capture) runs first, then the
@@ -24,7 +25,13 @@ there (``crash``), ``--autosave-every`` keeps rolling checkpoints (under
 ``--autosave-path``, default ``checkpoints/<scenario>``) that a crash
 restores; the timed line then gives the halts, retries and restarts. ``--spec`` runs a SimSpec JSON file, written by this
 launcher's ``--dump-spec`` or by the reference's, with the other options as
-overrides; ``--dump-spec`` writes the resolved spec and exits. ``--profile``
+overrides; ``--dump-spec`` writes the resolved spec and exits.
+``--ensemble N`` runs N seed-staggered replicas of the spec as one batched
+ensemble, ``--sweep PARAM=V1,V2,...`` (repeatable) a cartesian sweep over
+flat overrides, N replicas a point (`repro_torch.api.EnsembleSpec`): the
+members are grouped into shape buckets, each advanced with one host read a
+window, and the summary gives ms per member-step, host reads, captures and
+growths (``--dump-spec`` then writes the EnsembleSpec). ``--profile``
 then runs two more
 windows under `torch.profiler` and prints where the time went: first one
 window as it runs, replays of the captured step; then one window run
@@ -43,7 +50,15 @@ from collections import defaultdict
 
 import torch
 
-from repro_torch.api import SimSpec, apply_overrides, make_simulation, scenario, scenario_names
+from repro_torch.api import (
+    EnsembleSpec,
+    SimSpec,
+    apply_overrides,
+    make_ensemble,
+    make_simulation,
+    scenario,
+    scenario_names,
+)
 
 
 #: the kernels of `csrc`, as the profiler names them
@@ -64,6 +79,61 @@ def parse_fault(text: str) -> dict:
     if len(parts) > 3 and parts[3]:
         out["count"] = int(parts[3])
     return out
+
+
+def _sweep_value(text: str):
+    """A sweep value: an int, else a float, else the text."""
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    return text
+
+
+def parse_sweeps(texts) -> dict:
+    """Repeated ``--sweep PARAM=V1,V2,...`` -> `EnsembleSpec.sweep` axes;
+    PARAM must be a flat override of the registry."""
+    from repro_torch.api.registry import _OVERRIDE_PATHS
+
+    axes: dict[str, list] = {}
+    for text in texts:
+        name, sep, values = text.partition("=")
+        if not sep or not values:
+            raise ValueError(f"--sweep wants PARAM=V1,V2,..., got {text!r}")
+        if name not in _OVERRIDE_PATHS:
+            raise ValueError(f"--sweep {name}: not a flat override (one of {sorted(_OVERRIDE_PATHS)})")
+        if name in axes:
+            raise ValueError(f"--sweep {name}: axis given twice")
+        axes[name] = [_sweep_value(v) for v in values.split(",")]
+    return axes
+
+
+def run_ensemble(ensemble: EnsembleSpec, device=None) -> None:
+    """Build the ensemble's buckets, run them, print the summary and each
+    member's diagnostics. The time includes each bucket's one-time window
+    set-up (a warm-up step and the capture)."""
+    t0 = time.perf_counter()
+    ens = make_ensemble(ensemble, device=device)
+    build_s = time.perf_counter() - t0
+    dev = ens.sims[0].device
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"{ensemble.base.name}: ensemble of {ens.n_members} members in {len(ens.sims)} shape bucket(s) "
+          f"({[s.n_members for s in ens.sims]} members/bucket), built in {build_s:.2f} s, device {dev} ({name})")
+    t0 = time.perf_counter()
+    ens.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    run_s = time.perf_counter() - t0
+    member_steps = sum(int(s.host_step.sum()) for s in ens.sims)
+    setup_s = sum(s.graph_setup_seconds for s in ens.sims)
+    print(f"{member_steps} member-steps in {run_s:.3f} s: {1e3 * run_s / member_steps:.3f} ms/member-step "
+          f"({1e3 * (run_s - setup_s) / member_steps:.3f} without the {setup_s:.3f} s of window set-up); host reads "
+          f"{sum(s.host_reads for s in ens.sims)} in {sum(s.windows for s in ens.sims)} windows, captures "
+          f"{sum(s.graph_captures for s in ens.sims)}, growths {sum(s.growths['capacity'] for s in ens.sims)}")
+    for i, d in enumerate(ens.diagnostics()):
+        print(f"  member {i} ({ens.members[i].name}): step {d['step']}, field={d['field_energy']:.4e} "
+              f"kinetic={d['kinetic_energy']:.4e} total={d['total_energy']:.4e}, n_alive={d['n_alive']}")
 
 
 def build_spec(args):
@@ -178,22 +248,41 @@ def main(argv=None) -> None:
                     help="autosave directory (default: checkpoints/<scenario>)")
     ft.add_argument("--fault", default=None, metavar="KIND:STEP[:COMP[:COUNT]]",
                     help="inject a deterministic fault: nan_field:20:ez, nan_momentum:20, charge_scale:20, crash:20")
+    en = ap.add_argument_group("ensembles")
+    en.add_argument("--ensemble", type=int, default=None, metavar="N",
+                    help="run N seed-staggered replicas of the spec as one batched ensemble (with --sweep: N "
+                         "replicas a sweep point)")
+    en.add_argument("--sweep", action="append", default=None, metavar="PARAM=V1,V2,...",
+                    help="repeatable: one cartesian sweep axis over a flat override (e.g. --sweep drift=0.1,0.2 "
+                         "--sweep order=1,2); members of one compiled shape share a bucket")
     args = ap.parse_args(argv)
     if args.scenario and args.spec:
         ap.error("--scenario and --spec are mutually exclusive")
     try:
         spec = build_spec(args)
+        ensemble = None
+        if args.sweep:
+            ensemble = EnsembleSpec.sweep(spec, parse_sweeps(args.sweep), replicas=args.ensemble or 1)
+        elif args.ensemble is not None:
+            ensemble = EnsembleSpec.replicate(spec, args.ensemble)
+        if ensemble is not None:
+            ensemble.members()  # an override that does not apply fails here, in one line
     except (OSError, ValueError, TypeError, KeyError, NotImplementedError) as e:
         ap.error(str(e))
     if args.dump_spec:
         with open(args.dump_spec, "w") as f:
-            f.write(spec.to_json())
+            f.write(spec.to_json() if ensemble is None else ensemble.to_json())
         print(f"wrote {args.dump_spec}")
         return
-
     # float32 products stay float32 (cuDNN would otherwise default to TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if ensemble is not None:
+        if args.profile:
+            ap.error("--profile profiles one simulation; it does not run ensembles")
+        run_ensemble(ensemble, device=args.device)
+        return
+
     sim = make_simulation(spec, device=args.device)
     dev = sim.device
     if args.profile and dev.type != "cuda":

@@ -1,6 +1,6 @@
 """PIC substrate on PyTorch: Yee fields, Boris pusher, plasma init, the
-single-device simulation loop (windowed and host-driven). Counterpart of
-`repro.pic` (single device)."""
+single-device simulation loop (windowed and host-driven) and the batched
+ensemble engine. Counterpart of `repro.pic` (single device)."""
 
 from repro_torch.pic.grid import B_STAGGER, E_STAGGER, FieldState, GridSpec  # noqa: F401
 from repro_torch.pic.laser import LaserSpec, inject_laser  # noqa: F401
@@ -24,3 +24,4 @@ from repro_torch.pic.simulation import (  # noqa: F401
     padded_fields,
     state_from_reference,
 )
+from repro_torch.pic.ensemble import EnsembleSimulation, member_bundle, stack_trees, unstack_tree  # noqa: F401,E402

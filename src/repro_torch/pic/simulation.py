@@ -436,27 +436,52 @@ class _WindowBuffers:
     with a fault spec, in one copy: the absolute step the window starts at
     (``step0``) and the fault vector (``fault``: kind, step, component).
     ``ref_charge`` and ``ref_energy`` are the sentinel's references, taken
-    on the device at window entry."""
+    on the device at window entry.
 
-    def __init__(self, state: PICState, pstate: SortPolicyState, names: tuple[str, ...], n_diag: int):
+    With ``members=B`` the buffers are an ensemble bucket's
+    (`repro_torch.pic.ensemble`): the state's tensors carry a leading member
+    axis and are taken as they are, not copied; every counter, the latch,
+    the table and the entry vector get the same axis, and the entry vector
+    a fifth column, the member's step target (``target``). `member(i)`
+    gives member i's buffers as views ``t[i]``, on which the single-member
+    step runs unchanged; a member steps only while ``n_done < target``."""
+
+    def __init__(self, state: PICState, pstate: SortPolicyState, names: tuple[str, ...], n_diag: int,
+                 members: int | None = None):
         dev = state.particles.pos.device
         self.device = dev
-        self.fields = _clone_tree(state.fields)
-        self.particles = _clone_tree(state.particles)
-        self.layout = _clone_tree(state.layout)
-        self.slab = None if state.slab is None else _clone_tree(state.slab)
-        self.pstate = _clone_tree(pstate)
+        own = _clone_tree if members is None else (lambda tree: tree)
+        self.fields = own(state.fields)
+        self.particles = own(state.particles)
+        self.layout = own(state.layout)
+        self.slab = None if state.slab is None else own(state.slab)
+        self.pstate = own(pstate)
         self.names = names
-        self.diag = torch.zeros((len(names), n_diag), dtype=torch.float64, device=dev)
-        zeros = lambda dtype: torch.zeros((), dtype=dtype, device=dev)
+        lead = () if members is None else (members,)
+        self.diag = torch.zeros((*lead, len(names), n_diag), dtype=torch.float64, device=dev)
+        zeros = lambda dtype: torch.zeros(lead, dtype=dtype, device=dev)
         self.n_done, self.sorts, self.rebuilds = zeros(torch.int64), zeros(torch.int64), zeros(torch.int64)
         self.halted = zeros(torch.bool)
         # the sentinel's halt latch: code, invariant, measured, reference
         self.halt_code, self.halt_inv = zeros(torch.int32), zeros(torch.int32)
         self.halt_meas, self.halt_ref = zeros(torch.float32), zeros(torch.float32)
-        self.entry = torch.tensor([0, FAULT_NONE, -1, 0], dtype=torch.int64, device=dev)
-        self.step0, self.fault = self.entry[0], self.entry[1:]
+        self.entry = torch.tensor([0, FAULT_NONE, -1, 0] if members is None else [[0, FAULT_NONE, -1, 0, 0]] * members,
+                                  dtype=torch.int64, device=dev)
+        self.step0, self.fault = self.entry[..., 0], self.entry[..., 1:4]
+        self.target = None if members is None else self.entry[..., 4]
         self.ref_charge, self.ref_energy = zeros(torch.float32), zeros(torch.float32)
+
+    def member(self, i: int) -> "_WindowBuffers":
+        """Member i's buffers: every tensor of these as its view ``t[i]``."""
+        view = object.__new__(_WindowBuffers)
+        for name, value in vars(self).items():
+            if isinstance(value, torch.Tensor):
+                value = value[i]
+            elif dataclasses.is_dataclass(value):
+                value = dataclasses.replace(value, **{f.name: getattr(value, f.name)[i]
+                                                      for f in dataclasses.fields(value)})
+            setattr(view, name, value)
+        return view
 
     def state(self, step: int = 0) -> PICState:
         return PICState(fields=self.fields, particles=self.particles, layout=self.layout, step=step, slab=self.slab)
@@ -468,15 +493,22 @@ class _WindowBuffers:
         if self.slab is not None:
             _copy_tree(self.slab, state.slab)
 
-    def enter(self, step0: int, fault_vec: torch.Tensor | None) -> None:
-        """Write the window's entry vector from the host without waiting on
-        the device: on CUDA an asynchronous copy from pinned memory (the
-        caching host allocator keeps the block until the copy is done)."""
-        host = torch.tensor([step0, *(fault_vec.tolist() if fault_vec is not None else (FAULT_NONE, -1, 0))],
-                            dtype=torch.int64)
+    def _write_entry(self, rows: list) -> None:
+        """Write the entry vector from the host without waiting on the
+        device: on CUDA an asynchronous copy from pinned memory (the caching
+        host allocator keeps the block until the copy is done)."""
+        host = torch.tensor(rows, dtype=torch.int64).reshape(self.entry.shape)
         if self.device.type == "cuda":
             host = host.pin_memory()
         self.entry.copy_(host, non_blocking=True)
+
+    def enter(self, step0: int, fault_vec: torch.Tensor | None) -> None:
+        """The window's start step and fault vector, in one copy."""
+        self._write_entry([step0, *(fault_vec.tolist() if fault_vec is not None else (FAULT_NONE, -1, 0))])
+
+    def enter_targets(self, targets) -> None:
+        """An ensemble window's per-member step targets, in one copy."""
+        self._write_entry([[0, FAULT_NONE, -1, 0, int(k)] for k in targets])
 
     def reset_counters(self) -> None:
         for t in (self.n_done, self.halted, self.sorts, self.rebuilds, self.halt_code, self.halt_inv, self.halt_meas,
@@ -485,13 +517,13 @@ class _WindowBuffers:
 
     def bundle(self, k: int) -> torch.Tensor:
         """The window's counters, the sentinel's halt latch and the first k
-        diagnostics rows as one float64 vector: n_done, halted, sorts,
-        rebuilds, halt_code, halt_inv, halt_measured, halt_reference, then
-        the table."""
+        diagnostics rows as one float64 vector (a row per member): n_done,
+        halted, sorts, rebuilds, halt_code, halt_inv, halt_measured,
+        halt_reference, then the table."""
         head = torch.stack([t.to(torch.float64) for t in (
             self.n_done, self.halted, self.sorts, self.rebuilds, self.halt_code, self.halt_inv, self.halt_meas,
-            self.halt_ref)])
-        return torch.cat([head, self.diag[:, :k].reshape(-1)])
+            self.halt_ref)], dim=-1)
+        return torch.cat([head, self.diag[..., :k].reshape(*self.n_done.shape, -1)], dim=-1)
 
 
 _BUNDLE_HEAD = 8
@@ -500,7 +532,8 @@ _BUNDLE_HEAD = 8
 def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfig, *, with_energies: bool,
                  health: HealthConfig | None, with_fault: bool, decider) -> None:
     """One step of a window, in place on ``buf``; nothing once the window
-    has halted. With ``with_fault``, the armed fault first corrupts the
+    has halted (or, for an ensemble member, once it has made its
+    ``target`` steps). With ``with_fault``, the armed fault first corrupts the
     step's input where it fires. Then the step, its sort mode's decision,
     the step's diagnostics at row ``buf.n_done``, and the halt:
 
@@ -575,7 +608,82 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
                 buf.halted.logical_or_(bad)
         buf.n_done.add_(1)
 
-    decider.run_if(~buf.halted, step)
+    active = ~buf.halted if buf.target is None else ~buf.halted & (buf.n_done < buf.target)
+    decider.run_if(active, step)
+
+
+def capture_steps(bufs: list[_WindowBuffers], step) -> tuple[torch.cuda.CUDAGraph, list[dict]]:
+    """Capture the guarded step of each of ``bufs``, in order, as one CUDA
+    graph, after one warm-up step on a copy of the first that takes both
+    branches (it brings every lazily built library object, such as a BLAS
+    handle, into being before the capture; buffers of one shape need no
+    more). The kernel wrappers count launches when they run, which during a
+    capture means once per recorded launch: those counts are taken back and
+    returned per buffer, for the owner to add per replay that ran them."""
+    device = bufs[0].device
+    torch.cuda.synchronize(device)
+    scratch = _WindowBuffers(bufs[0].state(), bufs[0].pstate, bufs[0].names, bufs[0].diag.shape[-1])
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        step(scratch, decider=EveryBranch())
+    torch.cuda.current_stream(device).wait_stream(side)
+    del scratch
+    graph = torch.cuda.CUDAGraph()
+    capture = GraphCapture(graph, device)
+    launches = []
+    with capture.capturing():
+        for buf in bufs:
+            before = kernels.launch_counts()
+            step(buf, decider=capture)
+            after = kernels.launch_counts()
+            launches.append({name: after[name] - before[name] for name in after})
+    for counts in launches:
+        kernels.add_launches(counts, -1)
+    torch.cuda.synchronize(device)
+    return graph, launches
+
+
+def parse_bundle(host: np.ndarray, names: tuple[str, ...], k: int, step0: int) -> dict:
+    """A window's bundle row (`_WindowBuffers.bundle`), read on the host, as
+    the drivers' bundle dict. A halted window's last step is the halting
+    one; a halt without the sentinel's code is an overflow."""
+    n_done = int(host[0])
+    halted = bool(host[1])
+    return {
+        "n_done": n_done,
+        "n_sorts": int(host[2]),
+        "n_rebuilds": int(host[3]),
+        "halt_code": int(host[4]) or (HALT_BIN_OVERFLOW if halted else HALT_NONE),
+        "halt_step": step0 + n_done if halted else -1,
+        "halt_inv": int(host[5]),
+        "halt_measured": float(host[6]),
+        "halt_reference": float(host[7]),
+        "per_step": dict(zip(names, host[_BUNDLE_HEAD:].reshape(len(names), k))),
+    }
+
+
+def consume_window_bundle(host: dict, host_step: int, diagnostics_every: int, history: list) -> tuple[int, int, int]:
+    """The per-window accounting both drivers share: append the window's
+    diagnostics records (every ``diagnostics_every`` absolute steps after
+    ``host_step``) to ``history``; return (n_done, n_sorts, n_rebuilds)."""
+    n_done = host["n_done"]
+    if diagnostics_every:
+        per = host["per_step"]
+        for i in range(n_done):
+            step_abs = host_step + i + 1
+            if step_abs % diagnostics_every == 0:
+                fe = float(per["field_energy"][i])
+                ke = float(per["kinetic_energy"][i])
+                history.append({
+                    "step": step_abs,
+                    "field_energy": fe,
+                    "kinetic_energy": ke,
+                    "total_energy": fe + ke,
+                    "n_alive": int(per["n_alive"][i]),
+                    "n_moved": int(per["n_moved"][i]),
+                })
+    return n_done, host["n_sorts"], host["n_rebuilds"]
 
 
 UNSET = object()
@@ -813,32 +921,11 @@ class Simulation:
         return w
 
     def _capture(self, w: dict, step) -> None:
-        """Capture one guarded step of ``w``'s buffers as a CUDA graph, after
-        one warm-up step on a copy of them that takes both branches (it
-        brings every lazily built library object, such as a BLAS handle,
-        into being before the capture). The kernel wrappers count launches
-        when they run, which during a capture means once per recorded
-        launch: those counts are taken back and added per replay."""
-        buf = w["buffers"]
+        """Capture one guarded step of ``w``'s buffers as a CUDA graph
+        (`capture_steps`)."""
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        scratch = _WindowBuffers(buf.state(), buf.pstate, buf.names, buf.diag.shape[1])
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            step(scratch, decider=EveryBranch())
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        del scratch
-        graph = torch.cuda.CUDAGraph()
-        capture = GraphCapture(graph, self.device)
-        before = kernels.launch_counts()
-        with capture.capturing():
-            step(buf, decider=capture)
-        after = kernels.launch_counts()
-        w["launches"] = {name: after[name] - before[name] for name in after}
-        kernels.add_launches(w["launches"], -1)
-        w["graph"] = graph
-        torch.cuda.synchronize(self.device)
+        w["graph"], (w["launches"],) = capture_steps([w["buffers"]], step)
         self.graph_captures += 1
         self.graph_setup_seconds += time.perf_counter() - t0
 
@@ -865,26 +952,11 @@ class Simulation:
                 w["step"](buf, decider=decider)
         self.windows += 1
         # the window's one bundle read
-        host = self._read(buf.bundle(k)).numpy()
-        n_done = int(host[0])
+        host = parse_bundle(self._read(buf.bundle(k)).numpy(), buf.names, k, step0)
         if w["graph"] is not None:
-            kernels.add_launches(w["launches"], n_done)
-        self._state = buf.state(step0 + n_done)
-        table = host[_BUNDLE_HEAD:].reshape(len(buf.names), k)
-        halted = bool(host[1])
-        # a halted window's last step is the halting one; a halt without the
-        # sentinel's code is an overflow
-        return {
-            "n_done": n_done,
-            "n_sorts": int(host[2]),
-            "n_rebuilds": int(host[3]),
-            "halt_code": int(host[4]) or (HALT_BIN_OVERFLOW if halted else HALT_NONE),
-            "halt_step": step0 + n_done if halted else -1,
-            "halt_inv": int(host[5]),
-            "halt_measured": float(host[6]),
-            "halt_reference": float(host[7]),
-            "per_step": dict(zip(buf.names, table)),
-        }
+            kernels.add_launches(w["launches"], host["n_done"])
+        self._state = buf.state(step0 + host["n_done"])
+        return host
 
     # -- the supervisor's hooks (distributed.fault.run_supervised_windows) ---
 
@@ -896,24 +968,9 @@ class Simulation:
     def _consume_bundle(self, host: dict, diagnostics_every: int) -> int:
         """Commit a window that did not halt on health: its diagnostics and
         counters."""
-        n_done = host["n_done"]
-        if diagnostics_every:
-            per = host["per_step"]
-            for i in range(n_done):
-                step_abs = self._host_step + i + 1
-                if step_abs % diagnostics_every == 0:
-                    fe = float(per["field_energy"][i])
-                    ke = float(per["kinetic_energy"][i])
-                    self.history.append({
-                        "step": step_abs,
-                        "field_energy": fe,
-                        "kinetic_energy": ke,
-                        "total_energy": fe + ke,
-                        "n_alive": int(per["n_alive"][i]),
-                        "n_moved": int(per["n_moved"][i]),
-                    })
-        self.sorts += host["n_sorts"]
-        self.rebuilds += host["n_rebuilds"]
+        n_done, n_sorts, n_rebuilds = consume_window_bundle(host, self._host_step, diagnostics_every, self.history)
+        self.sorts += n_sorts
+        self.rebuilds += n_rebuilds
         self._host_step += n_done
         return n_done
 

@@ -3,7 +3,9 @@ version, and fed NaN and Inf; the windowed simulation run through every
 backend and mode; the window captured as a CUDA graph against the same
 window run eagerly; the host-driven loop against the captured window, and a
 run saved, loaded and continued against the same run uninterrupted; the
-health sentinel and a fault's rollback inside the captured window.
+health sentinel and a fault's rollback inside the captured window; an
+ensemble bucket captured as one graph against its members' solo runs, and
+the simulation service's window cache.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode). They import neither JAX nor `repro`, so they run where only the
@@ -24,7 +26,10 @@ with float atomics, in orders that change from run to run); the captured
 window against the eager one, exact (the same kernels on the same inputs);
 the host-driven loop against the captured window and a resumed run against
 an uninterrupted one, exact; the sentinel on against off, and a run that
-rolled back from an injected fault against the clean run, exact.
+rolled back from an injected fault against the clean run, exact; an
+ensemble's members against their solo runs, exact (each member's kernels
+run at its own shapes), a mild sibling re-binned at a grown capacity
+included.
 
 Where a test holds an ``auto`` run's launch counts, it holds them to the
 backends the dispatcher's autotune resolved (into a cache file of the
@@ -40,7 +45,14 @@ import dataclasses  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
-from repro_torch.api import SortPolicyConfig, load_simulation, make_simulation, scenario  # noqa: E402
+from repro_torch.api import (  # noqa: E402
+    EnsembleSpec,
+    SortPolicyConfig,
+    load_simulation,
+    make_ensemble,
+    make_simulation,
+    scenario,
+)
 from repro_torch.core import (  # noqa: E402
     CURRENT_STAGGER,
     EB_STAGGERS,
@@ -685,3 +697,139 @@ def test_kernels_tolerate_nonfinite_inputs(order, poison, cuda):
     assert torch.equal(dep.fused_bin_deposit(d2, val2, order=order).cpu(),
                        dep_ref.fused_bin_deposit_ref(d2.cpu(), val2.cpu(), order=order))
     torch.cuda.synchronize()
+
+
+# -- ensembles and the service on the card ---------------------------------------------
+
+
+def _assert_member_bit_equal(ens, i, solo, *, layout=True):
+    """Member i of a bucket against its solo run: counters, history, state
+    and policy state bit for bit (the bins too where the capacities agree)."""
+    st = ens.member_state(i)
+    assert (int(ens.sorts[i]), int(ens.rebuilds[i]), st.step) == (solo.sorts, solo.rebuilds, solo.state.step)
+    assert ens.histories[i] == solo.history
+    for part in ("fields", "particles") + (("layout", "slab") if layout else ()):
+        x, y = getattr(st, part), getattr(solo.state, part)
+        for f in dataclasses.fields(x):
+            assert torch.equal(getattr(x, f.name), getattr(y, f.name)), f"member {i} {part}.{f.name}"
+    if layout:
+        pol = ens.member_policy_state(i)
+        for f in dataclasses.fields(pol):
+            assert torch.equal(getattr(pol, f.name), getattr(solo.policy_state, f.name)), f.name
+
+
+@pytest.mark.gpu
+def test_ensemble_bucket_is_bit_equal_to_solo_runs(cuda):
+    """A 3-member bucket at 32^3 captured as one graph: each member bit-equal
+    to its own captured solo run, one capture, one host read a window, and
+    each member's kernels launched once a step."""
+    es = EnsembleSpec.replicate(scenario("uniform", **SMALL, steps=20, window=10, diagnostics_every=5), 3)
+    ens = make_ensemble(es)
+    bucket = ens.sims[0]
+    kernels.reset_launch_counts()
+    ens.run()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == _want_launches(bucket, 3 * 20 + bucket.graph_captures)  # one warm-up step a capture
+    assert bucket.graph_captures == 1 and bucket.windows == 2 and bucket.host_reads == 2
+    assert int(bucket.sorts.sum()) >= 3, "no member sorted: the test is vacuous"
+    for i, m in enumerate(es.members()):
+        solo = make_simulation(m)
+        solo.run()
+        _assert_member_bit_equal(bucket, i, solo)
+
+
+@pytest.mark.gpu
+def test_ensemble_per_member_targets_on_the_card(cuda):
+    """Per-member targets [5, 12, 9] in windows of 6: two windows, one
+    capture, each member stopped at its own target, bit-equal to a solo run
+    of its length."""
+    es = EnsembleSpec.replicate(scenario("uniform", **SMALL, window=6), 3)
+    ens = make_ensemble(es)
+    bucket = ens.sims[0]
+    bucket.run([5, 12, 9])
+    assert list(bucket.host_step) == [5, 12, 9] and [bucket.member_state(i).step for i in range(3)] == [5, 12, 9]
+    assert bucket.graph_captures == 1 and bucket.windows == bucket.host_reads == 2
+    for i, (m, n) in enumerate(zip(es.members(), (5, 12, 9))):
+        solo = make_simulation(m)
+        solo.run(n)
+        _assert_member_bit_equal(bucket, i, solo)
+
+
+def _lattice_members(specs, device, shape=(6, 6, 6)):
+    """Lattice plasmas, 2^3 a cell, with numpy thermal momenta: one (fields,
+    particles) pair per (seed, u_thermal)."""
+    from repro_torch.pic import FieldState, ParticleState
+
+    out = []
+    off = (np.arange(2) + 0.5) / 2
+    cells = np.stack(np.meshgrid(*(np.arange(n) for n in shape), indexing="ij"), -1).reshape(-1, 1, 3)
+    lattice = np.stack(np.meshgrid(off, off, off, indexing="ij"), -1).reshape(1, -1, 3)
+    pos = (cells + lattice).reshape(-1, 3).astype(np.float32)
+    for seed, u_thermal in specs:
+        u = (u_thermal * np.random.default_rng(seed).normal(size=pos.shape)).astype(np.float32)
+        parts = ParticleState(pos=torch.from_numpy(pos).to(device), u=torch.from_numpy(u).to(device),
+                              w=torch.full((len(pos),), 1 / 8, device=device),
+                              alive=torch.ones(len(pos), dtype=torch.bool, device=device))
+        out.append((FieldState.zeros(shape, device=device), parts))
+    return out
+
+
+GROWTH_MEMBERS = [(0, 0.5), (1, 0.02), (2, 0.02)]
+INTERVAL_ONLY = SortPolicyConfig(sort_interval=10, sort_trigger_perf_enable=False, sort_trigger_empty_ratio=2.0,
+                                 sort_trigger_full_ratio=2.0, sort_trigger_rebuild_count=10**6)
+
+
+@pytest.mark.gpu
+def test_ensemble_growth_isolation_on_the_card(cuda):
+    """One hot member overflows its bins at capacity 12 and the bucket grows:
+    the hot member bit-equal to its solo run (which grows the same way), the
+    mild siblings, re-binned at the grown capacity, bit-equal to solo runs
+    that never grow; captures: one, and one more a growth."""
+    from repro_torch.pic import EnsembleSimulation, GridSpec, PICConfig, Simulation
+
+    cfg = PICConfig(grid=GridSpec(shape=(6, 6, 6)), dt=0.2, order=1, capacity=12)
+    ens = EnsembleSimulation(_lattice_members(GROWTH_MEMBERS, cuda), cfg, INTERVAL_ONLY)
+    ens.run(28, window=7)
+    assert ens.growths["capacity"] >= 1 and ens.graph_captures == 1 + ens.growths["capacity"]
+    assert ens.host_reads == ens.windows + 2 * ens.growths["capacity"]
+    for i, member in enumerate(_lattice_members(GROWTH_MEMBERS, cuda)):
+        solo = Simulation(*member, cfg, policy=INTERVAL_ONLY)
+        solo.run(28, window=7)
+        if i == 0:
+            assert solo.config.capacity == ens.config.capacity
+        else:
+            assert solo.config.capacity == 12, "a mild sibling overflowed on its own: the claim is vacuous"
+        _assert_member_bit_equal(ens, i, solo, layout=i == 0)
+
+
+@pytest.mark.gpu
+def test_service_repeat_batch_captures_nothing(cuda):
+    """Three jobs of one signature make one batch and one capture; three more
+    replay the cached window: no capture, no window built."""
+    import asyncio
+
+    from repro_torch.launch.sim_serve import SimService
+
+    spec = scenario("uniform", grid=(8, 8, 8), ppc=2, order=3, steps=8, window=4)
+
+    async def body():
+        svc = SimService(max_batch=3, batch_wait=0.25)
+        await svc.start()
+        rounds = []
+        for _ in range(2):
+            ids = [await svc.submit(spec.to_json()) for _ in range(3)]
+            finals = {}
+            for job_id in ids:
+                async for event in svc.results(job_id):
+                    finals[job_id] = event
+            rounds.append(([finals[j] for j in ids], svc.graph_captures, svc.window_builds))
+        await svc.close()
+        return svc, rounds
+
+    svc, rounds = asyncio.run(body())
+    (first, caps1, builds1), (second, caps2, builds2) = rounds
+    assert [f["event"] for f in first + second] == ["done"] * 6 and {f["batch_size"] for f in first + second} == {3}
+    assert (caps1, builds1, caps2, builds2) == (1, 1, 1, 1)
+    assert svc.cache.stats()["hits"] == 1 and svc.cache.stats()["misses"] == 1
+    assert [f["history"] for f in second] == [f["history"] for f in first]
+    assert [f["diagnostics"] for f in second] == [f["diagnostics"] for f in first]
