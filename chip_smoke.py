@@ -101,7 +101,21 @@ Phases, in order; any failure exits non-zero:
    none (a cache hit) and the same results, a job at order 2 its own
    capture; jobs per second and ms per member-step; with `cache_size=1` a
    second signature evicts the first, whose window and graph must then be
-   gone (weak references), with the memory reserved before and after.
+   gone (weak references), with the memory reserved before and after;
+18. the gradient subsystem: (a) the default `pic_fit` problem, lwfa at its
+   registry size (8x8x64, ppc 2^3, cap 48), 60 differentiated steps,
+   `laser.a0`, `injected_charge`, ``remat="step"``, 8 AdamW iterations:
+   every gradient finite, the loss lower at the end, one set-up, every
+   dispatcher resolution ``torch`` and no kernel launched; ms per
+   iteration, value-and-grad over forward, peak memory; the diff window's
+   forward at the initial params bit-equal to the captured windowed run on
+   backend ``torch`` from the same state; (b) `injected_charge` at the
+   fitted params on the production path (``auto``: #3 and the deposition
+   kernel the autotune picks) within 1e-3 relative of the diff window's;
+   (c) lwfa at 32x32x256 (2.1 M particles), value-and-grad for
+   ``remat="step"`` at 10, 20 and 40 steps, ``"chunk"`` (10) at 20 and
+   ``"none"`` at 10: peak memory and ms each, the ``"step"`` peak flat
+   within 10%, ``"none"`` above it, the policies' grads within 1e-5.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -109,7 +123,10 @@ Where a phase holds an ``auto`` run's launch counts, it holds them to the
 backends the dispatcher resolved, prints them, and fails if an op of the
 path resolved to no kernel; from phase 4 on, every phase fails if a
 dispatcher resolution ran a plain PyTorch version on the card, except
-phase 6's forced ``torch`` and phase 14's ladder, which must.
+phase 6's forced ``torch``, phase 14's ladder, which must, and phase 18's
+differentiated paths, which run the ``torch`` route as the reference
+differentiates only its ``xla`` route (the kernels have no backward): the
+count is reset after phase 18 as after phase 14.
 
 The packed deposition's plain version is evaluated on the CPU wherever the
 kernel is held to it bit for bit: PyTorch on CUDA divides by a Python
@@ -710,6 +727,152 @@ def service_phase(torch, dev) -> None:
         fail("service: evicting a signature did not free its window and graph")
 
 
+def grad_phase(torch, kernels, dispatch, dev) -> None:
+    """Phase 18: the gradient subsystem on the card (see the module
+    docstring). Its paths run the plain ``torch`` route on the card, as the
+    reference differentiates only its ``xla`` route: the counter of plain
+    resolutions is not held to 0 here, and the caller resets it after."""
+    import dataclasses
+
+    from repro_torch.api import GradSpec, fit_simulation, make_objective, make_simulation, pic_config, scenario
+    from repro_torch.core import policy_init
+    from repro_torch.grad import get_objective
+    from repro_torch.grad.params import StateBuilder
+    from repro_torch.pic.simulation import Simulation, run_window_diff
+
+    log = []
+    resolve = dispatch.resolve
+
+    def logged(*args, **kw):
+        name = resolve(*args, **kw)
+        log.append((args[0], name))
+        return name
+
+    def value_and_grad(loss_fn, params):
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        loss, aux = loss_fn(leaves)
+        loss.backward()
+        return float(loss.detach()), float(aux["objective"].detach()), {k: v.grad.clone() for k, v in leaves.items()}
+
+    def timed(fn):
+        """fn's result, its ms, and its peak memory: the most allocated
+        during the call above what was allocated at its start (what earlier
+        phases still hold is not the call's)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t1), (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # (a) the default pic_fit problem: lwfa at its registry size, 60 steps
+    spec = scenario("lwfa")
+    gspec = GradSpec()
+    dispatch.resolve = logged
+    kernels.reset_launch_counts()
+    try:
+        fit, fit_ms, fit_gb = timed(lambda: fit_simulation(spec, gspec, iters=8))
+        loss_fn, params0 = make_objective(spec, gspec)
+        with torch.no_grad():
+            loss_fn(params0)  # a first forward, untimed
+            _, fwd_ms, _ = timed(lambda: loss_fn(params0))
+        _, vg_ms, vg_gb = timed(lambda: value_and_grad(loss_fn, params0))
+    finally:
+        dispatch.resolve = resolve
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    losses = [r["loss"] for r in fit.history]
+    finite = all(math.isfinite(g) for r in fit.history for g in r["grads"].values())
+    say(f"fit, lwfa {spec.grid.shape}, {spec.run.steps} differentiated steps, remat {gspec.remat}, 8 AdamW "
+        f"iterations: {fit_ms / 8:.1f} ms/iteration, peak memory {fit_gb:.3f} GB; loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g}, laser.a0 {fit.history[0]['params']['laser.a0']:.5g} -> {fit.params['laser.a0']:.5g}, "
+        f"grads finite {finite}, compiles {fit.compiles}")
+    say(f"  forward {fwd_ms:.1f} ms, value-and-grad {vg_ms:.1f} ms ({vg_ms / fwd_ms:.2f}x the forward, peak "
+        f"{vg_gb:.3f} GB); resolutions {sorted(set(log))}, kernel launches {launched}")
+    if not finite or not losses[-1] < losses[0] or fit.compiles != 1:
+        fail("the fit: a non-finite gradient, no decrease of the loss, or more than one set-up")
+    if not log or any(name != "torch" for _, name in log) or launched:
+        fail(f"the differentiated path resolved {sorted(set(log))} and launched {launched}: expected torch only")
+
+    # the diff window's forward at the initial params, bit for bit against
+    # the captured windowed run on the torch route from the same state
+    config = dataclasses.replace(pic_config(spec), backend="torch")
+    builder = StateBuilder(spec, config)
+    with torch.no_grad():
+        state = builder.build(params0)
+        diff_state, diff_pstate, bundle = run_window_diff(state, policy_init(dev), builder.config,
+                                                          spec.run.steps, policy=spec.sort.policy)
+    sim = Simulation(state.fields, state.particles, builder.config, policy=spec.sort.policy)
+    sim.run(spec.run.steps, window=spec.run.window)
+    same = (sim.graph_captures == 1 and (sim.sorts, sim.rebuilds) == (bundle["n_sorts"], bundle["n_rebuilds"])
+            and all(torch.equal(getattr(getattr(sim.state, part), f.name), getattr(getattr(diff_state, part), f.name))
+                    for part in ("fields", "particles", "layout", "slab")
+                    for f in dataclasses.fields(getattr(sim.state, part)))
+            and all(torch.equal(getattr(sim.policy_state, f.name), getattr(diff_pstate, f.name))
+                    for f in dataclasses.fields(diff_pstate)))
+    say(f"  the diff window's forward ({bundle['n_sorts']} policy sorts, {bundle['n_rebuilds']} rebuilds) bit-equal "
+        f"to the captured torch-route run ({sim.graph_captures} capture, {sim.sorts} sorts): {same}")
+    if not same:
+        fail("the differentiable window's forward is not bit-equal to the captured windowed run")
+    del sim, builder, state, diff_state
+
+    # (b) the objective on the production path: the fitted laser, backend auto
+    objective = get_objective(gspec.objective)
+    with torch.no_grad():
+        _, aux = loss_fn({k: torch.tensor(v, device=dev) for k, v in fit.params.items()})
+    diff_value = float(aux["objective"])
+    fitted = dataclasses.replace(spec, laser=dataclasses.replace(spec.laser, a0=fit.params["laser.a0"]))
+    prod = make_simulation(fitted)
+    chosen = resolved(dispatch, prod)
+    kernels.reset_launch_counts()
+    prod.run(spec.run.steps)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    prod_value = float(objective.fn(prod.state, None, prod.config, **gspec.okwargs))
+    rel = abs(prod_value - diff_value) / abs(diff_value)
+    say(f"  injected_charge at the fitted a0: diff window {diff_value:.7g}, the production path {prod_value:.7g} "
+        f"(resolved {chosen}, launches {counts}): relative difference {rel:.3e}")
+    if rel > 1e-3 or fused_counts(counts) != path_launches(chosen, spec.run.steps + prod.graph_captures):
+        fail("the kernels' objective is more than 1e-3 from the differentiated one, or they did not run")
+    del prod, loss_fn
+    torch.cuda.empty_cache()
+
+    # (c) remat at 32x32x256; the laser is far from the plasma for the
+    # first 40 steps, so d/d a0 is ~0 there: the density carries the
+    # comparison of the policies' grads
+    big = scenario("lwfa", grid=(32, 32, 256))
+    learn = ("laser.a0", "density")
+    rows = {}
+    dispatch.resolve = logged
+    log.clear()
+    try:
+        for remat, n in (("step", 10), ("step", 20), ("step", 40), ("chunk", 20), ("none", 10)):
+            loss_fn, p0 = make_objective(big, GradSpec(learn=learn, remat=remat, remat_chunk=10, steps=n))
+            (loss, _, grads), ms, gb = timed(lambda: value_and_grad(loss_fn, p0))
+            rows[(remat, n)] = dict(ms=ms, gb=gb, grad=torch.stack([grads[k] for k in learn]).double())
+            say(f"remat {remat!r}{' (chunk 10)' if remat == 'chunk' else ''}, lwfa {big.grid.shape}, {n} steps: "
+                f"value-and-grad {ms:.0f} ms ({ms / n:.1f} ms/step), peak memory {gb:.3f} GB, grads "
+                + ", ".join(f"{k} {float(grads[k]):.9g}" for k in learn))
+            del loss_fn, grads
+            torch.cuda.empty_cache()
+    finally:
+        dispatch.resolve = resolve
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(rows[a]["grad"] - rows[b]["grad"])
+                     / torch.linalg.vector_norm(rows[b]["grad"]))
+
+    step_gb = [rows[("step", n)]["gb"] for n in (10, 20, 40)]
+    spread = max(step_gb) / min(step_gb) - 1
+    rel10, rel20 = rel(("none", 10), ("step", 10)), rel(("chunk", 20), ("step", 20))
+    say(f"  'step' peak from 10 to 40 steps: +{100 * spread:.1f}%; 'none' at 10 steps {rows[('none', 10)]['gb']:.3f} "
+        f"against 'step' {step_gb[0]:.3f} GB; grads (relative, 2-norm): none/step at 10 steps {rel10:.2e}, "
+        f"chunk/step at 20 {rel20:.2e}")
+    if spread > 0.10 or not rows[("none", 10)]["gb"] > step_gb[0] or rel10 > 1e-5 or rel20 > 1e-5:
+        fail("remat: 'step' memory not flat within 10%, 'none' not above it, or the policies' grads disagree")
+    if any(name != "torch" for _, name in log):
+        fail(f"remat: the differentiated path resolved {sorted(set(log))}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1148,8 +1311,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 4. the main path at full size -----------------------------------------
-    # from here on no path but phase 6's forced torch and phase 14's ladder
-    # may resolve to a plain version (the comparisons above call them)
+    # from here on no path but phase 6's forced torch, phase 14's ladder
+    # and phase 18's differentiated paths may resolve to a plain version
+    # (the comparisons above call them)
     dispatch.counters["plain_on_card"] = 0
     sim = make_simulation(scenario("uniform", **MAIN))
     chosen = resolved(dispatch, sim)
@@ -1599,6 +1763,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     no_plain(dispatch, "the service")
     say(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # -- 18. the gradient subsystem on the card ------------------------------------------
+    t0 = time.perf_counter()
+    grad_phase(torch, kernels, dispatch, dev)
+    # its differentiated paths run the plain route on the card, as the
+    # reference's run its xla route; the kernels' path in (b) ran none
+    dispatch.counters["plain_on_card"] = 0
+    torch.cuda.empty_cache()
+    say(f"phase 18: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

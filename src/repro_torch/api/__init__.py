@@ -3,7 +3,8 @@
 the single-device driver facade, its checkpoints and its fault tolerance
 (the health sentinel's `HealthConfig`, the chaos harness's `FaultSpec`,
 `SimCheckpointer` autosave, `SimulationHealthError`), and ensembles
-(`EnsembleSpec`, `make_ensemble`, `spec_signature`, member checkpoints).
+(`EnsembleSpec`, `make_ensemble`, `spec_signature`, member checkpoints)
+and gradients (`GradSpec`, `make_objective`, `fit_simulation`).
 
     from repro_torch.api import scenario, make_simulation, load_simulation
     sim = make_simulation(scenario("uniform", grid=(64, 64, 64), order=3))
@@ -11,6 +12,8 @@ the single-device driver facade, its checkpoints and its fault tolerance
     print(sim.diagnostics())
     sim.save("ckpt")              # loads in repro_torch and in repro
     sim = load_simulation("ckpt")
+
+    fit = fit_simulation(scenario("lwfa"), GradSpec(learn=("laser.a0",)), iters=8)
 
     ens = make_ensemble(EnsembleSpec.sweep(scenario("two_stream"), {"drift": [0.1, 0.2]}, replicas=4))
     ens.run()                     # one bucket of 8 members, one host read a window
@@ -24,8 +27,10 @@ from repro_torch.api.facade import (  # noqa: F401
     clean_stale_tmp,
     build_fields,
     build_particles,
+    fit_simulation,
     load_simulation,
     make_ensemble,
+    make_objective,
     make_simulation,
     pic_config,
     resolve_device,
@@ -60,6 +65,7 @@ from repro_torch.api.spec import (  # noqa: F401
     SortSpec,
 )
 from repro_torch.core.health import SimulationHealthError  # noqa: F401
+from repro_torch.grad.spec import GradSpec  # noqa: F401
 from repro_torch.core.resort_policy import SortPolicyConfig  # noqa: F401
 from repro_torch.pic.grid import GridSpec  # noqa: F401
 from repro_torch.pic.laser import LaserSpec  # noqa: F401

@@ -3,7 +3,8 @@ checkpoints (`save_simulation`, `restore_simulation`, `load_simulation`,
 the autosave's `SimCheckpointer` and `clean_stale_tmp`, from
 `repro_torch.checkpoint`); ensembles: `spec_signature`, `bucket_specs`,
 `make_ensemble` and its member-indexed `EnsembleRun`, and the member
-checkpoints `save_ensemble_member` / `restore_ensemble_member`.
+checkpoints `save_ensemble_member` / `restore_ensemble_member`; the
+gradient subsystem's `make_objective` and `fit_simulation`.
 Counterpart of the single-device part of `repro.api.facade`.
 
 Entry points run on ``cuda`` unless the caller names another device; with
@@ -41,7 +42,9 @@ __all__ = [
     "build_fields",
     "build_particles",
     "clean_stale_tmp",
+    "fit_simulation",
     "load_simulation",
+    "make_objective",
     "make_ensemble",
     "make_simulation",
     "pic_config",
@@ -137,6 +140,29 @@ def make_simulation(spec: SimSpec, *, fields: FieldState | None = None,
     fields = build_fields(spec, device=device) if fields is None else FieldState(*(f.to(device) for f in fields.all()))
     particles = build_particles(spec, device=device) if particles is None else particles.to(device)
     return Simulation(fields, particles, pic_config(spec), policy=spec.sort.policy, spec=spec)
+
+
+# -- the gradient subsystem (repro_torch.grad) -----------------------------------
+
+
+def make_objective(spec: SimSpec, grad=None, **kw):
+    """Differentiable problem from a spec: ``(loss_fn, params0)`` with
+    ``loss_fn(params) -> (loss, aux)`` differentiable through the whole
+    window — see `repro_torch.grad.fit.make_objective` (``grad`` is a
+    `GradSpec`; keywords like ``objective=``, ``learn=``, ``steps=``,
+    ``device=`` override it)."""
+    from repro_torch.grad.fit import make_objective as _make_objective
+
+    return _make_objective(spec, grad, **kw)
+
+
+def fit_simulation(spec: SimSpec, grad=None, **kw):
+    """AdamW-optimize the learned SimSpec leaves against a registered
+    objective — see `repro_torch.grad.fit.fit_simulation`. Returns a
+    `FitResult` (final params, per-iteration trajectory, set-up count)."""
+    from repro_torch.grad.fit import fit_simulation as _fit_simulation
+
+    return _fit_simulation(spec, grad, **kw)
 
 
 # -- ensembles: signatures, buckets, the member-indexed facade ------------------

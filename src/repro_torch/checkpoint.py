@@ -20,6 +20,14 @@ packages in mid-flight: a checkpoint that one writes, the other loads.
 supervisor's autosave (`Simulation.run(autosave_every=N)`), and
 `clean_stale_tmp` sweeps what killed writers left behind.
 
+`CheckpointManager` is the reference's step-stamped store of a tree of
+tensors (nested dicts), which `grad.fit` keeps its {params, optimizer}
+state in: ``step_XXXXXXXXX/arrays.npz`` and ``manifest.json`` (leaf names,
+shapes, dtypes, CRC32s), a ``LATEST`` file, atomic renames and keep-k
+garbage collection. Leaf names are the strings JAX's key paths give for
+the same dicts (``['opt']/['mu']/['laser.a0']``), so a fit saved by either
+package resumes in the other.
+
 An ensemble member (`repro_torch.pic.ensemble.EnsembleSimulation`) is saved
 as a standard single-driver checkpoint (`save_ensemble_member`, loadable by
 `load_simulation` in either package) and restored into an ensemble slot
@@ -45,7 +53,7 @@ from repro_torch.pic.grid import FieldState
 from repro_torch.pic.plasma import ParticleState
 from repro_torch.pic.simulation import state_from_reference
 
-__all__ = ["SimCheckpointer", "clean_stale_tmp", "load_simulation", "restore_ensemble_member", "restore_simulation",
+__all__ = ["CheckpointManager", "SimCheckpointer", "clean_stale_tmp", "load_simulation", "restore_ensemble_member", "restore_simulation",
            "save_ensemble_member", "save_simulation", "tree_member_set", "tree_member_slice"]
 
 _ARRAYS = "arrays.npz"
@@ -413,3 +421,107 @@ class SimCheckpointer:
         for old in self._steps()[: -self.keep]:
             shutil.rmtree(self._path(old), ignore_errors=True)
         return True
+
+
+# -- the step-stamped tree store (the fit's checkpoints) ----------------------------
+
+
+def _flatten_with_names(tree, path=()) -> list[tuple[str, torch.Tensor]]:
+    """(name, leaf) pairs of nested dicts, keys sorted, each named as JAX's
+    ``tree_flatten_with_path`` names it (``['opt']/['mu']/['laser.a0']``)."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in _flatten_with_names(tree[k], path + (k,))]
+    return [("/".join(f"[{k!r}]" for k in path), tree)]
+
+
+def _unflatten_like(tree, leaves):
+    """``tree``'s nested dicts with its leaves replaced, in flattening
+    order, by those of the iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _unflatten_like(tree[k], leaves) for k in sorted(tree)}
+    return next(leaves)
+
+
+class CheckpointManager:
+    """Step-stamped checkpoints of a tree of tensors under ``directory``,
+    the newest ``keep`` kept. Counterpart of
+    `repro.checkpoint.CheckpointManager` (single process; leaves are written
+    from the host, blocking: the reference's background-thread save has no
+    caller here)."""
+
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        clean_stale_tmp(directory)
+
+    def save(self, step: int, tree) -> None:
+        """Write ``tree`` as ``step_<step:09d>`` (atomically), point
+        ``LATEST`` at it, and drop all but the newest ``keep``."""
+        pairs = _flatten_with_names(tree)
+        names = [n for n, _ in pairs]
+        host_leaves = [_host(x) for _, x in pairs]
+        final = os.path.join(self.directory, f"step_{step:09d}")
+        tmp = final + f".tmp-{os.getpid()}"
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "arrays.npz"), **{f"a{i}": a for i, a in enumerate(host_leaves)})
+        manifest = {
+            "step": step,
+            "names": names,
+            "shapes": [list(a.shape) for a in host_leaves],
+            "dtypes": [str(a.dtype) for a in host_leaves],
+            "checksums": [_crc(a) for a in host_leaves],
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        with open(os.path.join(self.directory, "LATEST.tmp"), "w") as f:
+            f.write(str(step))
+        os.replace(os.path.join(self.directory, "LATEST.tmp"), os.path.join(self.directory, "LATEST"))
+        self._gc()
+
+    def _gc(self) -> None:
+        for s in self.all_steps()[: -self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:09d}"), ignore_errors=True)
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(name[5:]) for name in os.listdir(self.directory)
+                      if name.startswith("step_") and ".tmp" not in name and ".old" not in name)
+
+    def latest_step(self) -> int | None:
+        path = os.path.join(self.directory, "LATEST")
+        if not os.path.exists(path):
+            steps = self.all_steps()
+            return steps[-1] if steps else None
+        with open(path) as f:
+            return int(f.read().strip())
+
+    def restore(self, tree_like, step: int | None = None):
+        """Restore into the structure of ``tree_like`` (tensors whose dtype
+        and device the restored leaves take). Returns ``(tree, step)``."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found under {self.directory}")
+        d = os.path.join(self.directory, f"step_{step:09d}")
+        try:
+            with open(os.path.join(d, "manifest.json")) as f:
+                manifest = json.load(f)
+            with np.load(os.path.join(d, "arrays.npz")) as data:
+                arrays = [np.asarray(data[f"a{i}"]) for i in range(len(manifest["names"]))]
+        except Exception as exc:
+            raise ValueError(f"corrupt or truncated checkpoint at {d}: {exc}") from exc
+        if "checksums" in manifest:
+            bad = [n for n, a, c in zip(manifest["names"], arrays, manifest["checksums"]) if _crc(a) != c]
+            if bad or len(manifest["checksums"]) != len(arrays):
+                raise ValueError(f"corrupt checkpoint at {d}: checksum mismatch for {bad}")
+        pairs = _flatten_with_names(tree_like)
+        if [n for n, _ in pairs] != manifest["names"]:
+            raise ValueError(f"checkpoint/model structure mismatch at {d}")
+        out = []
+        for arr, (name, like) in zip(arrays, pairs):
+            if tuple(arr.shape) != tuple(like.shape):
+                raise ValueError(f"checkpoint leaf {name} has shape {arr.shape}, expected {tuple(like.shape)}")
+            out.append(torch.from_numpy(arr).to(dtype=like.dtype, device=like.device))
+        return _unflatten_like(tree_like, iter(out)), step

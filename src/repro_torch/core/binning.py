@@ -9,6 +9,9 @@ storage:
 
 Cells are flattened z-fastest, ``(x * ny + y) * nz + z``. Every rank is
 taken with a stable argsort, so slots come out exactly as the reference's.
+The slot-table gather and the global sort's permutation go through
+`repro_torch.grad.permutations`, as the reference's go through
+`repro.grad.permutations`.
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+# the differentiable index movement (re-exported: `binning.slot_gather` and
+# `binning.permute_tree` are the names the core layer calls)
+from repro_torch.grad.permutations import permute_tree, slot_gather  # noqa: F401
 
 INVALID = -1
 
@@ -54,22 +61,6 @@ class BinSlab:
 
     d: torch.Tensor
     valid: torch.Tensor
-
-
-def slot_gather(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-    """Stage per-particle ``values`` (N, ...) onto a slot table
-    (n_cells, capacity), returning (n_cells, capacity, ...): the clamp-gather
-    ``values[max(slots, 0)]`` (gap slots alias particle 0). Forward-only
-    counterpart of `repro.grad.permutations.slot_gather`."""
-    return values[torch.clamp_min(slots, 0).long()]
-
-
-def permute_tree(tree, perm: torch.Tensor):
-    """Apply one permutation to every tensor field of a dataclass (axis 0).
-    Forward-only counterpart of `repro.grad.permutations.permute_tree`."""
-    return dataclasses.replace(
-        tree, **{f.name: getattr(tree, f.name)[perm] for f in dataclasses.fields(tree)}
-    )
 
 
 def cell_coords(n_cells: int, grid_shape, device=None) -> torch.Tensor:

@@ -34,11 +34,14 @@ All routes return guard-padded grids.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import shape_functions as sf
 from repro_torch.core.binning import BinnedLayout, BinSlab, bin_slab_values, build_bin_slab, cell_coords, slot_gather
 from repro_torch.core.rhocell import reduce_rhocell, reduce_rhocell_separable, reduce_rhocell_tail
+from repro_torch.grad.remat import recomputed
 
 Stagger = tuple[bool, bool, bool]
 
@@ -232,7 +235,9 @@ def fused_deposit_grids(d, val, *, grid_shape, order: int, guard: int | None = N
 
         packed = fused_bin_deposit(d, val, order=order)
         return _fused_grids_packed(packed, grid_shape=grid_shape, order=order, guard=g)
-    return _fused_grids_torch(d, val, grid_shape=grid_shape, order=order, guard=g)
+    # under autograd, the backward keeps d and val and recomputes the
+    # per-tap weights and operands (`grad.remat.recomputed`)
+    return recomputed(functools.partial(_fused_grids_torch, grid_shape=grid_shape, order=order, guard=g), d, val)
 
 
 def deposit_current_matrix_fused(pos, vel, qw, layout: BinnedLayout, *, grid_shape, order: int,

@@ -23,11 +23,14 @@ Field grids travel as one stacked ``(6, nx+2g, ny+2g, nz+2g)`` tensor in
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import shape_functions as sf
 from repro_torch.core.binning import BinnedLayout, BinSlab, cell_coords, slot_gather
 from repro_torch.core.deposition import NO_STAGGER, Stagger, _per_dim_weights, _taps_and_bases
+from repro_torch.grad.remat import recomputed
 
 EB_STAGGERS: tuple[Stagger, ...] = (
     (True, False, False), (False, True, False), (False, False, True),
@@ -168,7 +171,10 @@ def fused_gather_bins(d, padded, *, grid_shape, order: int, guard: int | None = 
         from repro_torch.kernels.gather.ops import fused_bin_gather
 
         return fused_bin_gather(d, padded, grid_shape=grid_shape, order=order, guard=g)
-    return _fused_gather_torch_bins(d, padded, grid_shape=grid_shape, order=order, guard=g)
+    # under autograd, the backward keeps d and the grids and recomputes the
+    # per-tap weights and products (`grad.remat.recomputed`)
+    return recomputed(functools.partial(_fused_gather_torch_bins, grid_shape=grid_shape, order=order, guard=g),
+                      d, padded)
 
 
 def gather_fields_fused(slab: BinSlab, padded, layout: BinnedLayout, *, grid_shape, order: int,

@@ -21,16 +21,28 @@ class LaserSpec:
     z_center: float = 24.0     # initial pulse center, grid units
 
 
-def inject_laser(fields: FieldState, grid: GridSpec, spec: LaserSpec) -> FieldState:
-    """Add the pulse the spec describes to ``fields`` (float32 arithmetic,
-    as the reference's)."""
+def inject_laser(fields: FieldState, grid: GridSpec, spec: LaserSpec, *, a0=None, waist=None,
+                 duration=None) -> FieldState:
+    """Add the pulse the spec describes to ``fields``, in the fields' dtype.
+
+    ``a0`` / ``waist`` / ``duration`` override the spec's values and may be
+    0-d tensors that require grad: the gradient subsystem (`grad.params`)
+    differentiates the pulse through them. With no override the result is
+    the spec's pulse as before."""
     nx, ny, nz = grid.shape
-    dev = fields.ex.device
-    f32 = torch.float32
-    x = torch.arange(nx, dtype=f32, device=dev)[:, None, None] + 0.5  # Ex is x-staggered
-    y = torch.arange(ny, dtype=f32, device=dev)[None, :, None]
-    z = torch.arange(nz, dtype=f32, device=dev)[None, None, :]
-    a0, waist, duration = (torch.tensor(v, dtype=f32, device=dev) for v in (spec.a0, spec.waist, spec.duration))
+    dev, dtype = fields.ex.device, fields.ex.dtype
+
+    def scalar(value):
+        if isinstance(value, torch.Tensor):
+            return value.to(dtype=dtype, device=dev)
+        return torch.tensor(value, dtype=dtype, device=dev)
+
+    x = torch.arange(nx, dtype=dtype, device=dev)[:, None, None] + 0.5  # Ex is x-staggered
+    y = torch.arange(ny, dtype=dtype, device=dev)[None, :, None]
+    z = torch.arange(nz, dtype=dtype, device=dev)[None, None, :]
+    a0 = scalar(spec.a0 if a0 is None else a0)
+    waist = scalar(spec.waist if waist is None else waist)
+    duration = scalar(spec.duration if duration is None else duration)
 
     xr, yr = x - nx / 2, y - ny / 2
     r2 = xr * xr + yr * yr

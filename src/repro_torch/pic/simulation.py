@@ -72,6 +72,7 @@ import time
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch.profiler import record_function
 
 from repro_torch.core.binning import (
@@ -103,6 +104,7 @@ from repro_torch.core.health import (
     nonfinite_count,
 )
 from repro_torch.core.resort_policy import (
+    REASON_OVERFLOW,
     ResortPolicy,
     SortPolicyConfig,
     SortPolicyState,
@@ -122,6 +124,7 @@ from repro_torch.distributed.fault import (
     inject_weights,
     run_supervised_windows,
 )
+from repro_torch.grad.remat import move_tree
 from repro_torch.kernels.conditional import EveryBranch, GraphCapture, HostDecider
 from repro_torch.pic.grid import FieldState, GridSpec
 from repro_torch.pic.maxwell import maxwell_step
@@ -407,6 +410,170 @@ def state_from_reference(arrays: dict[str, np.ndarray], config: PICConfig, devic
         proxy_ema=t("policy.proxy_ema", torch.float32),
     )
     return state, pstate
+
+
+# -- the differentiable window ----------------------------------------------------
+
+REMAT_POLICIES = ("step", "chunk", "none")
+
+
+def _diff_steps(state: PICState, pstate: SortPolicyState, k: int, config: PICConfig, policy: SortPolicyConfig,
+                with_energies: bool):
+    """Up to k steps of the differentiable window, stopping after a step
+    that halts: each `_pic_step`, then the sort mode's decision and the
+    halt, as `_window_step` decides them, but functionally (no input is
+    written) and with the decision read on the host. Returns the state,
+    the policy state and a record a step: the host's decisions (``do_pol``,
+    ``mandatory``, ``sorted``, ``halt``) and the step's diagnostics as 0-d
+    tensors."""
+    n_slots = config.grid.n_cells * config.capacity
+    records = []
+    for _ in range(k):
+        state, stats = _pic_step(state, config)
+        dev = state.particles.pos.device
+        do_pol = mandatory = halt = sorted_ = False
+        reason = torch.zeros((), dtype=torch.int32, device=dev)
+        if config.sort_mode == "incremental":
+            if config.needs_bins:
+                mandatory_t = stats.n_overflow > 0
+            else:
+                mandatory_t = torch.zeros((), dtype=torch.bool, device=dev)
+            do_pol_t, reason_pol, recorded = policy_update(pstate, policy, n_moved=stats.n_moved,
+                                                           n_alive=stats.n_alive, n_empty=stats.n_empty,
+                                                           n_slots=n_slots)
+            do_pol_t = do_pol_t & ~mandatory_t
+            do_pol, mandatory = torch.stack([do_pol_t, mandatory_t]).tolist()  # the step's host read
+            sorted_ = do_pol or mandatory
+            if sorted_:
+                state, overflow = global_sort_device(state, config)
+                pstate = policy_reset(dev)
+                halt = bool(overflow > 0)
+            else:
+                pstate = recorded
+            reason = torch.where(mandatory_t, REASON_OVERFLOW, reason_pol).to(torch.int32)
+        elif config.sort_mode == "global":
+            state, overflow = global_sort_device(state, config)
+            sorted_, halt = True, bool(overflow > 0)
+        elif config.sort_mode == "rebuild":
+            halt = bool(stats.n_overflow > 0)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        field_e, kinetic = _energies(state, config) if with_energies else (zero, zero)
+        records.append({"do_pol": do_pol, "mandatory": mandatory, "sorted": sorted_, "halt": halt,
+                        "reason": reason, "n_moved": stats.n_moved.to(torch.int32),
+                        "n_alive": stats.n_alive.to(torch.int32), "field_energy": field_e,
+                        "kinetic_energy": kinetic})
+        if halt:
+            break
+    return state, pstate, records
+
+
+def _diff_unit(kept: PICState, pstate: SortPolicyState, k: int, steps, device, config: PICConfig):
+    """A checkpointed unit of the differentiable window: the kept input
+    state back on ``device`` with its slab rebuilt, then ``steps(state,
+    pstate, k)``."""
+    fields, particles, layout = (move_tree(t, device) for t in (kept.fields, kept.particles, kept.layout))
+    state = PICState(fields=fields, particles=particles, layout=layout, step=kept.step,
+                     slab=_state_slab(particles, layout, config))
+    return steps(state, move_tree(pstate, device), k)
+
+
+def run_window_diff(state: PICState, policy_state: SortPolicyState, config: PICConfig, n_steps: int, *,
+                    policy: SortPolicyConfig | None = None, with_energies: bool = False, n_target=None,
+                    remat: str = "step", remat_chunk: int = 0):
+    """The differentiable window: the windowed run's physics, step for step,
+    as a function autograd can differentiate. Counterpart of
+    `repro.pic.simulation.run_window_diff`.
+
+    The forward is bit-identical to a windowed `Simulation` run on backend
+    ``torch`` from the same state, under every remat policy. What differs
+    is autograd plumbing:
+
+    * nothing is written in place: the step is `_pic_step` and the sort
+      mode's decision as functions (the driver's `_WindowBuffers` path
+      overwrites its buffers, which autograd cannot follow);
+    * the sort decision and the halt are read on the host once a step (a
+      second read on a step that sorts), where the captured window tests
+      them in IF nodes: autograd records no branch on the device;
+    * the health sentinel, fault injection and CUDA graph capture are left
+      out;
+    * ``remat`` sets the recomputation of the reverse pass, through
+      `torch.utils.checkpoint` (non-reentrant): ``"step"`` (default)
+      checkpoints each step, so the backward keeps only each step's input
+      state and recomputes one step at a time; ``"chunk"`` checkpoints
+      ``remat_chunk``-step sub-windows, which must divide ``n_steps``;
+      ``"none"`` stores every step's residuals. A kept input state has no
+      slab (it is rebuilt from positions and bins, with the same bits) and
+      waits on the host when the window runs on a card, so the device's
+      peak memory does not grow with the window. A recompute takes the
+      branch the first pass took: the decisions are integer functions of
+      inputs that no step writes.
+
+    Steps from ``n_target`` on, and after a halting step, are not run; the
+    reference masks them, which gives the same values and gradients.
+
+    Needs ``config.backend == "torch"`` (the reference's ``"xla"``): the CUDA
+    kernel backends, like the reference's Pallas ones, have no VJP, and
+    ``"auto"`` could resolve to one.
+
+    Returns ``(state, policy_state, bundle)`` with the reference's bundle
+    keys; its counters and halt fields are host values (Python ints,
+    floats and bools), ``per_step`` holds (n_steps,) device tensors, zero on
+    the steps not run."""
+    if config.backend != "torch":
+        raise ValueError(f"run_window_diff needs config.backend='torch' (the reference's 'xla'; got "
+                         f"{config.backend!r}): the CUDA kernel backends have no VJP")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r} (none | step | chunk)")
+    if remat == "chunk" and (remat_chunk <= 0 or n_steps % remat_chunk):
+        raise ValueError(f"remat='chunk' needs remat_chunk > 0 dividing n_steps, got remat_chunk={remat_chunk}, "
+                         f"n_steps={n_steps}")
+    n_target = n_steps if n_target is None else max(0, min(int(n_target), n_steps))
+    steps = functools.partial(_diff_steps, config=config, policy=policy or SortPolicyConfig(),
+                              with_energies=with_energies)
+    unit = {"step": 1, "chunk": remat_chunk, "none": n_steps}[remat]
+    dev = state.particles.pos.device
+    pstate, records = policy_state, []
+    step0 = state.step
+    while len(records) < n_target and not (records and records[-1]["halt"]):
+        k = min(unit, n_target - len(records))
+        if remat == "none":
+            state, pstate, recs = steps(state, pstate, k)
+        else:
+            # the checkpoint keeps its inputs until the backward
+            keep = torch.device("cpu")
+            kept = PICState(fields=move_tree(state.fields, keep), particles=move_tree(state.particles, keep),
+                            layout=move_tree(state.layout, keep), step=state.step)
+            state, pstate, recs = torch.utils.checkpoint.checkpoint(
+                _diff_unit, kept, move_tree(pstate, keep), k, steps, dev, config, use_reentrant=False,
+                preserve_rng_state=False)
+        records += recs
+    n_done = len(records)
+    halted = bool(records) and records[-1]["halt"]
+
+    def column(values, dtype):
+        out = torch.zeros(n_steps, dtype=dtype, device=dev)
+        if values:
+            tensors = isinstance(values[0], torch.Tensor)
+            out[:n_done] = torch.stack(values).to(dtype) if tensors else torch.tensor(values, dtype=dtype)
+        return out
+
+    per_step = {"active": column([True] * n_done, torch.bool)}
+    for key, dtype in (("sorted", torch.bool), ("reason", torch.int32), ("n_moved", torch.int32),
+                       ("n_alive", torch.int32), ("field_energy", torch.float32), ("kinetic_energy", torch.float32)):
+        per_step[key] = column([r[key] for r in records], dtype)
+    bundle = {
+        "n_done": n_done,
+        "n_sorts": sum(r["do_pol"] for r in records),
+        "n_rebuilds": sum(r["mandatory"] for r in records),
+        "overflow_pending": halted,
+        "halt_code": HALT_BIN_OVERFLOW if halted else HALT_NONE,
+        "halt_step": step0 + n_done if halted else -1,
+        "halt_inv": 0,
+        "halt_measured": 0.0,
+        "halt_reference": 0.0,
+        "per_step": per_step,
+    }
+    return state, pstate, bundle
 
 
 # -- the window in place --------------------------------------------------------
