@@ -115,7 +115,32 @@ Phases, in order; any failure exits non-zero:
    (c) lwfa at 32x32x256 (2.1 M particles), value-and-grad for
    ``remat="step"`` at 10, 20 and 40 steps, ``"chunk"`` (10) at 20 and
    ``"none"`` at 10: peak memory and ms each, the ``"step"`` peak flat
-   within 10%, ``"none"`` above it, the policies' grads within 1e-5.
+   within 10%, ``"none"`` above it, the policies' grads within 1e-5;
+19. the distributed driver, its shards held on the card: (a) the main cell
+   on a 4x2 mesh (`make_simulation(scenario("uniform", **MAIN,
+   mesh="4x2"))`, local blocks 32x64x128, ``mig_cap`` sized from the face
+   flux): one capture, 1.00 host read a window, no growth, each resolved
+   kernel launched once a shard a step (8 a step); ms/step, peak memory,
+   the migrated particles and payload bytes a step; ``n_alive`` exact and
+   the energies and every history row within 1e-4 of the total, the field
+   energy within 1e-4 of itself and every field component within 1e-4 of
+   its largest magnitude against a single-device run that repeats phase
+   4's bit for bit; the resolved kernels held against their plain versions
+   on every shard's inputs at the local shape; the serialized and the
+   overlapped exchanges timed there, bit-equal; (b) lwfa at its registry
+   size on 2x2, within 1e-3 of its single-device run (energies and
+   fields), its shards' kernels held as in (a); (c) at 32^3, order 3,
+   4x2, the overlapped halo exchange bit-equal to the serialized one, the
+   shards' kernels held as in (a), and (d) compressed migration conserving
+   charge exactly, losing no particle, 16 of 28 bytes a row; (e) both
+   growth hatches from ``mig_cap`` 1 and capacity 8 on a hot plasma, and
+   the forced-imbalance rebalance re-splitting the mesh with no particle
+   or charge lost and energies within 1e-3 of the fixed split; (f) the
+   sentinel on,
+   ``nan_field`` rolled back, ``recv_drop`` replayed (one discarded step,
+   ``n_local`` doubled) and a crash restored from its autosave, each
+   bit-equal to the clean run, and a checkpoint at step 10 loaded and
+   resumed bit-equal.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -164,6 +189,7 @@ RTOL = ATOL = 1e-5           # kernel vs plain version: float32, different summa
 NO_SPILLS = {"fused_deposit_kernel": 3, "fused_deposit_reduced_kernel": 3, "fused_gather_kernel": 3,
              "bin_gather_kernel": 8, "bin_outer_product_kernel": 10}
 MAIN = dict(grid=(128, 128, 128), ppc=2, order=3, steps=32, window=16)
+DIST_MESH = (4, 2)           # phase 19: the main cell's shards, all on the one card
 UNFUSED = dict(MAIN, steps=8, window=8, deposition="matrix_unfused", gather="matrix_unfused")
 SCATTER = dict(MAIN, steps=4, window=4, deposition="scatter", gather="scatter")
 # segment_accumulate at two language-model shapes (src/repro/configs):
@@ -873,6 +899,355 @@ def grad_phase(torch, kernels, dispatch, dev) -> None:
         fail(f"remat: the differentiated path resolved {sorted(set(log))}")
 
 
+def dist_state_equal(torch, a, b, n0=None) -> bool:
+    """Two distributed drivers' states bit for bit: fields, the first ``n0``
+    particle rows of each shard (a grown run appends dead padding, which
+    must stay dead), and their energy histories."""
+    sa, sb = a.shard_state, b.shard_state
+    n0 = n0 or sa.pos.shape[2]
+    if not torch.equal(sa.fields, sb.fields):
+        return False
+    if not all(torch.equal(getattr(sa, k)[:, :, :n0], getattr(sb, k)[:, :, :n0]) for k in ("pos", "u", "w", "alive")):
+        return False
+    if bool(sa.alive[:, :, n0:].any()) or bool(sb.alive[:, :, n0:].any()):
+        return False
+    return a.history == b.history
+
+
+def energy_drift(single: dict, dist: dict) -> float:
+    """Largest |single - dist| over the three energies, relative to the
+    single run's total (tests/dist_sim_check.py's `_assert_energy_parity`)."""
+    scale = abs(single["total_energy"]) + 1e-12
+    return max(abs(single[k] - dist[k]) / scale for k in ("field_energy", "kinetic_energy", "total_energy"))
+
+
+def field_drift(got, want) -> float:
+    """Largest max |got - want| / max |want| over the six components (phase
+    4's convention for fields that two paths sum in different orders)."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(got, want))
+
+
+def shard_kernels(torch, sim, chosen: dict[str, str]) -> str:
+    """The resolved deposition kernel and #3 held against their plain
+    versions on every shard of a distributed driver, on the inputs its shard
+    body gives them at the local shape: the slab and q·w·v values staged
+    from the shard's state as the step stages them, the carried slab the
+    next gather reads, and the shard's block of the halo-extended fields.
+    Fails on any excess (`max_err`). Its launches are not the path's: the
+    caller reads the path's counts first."""
+    from repro_torch.core import bin_slab_staging
+    from repro_torch.core.binning import BinnedLayout
+    from repro_torch.kernels.deposition import ops as dep
+    from repro_torch.kernels.deposition import ref as dep_ref
+    from repro_torch.kernels.gather import ops as gat
+    from repro_torch.kernels.gather import ref as gat_ref
+    from repro_torch.pic import lorentz_gamma
+    from repro_torch.pic.distributed import _extend_all, in_domain
+
+    cfg, st = sim.config, sim.shard_state
+    shape, g, order = cfg.local_grid.shape, cfg.guard, cfg.order
+    padded = _extend_all(st.fields.permute(1, 2, 0, 3, 4, 5), g, cfg).contiguous()
+    v = st.u / lorentz_gamma(st.u)[..., None]
+    qw = cfg.charge * st.w * (st.alive & in_domain(st.pos, shape)).to(st.w.dtype)
+    reduced = chosen["deposit_fused"] == "cuda_reduced"
+    dep_err = gat_err = 0.0
+    sx, sy = st.pos.shape[:2]
+    for a in range(sx):
+        for b in range(sy):
+            layout = BinnedLayout(slots=st.slots[a, b], particle_slot=st.pslot[a, b])
+            slab, val = bin_slab_staging(st.pos[a, b], v[a, b], qw[a, b], layout, grid_shape=shape)
+            if reduced:
+                got = dep.fused_bin_deposit_reduced(slab.d, val, order=order, grid_shape=shape, guard=g)
+                want = dep_ref.fused_bin_deposit_reduced_ref(slab.d, val, order=order, grid_shape=shape, guard=g)
+            else:
+                got = dep.fused_bin_deposit(slab.d, val, order=order)
+                want = dep_ref.fused_bin_deposit_ref(slab.d, val, order=order)
+            dep_err = max(dep_err, max_err(torch, got, want))
+            d = st.slab_d[a, b]
+            gat_err = max(gat_err, max_err(torch, gat.fused_bin_gather(d, padded[a, b], grid_shape=shape, order=order,
+                                                                       guard=g),
+                                           gat_ref.fused_gather_ref(d, padded[a, b], grid_shape=shape, order=order,
+                                                                    guard=g)))
+    dep_name = "fused_bin_deposit_reduced" if reduced else "fused_bin_deposit"
+    return (f"{dep_name} and fused_bin_gather against their plain versions on each of the {sx * sy} shards at "
+            f"{tuple(shape)}: max |kernel - plain| {dep_err:.2e} and {gat_err:.2e} (tolerance {ATOL} + {RTOL}*|plain|)")
+
+
+def exchange_times(torch, sim, gen) -> str:
+    """The serialized and the overlapped halo exchange (``comm.overlap_halo``)
+    timed on a distributed driver's shards, as its step runs them: the
+    guard-wide extension of the six components (``pic.halo``), the fold of
+    a guard-padded current (``pic.fold``) and Maxwell's nine one-cell
+    extensions. Fails unless both give the same bits."""
+    import dataclasses
+
+    from repro_torch.pic.distributed import _extend_all, _reduce_all
+
+    cfg = sim.config
+    g = cfg.guard
+    fields = sim.shard_state.fields
+    sx, sy = fields.shape[1:3]
+    j = torch.randn((sx, sy, 3, *(n + 2 * g for n in cfg.local_grid.shape)), generator=gen, device=fields.device)
+    out, parts = {}, {}
+    for label, overlap in (("serialized", False), ("overlapped", True)):
+        c = dataclasses.replace(cfg, comm=dataclasses.replace(cfg.comm, overlap_halo=overlap))
+        jobs = {
+            "halo": lambda c=c: _extend_all(fields.permute(1, 2, 0, 3, 4, 5), g, c).contiguous(),
+            "fold": lambda c=c: _reduce_all(j, g, c),
+            "maxwell": lambda c=c: [_extend_all(fields[k % 6], 1, c) for k in range(9)],
+        }
+        parts[label] = {name: fn() for name, fn in jobs.items()}
+        out[label] = {name: time_ms(torch, fn, 20) for name, fn in jobs.items()}
+    a, b = parts["serialized"], parts["overlapped"]
+    same = (torch.equal(a["halo"], b["halo"]) and torch.equal(a["fold"], b["fold"])
+            and all(torch.equal(x, y) for x, y in zip(a["maxwell"], b["maxwell"])))
+    if not same:
+        fail(f"the overlapped exchange is not bit-equal to the serialized one at {tuple(cfg.local_grid.shape)}")
+    return ("exchanges a step on the card, serialized against overlapped, bit-equal: "
+            + ", ".join(f"{name} {out['serialized'][name]:.3f} / {out['overlapped'][name]:.3f} ms"
+                        for name in ("halo", "fold", "maxwell")))
+
+
+def dist_phase(torch, np, kernels, dispatch, dev, main_final=None) -> None:
+    """Phase 19: the distributed driver on the card (see the module
+    docstring). ``main_final``: phase 4's final state, which this phase's
+    single-device run must repeat bit for bit."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.api import build_particles, load_simulation, make_simulation, scenario
+    from repro_torch.pic import DistSimulation
+
+    def fused(counts):
+        return {k: v for k, v in counts.items() if v and k in FUSED}
+
+    def dist_resolved(sim):
+        c = sim.config
+        return dispatch.prewarm(dispatch.ops_for_modes(c.deposition, c.gather), device=sim.device, order=c.order,
+                                grid_shape=c.local_grid.shape, capacity=c.capacity, dtype=sim.shard_state.pos.dtype,
+                                requested=c.backend)
+
+    # (a) the main cell on a 4x2 mesh: 8 shards of 32x64x128 on the card
+    t0 = time.perf_counter()
+    sx, sy = DIST_MESH
+    nx_loc, ny_loc = MAIN["grid"][0] // sx, MAIN["grid"][1] // sy
+    probe = scenario("uniform", **MAIN)
+    # the migration buffer from the face flux: a face's cells, ppc particles
+    # a cell, a step moving at most 4 (u_thermal + seed amplitude) dt of a cell
+    flux = probe.plasma.ppc * max(nx_loc, ny_loc) * MAIN["grid"][2] * min(
+        1.0, 4 * (probe.plasma.u_thermal + probe.plasma.perturb.amplitude) * probe.dt)
+    mig_cap = 1 << math.ceil(math.log2(max(flux, 256)))
+    kernels.reset_launch_counts()
+    dispatch.counters["plain_on_card"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sim = make_simulation(scenario("uniform", **MAIN, mesh=f"{sx}x{sy}", mig_cap=mig_cap,
+                                   diagnostics_every=MAIN["window"]))
+    if not isinstance(sim, DistSimulation):
+        fail("make_simulation of a meshed spec did not build the distributed driver")
+    chosen = dist_resolved(sim)
+    n0 = sim.diagnostics()["n_alive"]
+    setup_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sim.run(MAIN["window"])  # the first window: the capture and its warm-up step
+    torch.cuda.synchronize()
+    say(f"dist main cell {MAIN['grid']}, mesh {sx}x{sy} (local {sim.config.local_grid.shape}), order {MAIN['order']}: "
+        f"{n0} particles, n_local {sim.n_local}, mig_cap {mig_cap}, set-up {setup_s:.2f} s, first window "
+        f"{time.perf_counter() - t1:.2f} s; growths before the timed window {sim.growths}; resolved {chosen}")
+    reads0, windows0 = sim.host_reads, sim.windows
+    t2 = time.perf_counter()
+    sim.run(MAIN["steps"] - MAIN["window"])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    steps = MAIN["steps"]
+    timed = steps - MAIN["window"]
+    ms_step = 1e3 * (t3 - t2) / timed
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = fused(kernels.launch_counts())
+    reads_w = (sim.host_reads - reads0) / max(sim.windows - windows0, 1)
+    want = {KERNEL_OF[kv]: sx * sy * (steps + sim.graph_captures) for kv in chosen.items() if kv in KERNEL_OF}
+    ddist = sim.diagnostics()
+    say(f"  {ms_step:.2f} ms/step ({timed} steps after the first window), {n0 * timed / (t3 - t2):.4e} "
+        f"particle-steps/s, peak {peak_gb:.2f} GB, captures {sim.graph_captures}, host reads {reads_w:.2f} a window, "
+        f"growths {sim.growths}, sorts {sim.sorts}, rebuilds {sim.rebuilds}")
+    say(f"  comm_stats {sim.comm_stats}: {sim.comm_stats['n_migrated'] / steps:.1f} migrated particles and "
+        f"{sim.comm_stats['mig_payload_bytes'] / steps:.0f} payload bytes a step; launches {counts} "
+        f"(want {want}: {sx * sy} a step, one a shard, and the capture's warm-up step)")
+    if sim.graph_captures != 1 or reads_w != 1.0 or any(sim.growths.values()):
+        fail(f"dist main cell: {sim.graph_captures} captures, {reads_w} reads a window, growths {sim.growths}")
+    if len(chosen) != 2 or any(kv not in KERNEL_OF for kv in chosen.items()) or counts != want:
+        fail(f"dist main cell did not launch the resolved kernels once a shard a step: {counts}, want {want}")
+    no_plain(dispatch, "dist main cell")
+    say(f"  {shard_kernels(torch, sim, chosen)}")
+    say(f"  {exchange_times(torch, sim, torch.Generator(device=dev).manual_seed(19))}")
+    dist_history = list(sim.history)
+    dist_fields = sim.fields_global().all()
+    del sim
+    torch.cuda.empty_cache()
+    single = make_simulation(scenario("uniform", **MAIN, diagnostics_every=MAIN["window"]))
+    single.run()
+    dsingle = single.diagnostics()
+    repeat = main_final is None or same_state(torch, host_copy(single), main_final)
+    drift = energy_drift(dsingle, ddist)
+    rows = [abs(a["total_energy"] - b["total_energy"]) / abs(a["total_energy"])
+            for a, b in zip(single.history, dist_history)]
+    fdrift = field_drift(dist_fields, single.state.fields.all())
+    fe_rel = abs(ddist["field_energy"] - dsingle["field_energy"]) / abs(dsingle["field_energy"])
+    say(f"  against the single-device run (bit-equal to phase 4's: {repeat}): n_alive {ddist['n_alive']} / "
+        f"{dsingle['n_alive']}, energies field {ddist['field_energy']:.7e} / {dsingle['field_energy']:.7e}, kinetic "
+        f"{ddist['kinetic_energy']:.7e} / {dsingle['kinetic_energy']:.7e}, largest drift {drift:.2e} of the total, "
+        f"history rows {[f'{r:.2e}' for r in rows]} (tolerance 1e-4); field energy {fe_rel:.2e} of itself, fields "
+        f"max |diff| / max |field| {fdrift:.2e} (tolerance 1e-4 each)")
+    if (not repeat or ddist["n_alive"] != dsingle["n_alive"] or drift > 1e-4 or len(rows) != len(single.history)
+            or not rows or max(rows) > 1e-4 or fe_rel > 1e-4 or fdrift > 1e-4):
+        fail("dist main cell disagrees with the single-device run")
+    del single, dist_fields
+    torch.cuda.empty_cache()
+    say(f"phase 19a: {time.perf_counter() - t0:.1f} s")
+
+    # (b) lwfa at its registry size on 2x2
+    t0 = time.perf_counter()
+    runs = {}
+    for mesh in (None, "2x2"):
+        kernels.reset_launch_counts()
+        s = make_simulation(scenario("lwfa", steps=20, diagnostics_every=10, mesh=mesh))
+        s.run()
+        runs[mesh] = (s.diagnostics(), list(s.history), fused(kernels.launch_counts()), s)
+    (d1, h1, _, s1), (d2, h2, c2, s2) = runs[None], runs["2x2"]
+    drift = max([energy_drift(d1, d2)] + [abs(a["total_energy"] - b["total_energy"]) / abs(a["total_energy"])
+                                           for a, b in zip(h1, h2)])
+    fdrift = field_drift(s2.fields_global().all(), s1.state.fields.all())
+    fe_rel = abs(d1["field_energy"] - d2["field_energy"]) / abs(d1["field_energy"])
+    say(f"dist lwfa {s2.global_grid.shape} on 2x2: n_alive {d2['n_alive']} / {d1['n_alive']}, largest energy drift "
+        f"{drift:.2e} of the total, field energy {fe_rel:.2e} of itself, fields max |diff| / max |field| "
+        f"{fdrift:.2e} (tolerance 1e-3 each), growths {s2.growths}, comm_stats {s2.comm_stats}, launches {c2}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if d1["n_alive"] != d2["n_alive"] or max(drift, fe_rel, fdrift) > 1e-3 or len(h1) != len(h2) or not c2:
+        fail("dist lwfa disagrees with the single-device run")
+    say(f"  {shard_kernels(torch, s2, dist_resolved(s2))}")
+    del runs, s1, s2
+    no_plain(dispatch, "dist lwfa")
+
+    # (c) overlapped halos bit-equal to the serialized exchange; (d)
+    # compressed migration: charge exact, nothing lost, 16 of 28 bytes a row
+    t0 = time.perf_counter()
+    small = dict(grid=(32, 32, 32), ppc=2, order=3, steps=16, window=8, diagnostics_every=4, mesh="4x2")
+    variants = {}
+    for label, kw in (("serialized", {}), ("overlapped", dict(overlap_halo=True)),
+                      ("compressed", dict(compress_migration=True))):
+        s = make_simulation(scenario("uniform", u_thermal=0.1, **small, **kw))
+        s.run()
+        variants[label] = s
+    base, over, comp = variants["serialized"], variants["overlapped"], variants["compressed"]
+    bit = dist_state_equal(torch, base, over) and all(
+        torch.equal(base.state[k], over.state[k]) for k in ("slots", "pslot", "slab_d"))
+    charge = lambda s: float(torch.sum(s.state["w"].double() * s.state["alive"]))
+    ratio = comp.comm_stats["mig_payload_bytes"] / base.comm_stats["mig_payload_bytes"]
+    dc, db = comp.diagnostics(), base.diagnostics()
+    say(f"dist 32^3 order 3 on 4x2: overlapped halos bit-equal to serialized: {bit}; compressed migration: charge "
+        f"{charge(comp):.9e} / {charge(base):.9e}, n_alive {dc['n_alive']} / {db['n_alive']}, migrated "
+        f"{comp.comm_stats['n_migrated']}, payload {ratio * 28:.1f} of 28 bytes a row, energy drift "
+        f"{energy_drift(db, dc):.2e}; {time.perf_counter() - t0:.1f} s")
+    if not bit:
+        fail("the overlapped exchange is not bit-equal to the serialized one")
+    say(f"  {shard_kernels(torch, base, dist_resolved(base))}")
+    if (charge(comp) != charge(base) or dc["n_alive"] != db["n_alive"] or abs(ratio - 16 / 28) > 1e-12
+            or not comp.comm_stats["n_migrated"]):
+        fail("compressed migration lost charge or particles, or did not compress")
+    del variants, base, over, comp
+    no_plain(dispatch, "dist comm options")
+
+    # (e) both growth hatches, then the forced-imbalance rebalance
+    t0 = time.perf_counter()
+    hot = dict(grid=(32, 32, 32), ppc=2, order=1, capacity=8, u_thermal=0.4, steps=20, window=10,
+               diagnostics_every=10)
+    grown = make_simulation(scenario("uniform", **hot, mesh="4x2", mig_cap=1))
+    grown.run()
+    ref1 = make_simulation(scenario("uniform", **hot))
+    ref1.run()
+    dg, dr = grown.diagnostics(), ref1.diagnostics()
+    say(f"dist growth, hot 32^3 on 4x2 from mig_cap 1 and capacity 8: growths {grown.growths}, halts {grown.halts}, "
+        f"captures {grown.graph_captures}, n_alive {dg['n_alive']} / {dr['n_alive']}, energy drift "
+        f"{energy_drift(dr, dg):.2e} (tolerance 2e-2)")
+    if (not grown.growths["mig_cap"] or not grown.growths["capacity"] or dg["n_alive"] != dr["n_alive"]
+            or energy_drift(dr, dg) > 2e-2):
+        fail("the growth hatches did not fire, or the grown run lost particles or drifted")
+    del grown, ref1
+    imb = dict(grid=(16, 8, 16), ppc=2, order=1, capacity=48, u_thermal=0.05, steps=20, window=10, mesh="4x2",
+               mig_cap=512, diagnostics_every=10)
+    parts = build_particles(scenario("uniform", **imb), device=dev)
+    # the plasma of the first x-shard only: 6 of 8 shards empty
+    parts = dataclasses.replace(parts, alive=parts.alive & (parts.pos[:, 0] < imb["grid"][0] // 4))
+    n_start, q_start = int(parts.alive.sum()), float(torch.sum(parts.w.double() * parts.alive))
+    pieces = {}
+    for label, kw in (("fixed", {}), ("rebalanced", dict(rebalance_enable=True, imbalance_ratio=2.0))):
+        s = make_simulation(scenario("uniform", **imb, **kw), particles=parts)
+        s.run()
+        pieces[label] = s
+    fixed, reb = pieces["fixed"], pieces["rebalanced"]
+    dfx, drb = fixed.diagnostics(), reb.diagnostics()
+    q = float(torch.sum(reb.state["w"].double() * reb.state["alive"]))
+    say(f"dist rebalance, (16, 8, 16) with every particle in the first x-shard of 4x2: re-splits "
+        f"{reb.growths['rebalance']} to {reb.mesh_shape}, max imbalance {reb.comm_stats['max_imbalance']:.2f}, "
+        f"n_alive {drb['n_alive']} / {n_start}, charge {q:.9e} / {q_start:.9e}, energy drift against the fixed "
+        f"split {energy_drift(dfx, drb):.2e} (tolerance 1e-3); {time.perf_counter() - t0:.1f} s")
+    if (not reb.growths["rebalance"] or reb.mesh_shape == (4, 2) or drb["n_alive"] != n_start or q != q_start
+            or energy_drift(dfx, drb) > 1e-3):
+        fail("the rebalance did not re-split, lost particles or charge, or drifted")
+    del pieces, fixed, reb
+    no_plain(dispatch, "dist growths and rebalance")
+
+    # (f) chaos and checkpoints at 32^3, order 3, 4x2
+    t0 = time.perf_counter()
+    chaos = dict(grid=(32, 32, 32), ppc=2, order=3, steps=24, window=8, diagnostics_every=4, mesh="4x2")
+    clean = make_simulation(scenario("uniform", **chaos))
+    n0 = clean.n_local
+    clean.run()
+    results = {}
+    auto = ROOT / "build" / "chip_smoke_dist_autosave"
+    ckpt = ROOT / "build" / "chip_smoke_dist_checkpoint"
+    try:
+        for label, kw in (("sentinel", {}), ("nan_field", dict(fault={"kind": "nan_field", "step": 11,
+                                                                       "component": "ez"})),
+                          ("recv_drop", dict(fault={"kind": "recv_drop", "step": 9})),
+                          ("crash", dict(fault={"kind": "crash", "step": 13}))):
+            s = make_simulation(scenario("uniform", **chaos, health={"enable": True}, **kw))
+            if label == "crash":
+                shutil.rmtree(auto, ignore_errors=True)
+                s.run(autosave_every=8, autosave_path=str(auto))
+            else:
+                s.run()
+            results[label] = (dist_state_equal(torch, clean, s, n0), dict(s.halts), s.retries, s.restarts,
+                              s.discarded_steps, dict(s.growths), s.n_local)
+            del s
+        first = make_simulation(scenario("uniform", **chaos))
+        first.run(10)
+        first.save(str(ckpt))
+        resumed = load_simulation(str(ckpt))
+        resumed.run(14)
+        results["checkpoint"] = (dist_state_equal(torch, clean, resumed) and resumed.sorts == clean.sorts,
+                                 {}, 0, 0, 0, dict(resumed.growths), resumed.n_local)
+        del first, resumed
+    finally:
+        shutil.rmtree(auto, ignore_errors=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for label, (ok, halts, retries, restarts, discarded, growths, n_local) in results.items():
+        say(f"dist chaos {label}: bit-equal to the clean run {ok}, halts {halts}, retries {retries}, restarts "
+            f"{restarts}, discarded steps {discarded}, growths {growths}, n_local {n_local}")
+    want = {"sentinel": ({}, 0, 0, 0), "nan_field": ({"nonfinite": 1}, 1, 0, 0),
+            "recv_drop": ({"mig_recv_dropped": 1}, 0, 0, 1), "crash": ({}, 0, 1, 0), "checkpoint": ({}, 0, 0, 0)}
+    for label, (halts, retries, restarts, discarded) in want.items():
+        ok, got_halts, got_retries, got_restarts, got_discarded, growths, n_local = results[label]
+        if not ok or (got_halts, got_retries, got_restarts, got_discarded) != (halts, retries, restarts, discarded):
+            fail(f"dist chaos {label}: not bit-equal to the clean run, or counters {results[label]}")
+    if results["recv_drop"][5]["n_local"] != 1 or results["recv_drop"][6] != 2 * n0:
+        fail(f"dist chaos recv_drop: n_local did not double once: {results['recv_drop']}")
+    del clean
+    torch.cuda.empty_cache()
+    no_plain(dispatch, "dist chaos and checkpoints")
+    say(f"phase 19f: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1335,7 +1710,7 @@ def main() -> None:
         fail("step count, particle count or total charge not conserved")
     for name, n in want.items():
         results[name]["launches"] = n
-    main_final = host_copy(sim)  # phase 16 holds the ensemble's first member to it
+    main_final = host_copy(sim)  # phases 16 and 19 hold the ensemble's first member and a repeat run to it
     del sim
     torch.cuda.empty_cache()
 
@@ -1752,7 +2127,6 @@ def main() -> None:
     # -- 16. ensembles on the card ----------------------------------------------------
     t0 = time.perf_counter()
     ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, dep, gat)
-    del main_final
     torch.cuda.empty_cache()
     no_plain(dispatch, "ensembles")
     say(f"phase 16: {time.perf_counter() - t0:.1f} s")
@@ -1772,6 +2146,12 @@ def main() -> None:
     dispatch.counters["plain_on_card"] = 0
     torch.cuda.empty_cache()
     say(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19. the distributed driver on the card ----------------------------------------------
+    t0 = time.perf_counter()
+    dist_phase(torch, np, kernels, dispatch, dev, main_final)
+    del main_final
+    say(f"phase 19: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,7 @@
 """Public API of the port: the declarative spec (JSON shared with
 `repro.api`), the scenario registry (uniform, lwfa, two_stream, weibel),
-the single-device driver facade, its checkpoints and its fault tolerance
+the driver facade (single-device, or a shard mesh on one device), its
+checkpoints and its fault tolerance
 (the health sentinel's `HealthConfig`, the chaos harness's `FaultSpec`,
 `SimCheckpointer` autosave, `SimulationHealthError`), and ensembles
 (`EnsembleSpec`, `make_ensemble`, `spec_signature`, member checkpoints)
@@ -26,6 +27,7 @@ from repro_torch.api.facade import (  # noqa: F401
     bucket_specs,
     clean_stale_tmp,
     build_fields,
+    dist_config,
     build_particles,
     fit_simulation,
     load_simulation,

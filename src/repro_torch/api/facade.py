@@ -1,11 +1,12 @@
-"""The driver facade: spec -> initial conditions -> `Simulation`, and the
+"""The driver facade: spec -> initial conditions -> `Simulation`, or
+`DistSimulation` when the spec names a mesh (`dist_config`), and the
 checkpoints (`save_simulation`, `restore_simulation`, `load_simulation`,
 the autosave's `SimCheckpointer` and `clean_stale_tmp`, from
 `repro_torch.checkpoint`); ensembles: `spec_signature`, `bucket_specs`,
 `make_ensemble` and its member-indexed `EnsembleRun`, and the member
 checkpoints `save_ensemble_member` / `restore_ensemble_member`; the
 gradient subsystem's `make_objective` and `fit_simulation`.
-Counterpart of the single-device part of `repro.api.facade`.
+Counterpart of `repro.api.facade`.
 
 Entry points run on ``cuda`` unless the caller names another device; with
 no CUDA device and no device named they raise, never falling back to the
@@ -31,7 +32,7 @@ from repro_torch.checkpoint import (
     save_simulation,
 )
 from repro_torch.kernels import dispatch
-from repro_torch.pic.grid import FieldState
+from repro_torch.pic.grid import FieldState, GridSpec
 from repro_torch.pic.laser import inject_laser
 from repro_torch.pic.plasma import ParticleState, apply_counter_drift, perturb_velocity, profiled_plasma, uniform_plasma
 
@@ -42,6 +43,7 @@ __all__ = [
     "build_fields",
     "build_particles",
     "clean_stale_tmp",
+    "dist_config",
     "fit_simulation",
     "load_simulation",
     "make_objective",
@@ -129,17 +131,48 @@ def pic_config(spec: SimSpec):
     )
 
 
+def dist_config(spec: SimSpec):
+    """Derive the distributed `DistConfig` (the per-shard local grid) from
+    a spec with a mesh; `SimSpec.__post_init__` has checked that the grid
+    divides and that the modes are bin-based."""
+    from repro_torch.pic.distributed import DistConfig
+
+    if spec.mesh.shape is None:
+        raise ValueError("dist_config needs a spec with mesh.shape set")
+    sx, sy = spec.mesh.shape
+    gx, gy, gz = spec.grid.shape
+    d = spec.deposition
+    return DistConfig(
+        local_grid=GridSpec(shape=(gx // sx, gy // sy, gz), dx=spec.grid.dx),
+        dt=spec.dt,
+        order=d.order,
+        deposition=d.mode,
+        gather=d.resolved_gather,
+        backend=d.backend,
+        charge=spec.charge,
+        mass=spec.mass,
+        capacity=spec.sort.resolved_capacity(spec.plasma.ppc),
+        mig_cap=spec.mesh.mig_cap,
+        comm=spec.comm,
+    )
+
+
 def make_simulation(spec: SimSpec, *, fields: FieldState | None = None,
                     particles: ParticleState | None = None, device=None):
-    """Build the single-device `Simulation` a spec describes, on
-    ``device`` (default ``cuda``). ``fields``/``particles`` replace the
-    spec-built initial conditions and move to the device."""
+    """Build the driver a spec describes, on ``device`` (default ``cuda``):
+    `Simulation` for ``MeshSpec(None)``, `DistSimulation` (every shard on
+    that one device) for ``MeshSpec("SXxSY")``. ``fields``/``particles``
+    replace the spec-built initial conditions and move to the device."""
+    from repro_torch.pic.dist_simulation import DistSimulation
     from repro_torch.pic.simulation import Simulation
 
     device = resolve_device(device)
     fields = build_fields(spec, device=device) if fields is None else FieldState(*(f.to(device) for f in fields.all()))
     particles = build_particles(spec, device=device) if particles is None else particles.to(device)
-    return Simulation(fields, particles, pic_config(spec), policy=spec.sort.policy, spec=spec)
+    if spec.mesh.shape is None:
+        return Simulation(fields, particles, pic_config(spec), policy=spec.sort.policy, spec=spec)
+    return DistSimulation(fields, particles, dist_config(spec), mesh_shape=spec.mesh.shape,
+                          n_local=spec.mesh.n_local or None, policy=spec.sort.policy, spec=spec)
 
 
 # -- the gradient subsystem (repro_torch.grad) -----------------------------------
@@ -178,6 +211,9 @@ def spec_signature(spec: SimSpec) -> str:
     What lives in the initial conditions (seed, density, thermal spread,
     drift, perturbation, laser, profile) changes values, not shapes, and
     stays out."""
+    if spec.mesh.shape is not None:
+        raise ValueError(f"spec {spec.name!r} names a device mesh {spec.mesh.shape}; signatures (and the ensemble "
+                         "engine) cover single-device specs")
     cfg = pic_config(spec)
     payload = {
         "grid": list(cfg.grid.shape),

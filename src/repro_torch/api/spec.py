@@ -11,13 +11,12 @@ Kernel backends are kept under the port's names (``torch``, ``cuda``,
 `EnsembleSpec` is N runs as one base spec and per-member flat overrides,
 with the reference's JSON.
 
-The nodes of what the port does not run yet load, and their defaults are
-accepted, but a value other than the default is refused by name with
-`NotImplementedError`: a device mesh and a communication option (see
-`SimSpec.__post_init__`). `CommSpec` is a copy of the reference's field list
-and checks; `HealthConfig` (`repro_torch.core.health`) and `FaultSpec`
-(`repro_torch.distributed.fault`) are the port's own copies, as in the
-reference.
+A mesh (``MeshSpec("SXxSY")``) selects the distributed driver, which holds
+its SX x SY shards on one device; `SimSpec.__post_init__` makes the
+reference's checks of such a spec. `CommSpec`
+(`repro_torch.distributed.comm`), `HealthConfig` (`repro_torch.core.health`)
+and `FaultSpec` (`repro_torch.distributed.fault`) live below the API, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from typing import Any
 
 from repro_torch.core.health import HealthConfig
 from repro_torch.core.resort_policy import SortPolicyConfig
+from repro_torch.distributed.comm import CommSpec
 from repro_torch.distributed.fault import FaultSpec
 from repro_torch.kernels import dispatch
 from repro_torch.pic.grid import GridSpec
@@ -251,19 +251,24 @@ class SortSpec(_Node):
 
 
 def _parse_mesh(text: str) -> tuple[int, int]:
-    """An SXxSY mesh ('4x2')."""
+    """An SXxSY mesh ('4x2'), the one grammar of `MeshSpec` and of the
+    launchers' ``--mesh``."""
     try:
         sx, sy = (int(v) for v in text.lower().split("x"))
     except ValueError as e:
-        raise ValueError(f"a mesh is SXxSY (e.g. 4x2), got {text!r}") from e
+        raise ValueError(f"--mesh expects SXxSY (e.g. 4x2), got {text!r}") from e
+    if sx < 1 or sy < 1:
+        raise ValueError(f"--mesh sizes must be positive, got {text!r}")
     return sx, sy
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec(_Node):
-    """Device mesh: ``shape=None`` is the single-device driver; an
-    ``(sx, sy)`` shape (or ``"SXxSY"``) the distributed one, which the port
-    does not run yet."""
+    """Mesh selection: ``shape=None`` is the single-device driver; an
+    ``(sx, sy)`` shape (or ``"SXxSY"``) the distributed one, its sx * sy
+    shards on one device. ``mig_cap`` is the migration buffer's rows a
+    shard, direction and axis; ``n_local=0`` sizes the shards' particle
+    arrays to 1.5 times the densest shard."""
 
     shape: tuple[int, int] | None = None
     mig_cap: int = 256
@@ -286,21 +291,6 @@ class MeshSpec(_Node):
 
 
 @dataclasses.dataclass(frozen=True)
-class CommSpec(_Node):
-    """Communication options of the distributed driver (the reference's
-    `repro.distributed.comm.CommSpec` fields)."""
-
-    overlap_halo: bool = False
-    compress_migration: bool = False
-    rebalance_enable: bool = False
-    imbalance_ratio: float = 4.0
-
-    def __post_init__(self):
-        if self.imbalance_ratio <= 1.0:
-            raise ValueError(f"CommSpec.imbalance_ratio must exceed 1.0 (perfect balance), got {self.imbalance_ratio}")
-
-
-@dataclasses.dataclass(frozen=True)
 class RunSpec(_Node):
     """Run schedule: default step count, window length (``window=0`` selects
     the host-driven per-step loop), diagnostics cadence, timestep (``dt=0``
@@ -320,11 +310,6 @@ class RunSpec(_Node):
 
 
 # -- the root ------------------------------------------------------------------
-
-
-def _not_ported(field: str, value, what: str):
-    return NotImplementedError(f"SimSpec.{field}={value!r}: {what} is not ported to repro_torch yet "
-                               "(ROADMAP, queue A); only the default runs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,9 +336,19 @@ class SimSpec(_Node):
         if not isinstance(self.grid, GridSpec):
             raise TypeError(f"SimSpec.grid must be a GridSpec, got {type(self.grid).__name__}")
         if self.mesh.shape is not None:
-            raise _not_ported("mesh.shape", self.mesh.shape, "the distributed driver")
-        if self.comm != CommSpec():
-            raise _not_ported("comm", self.comm, "the distributed driver's communication")
+            sx, sy = self.mesh.shape
+            gx, gy, _ = self.grid.shape
+            if gx % sx or gy % sy:
+                raise ValueError(f"grid {self.grid.shape} does not divide over a {sx}x{sy} mesh")
+            if self.deposition.mode not in ("matrix", "matrix_unfused"):
+                raise ValueError("distributed runs support the bin-based depositions: matrix | matrix_unfused")
+            if self.sort.mode != "incremental":
+                raise ValueError("distributed runs use the incremental GPMA sort + adaptive policy")
+            if self.deposition.gather == "scatter":
+                raise ValueError("distributed runs gather through the bins (gather='matrix' or auto)")
+            if self.ckc_beta != 0.0:
+                raise ValueError("ckc_beta is not implemented on the distributed Maxwell solver — a spec claiming "
+                                 "it with a mesh would silently run different physics")
         if self.fault is not None and self.fault.kind == "recv_drop" and self.mesh.shape is None:
             raise ValueError("fault kind 'recv_drop' targets the distributed migration path — "
                              "single-device runs have no recv buffer to drop from")

@@ -1,16 +1,23 @@
-"""Checkpoints of the single-device driver, in the reference's format.
+"""Checkpoints of the drivers, in the reference's format.
 
-Counterpart of the single-device part of `repro.api.facade`'s
-``save_simulation`` / ``restore_simulation`` / ``load_simulation``. A
-checkpoint is a directory holding
+Counterpart of `repro.api.facade`'s ``save_simulation`` /
+``restore_simulation`` / ``load_simulation``. A checkpoint is a directory
+holding
 
 * ``arrays.npz``: the leaves of ``{"policy_state": ..., "state": ...}`` as
   ``a0``, ``a1``, ..., in the reference's flattening order and under its
-  leaf names (``"['state']/.fields/.ex"``): the policy state, then fields,
-  particles, layout, ``step`` (an int32 scalar) and, when the step carries
-  one, the slab;
-* ``checkpoint.json``: the driver kind, the spec (`SimSpec.to_dict`), the
-  host counters and policy, the leaf names and a CRC32 of each leaf.
+  leaf names. The single-device driver's (``"['state']/.fields/.ex"``): the
+  policy state, then fields, particles, layout, ``step`` (an int32 scalar)
+  and, when the step carries one, the slab. The distributed driver's
+  (``"['state']/['pos']"``): the policy state, then its state dict's keys
+  in sorted order, the fields on the global grid (``"['state']/['fields']/
+  [0]"`` ... ``[5]``) and every particle, bin and slab tensor with its two
+  shard axes, the mid-step replay snapshot included;
+* ``checkpoint.json``: the driver kind (``single`` or ``dist``), the spec
+  (`SimSpec.to_dict`), the host counters and policy (the distributed
+  driver's also its mesh, ``n_local``, ``mig_cap``, re-entry flags,
+  communication totals and arming flag), the leaf names and a CRC32 of
+  each leaf.
 
 It is written to a temporary directory and renamed into place, so a crash
 leaves the old checkpoint or the new one. A run moves between the two
@@ -134,9 +141,30 @@ def _read_dir(path: str) -> tuple[dict, dict]:
     return dict(zip(meta["names"], host)), meta
 
 
+def _flatten_dist(sim) -> list[tuple[str, torch.Tensor]]:
+    """(name, leaf) pairs of a `DistSimulation`, in the reference's order:
+    its state dict's keys sorted, the fields as six global grids."""
+    state = sim.state
+    out = [(_leaf(("policy_state", f.name)), getattr(sim.policy_state, f.name))
+           for f in dataclasses.fields(SortPolicyState)]
+    for key in sorted(state):
+        if key == "fields":
+            out += [(f"['state']/['fields']/[{i}]", f) for i, f in enumerate(state["fields"])]
+        else:
+            out.append((f"['state']/['{key}']", state[key]))
+    return out
+
+
+def _is_dist(sim) -> bool:
+    from repro_torch.pic.dist_simulation import DistSimulation
+
+    return isinstance(sim, DistSimulation)
+
+
 def save_simulation(sim, path: str) -> None:
-    """Checkpoint a single-device `Simulation` to `path`."""
-    pairs = _flatten(sim.state, sim.policy_state)
+    """Checkpoint a driver (`Simulation` or `DistSimulation`) to `path`."""
+    distributed = _is_dist(sim)
+    pairs = _flatten_dist(sim) if distributed else _flatten(sim.state, sim.policy_state)
     st = sim.host_policy.state
     scalars = {
         "sorts": sim.sorts,
@@ -156,16 +184,35 @@ def save_simulation(sim, path: str) -> None:
         "restarts": sim.restarts,
         "discarded_steps": sim.discarded_steps,
     }
-    meta = {"driver": "single", "spec": None if sim.spec is None else sim.spec.to_dict(), "scalars": scalars}
+    if distributed:
+        scalars.update(
+            mig_cap=sim.config.mig_cap,
+            n_local=sim.n_local,
+            mesh_shape=[sim.sx, sim.sy],  # the live split: a rebalance may have changed it
+            mig_recv_dropped=sim.mig_recv_dropped,
+            pending_presort=bool(sim._pending_presort),
+            pending_resume=bool(sim._pending_resume),
+            comm_stats=dict(sim.comm_stats),
+            rebalance_armed=bool(sim._rebalance_armed),
+        )
+    meta = {"driver": "dist" if distributed else "single", "spec": None if sim.spec is None else sim.spec.to_dict(),
+            "scalars": scalars}
     _write_dir(path, [n for n, _ in pairs], [_host(leaf) for _, leaf in pairs], meta)
 
 
-def _shape_ok(name: str, saved: tuple, tmpl: tuple) -> bool:
+def _shape_ok(name: str, saved: tuple, tmpl: tuple, distributed: bool = False) -> bool:
     """The reference's guards: the capacity may differ (it grows mid-run and
-    the checkpoint's wins); every other dimension is fixed by the grid and
+    the checkpoint's wins), and so may a distributed shard's particle count
+    (``n_local``); every other dimension is fixed by the grid, the mesh and
     the plasma."""
     if "fields" in name:
         return saved == tmpl
+    if distributed:
+        if "slab" in name:        # (sx, sy, n_cells, capacity, ...)
+            return saved[:3] == tmpl[:3] and saved[4:] == tmpl[4:]
+        if "slots" in name:       # (sx, sy, n_cells, capacity)
+            return saved[:3] == tmpl[:3]
+        return saved[:2] == tmpl[:2] and saved[3:] == tmpl[3:]  # (sx, sy, n_local, ...)
     if "slab" in name:            # (n_cells, capacity, ...)
         return saved[:1] == tmpl[:1] and saved[2:] == tmpl[2:]
     if "slots" in name and "particle_slot" not in name:
@@ -173,14 +220,14 @@ def _shape_ok(name: str, saved: tuple, tmpl: tuple) -> bool:
     return saved == tmpl
 
 
-def _check_leaves(arrays: dict, template: list) -> None:
+def _check_leaves(arrays: dict, template: list, distributed: bool = False) -> None:
     """Every leaf of ``template`` is in the checkpoint, at a shape that fits
     (`_shape_ok`)."""
     for name, leaf in template:
         if name not in arrays:
             continue
         saved, tmpl = tuple(arrays[name].shape), () if isinstance(leaf, int) else tuple(leaf.shape)
-        if not _shape_ok(name, saved, tmpl):
+        if not _shape_ok(name, saved, tmpl, distributed):
             raise ValueError(f"checkpoint leaf {name} has shape {saved} but this driver implies {tmpl} — the "
                              "checkpoint belongs to a different grid/mesh/plasma")
     missing = [name for name, _ in template if name not in arrays]
@@ -196,17 +243,51 @@ def _short_names(arrays: dict) -> dict:
                      + [p[1:] for p in name.split("/")[1:]]).lstrip("."): a for name, a in arrays.items()}
 
 
+def _restore_dist(sim, arrays: dict, scal: dict) -> None:
+    """Install a distributed checkpoint's state and scalars into ``sim``."""
+    if list(scal["mesh_shape"]) != [sim.sx, sim.sy]:
+        raise ValueError(f"checkpoint was written on a {scal['mesh_shape'][0]}x{scal['mesh_shape'][1]} mesh but this "
+                         f"driver runs {sim.sx}x{sim.sy}")
+    # a checkpoint without the replay snapshot: zeros (no replay is pending
+    # at a checkpoint boundary)
+    for mid, src in (("mid_pos", "pos"), ("mid_u", "u")):
+        arrays.setdefault(f"['state']/['{mid}']", np.zeros_like(arrays.get(f"['state']/['{src}']", np.zeros(0))))
+    _check_leaves(arrays, _flatten_dist(sim), distributed=True)
+    sim.config = dataclasses.replace(sim.config, capacity=scal["capacity"], mig_cap=scal["mig_cap"])
+    sim.n_local = scal["n_local"]
+    sim.mig_recv_dropped = scal["mig_recv_dropped"]
+    sim._pending_presort = bool(scal.get("pending_presort", False))
+    sim._pending_resume = bool(scal.get("pending_resume", False))
+    sim.comm_stats = dict(scal.get("comm_stats", sim.comm_stats))
+    sim._rebalance_armed = bool(scal.get("rebalance_armed", True))
+    dev = sim.device
+    t = lambda name, dtype: torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=dev)
+    dtypes = {"alive": torch.bool, "slab_valid": torch.bool, "slots": torch.int32, "pslot": torch.int32}
+    tree = {key: t(f"['state']/['{key}']", dtypes.get(key, torch.float32)) for key in sim.state if key != "fields"}
+    tree["fields"] = [t(f"['state']/['fields']/[{i}]", torch.float32) for i in range(6)]
+    sim.state = tree
+    pt = lambda name, dtype: torch.as_tensor(np.array(arrays[_leaf(("policy_state", name))]), dtype=dtype, device=dev)
+    sim.policy_state = SortPolicyState(
+        steps_since_sort=pt("steps_since_sort", torch.int32), rebuilds_since_sort=pt("rebuilds_since_sort", torch.int32),
+        baseline_proxy=pt("baseline_proxy", torch.float32), proxy_ema=pt("proxy_ema", torch.float32))
+
+
 def restore_simulation(sim, path: str) -> None:
     """Restore a checkpoint into a compatible driver: the same grid and
-    particle count; the capacity is the checkpoint's. The window's captured
-    step is dropped (the next window captures anew)."""
+    particle count (and mesh); the capacity (and ``mig_cap``, ``n_local``)
+    are the checkpoint's. The window's captured step is dropped (the next
+    window captures anew)."""
     arrays, meta = _read_dir(path)
-    if meta["driver"] != "single":
-        raise ValueError(f"checkpoint was written by the {meta['driver']!r} driver; the port runs 'single'")
-    _check_leaves(arrays, _flatten(sim.state, sim.policy_state))
+    distributed = _is_dist(sim)
+    if meta["driver"] != ("dist" if distributed else "single"):
+        raise ValueError(f"checkpoint was written by the {meta['driver']!r} driver")
     scal = meta["scalars"]
-    sim.config = dataclasses.replace(sim.config, capacity=scal["capacity"])
-    sim.state, sim.policy_state = state_from_reference(_short_names(arrays), sim.config, sim.device)
+    if distributed:
+        _restore_dist(sim, arrays, scal)
+    else:
+        _check_leaves(arrays, _flatten(sim.state, sim.policy_state))
+        sim.config = dataclasses.replace(sim.config, capacity=scal["capacity"])
+        sim.state, sim.policy_state = state_from_reference(_short_names(arrays), sim.config, sim.device)
     sim.sorts = scal["sorts"]
     sim.rebuilds = scal["rebuilds"]
     sim._host_step = scal["host_step"]

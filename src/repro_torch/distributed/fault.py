@@ -1,10 +1,12 @@
-"""The chaos harness and the windowed-run supervisor of the single-device
-driver. Counterpart of the PIC half of `repro.distributed.fault`.
+"""The chaos harness and the windowed-run supervisor of both drivers
+(`Simulation` and `DistSimulation`). Counterpart of the PIC half of
+`repro.distributed.fault`.
 
 A declarative frozen `FaultSpec` (serialised on the `SimSpec`) drives a
 deterministic fault: NaN into one field component or into the momenta, a
 doubling of the weights that breaks charge conservation (all three injected
-into the step's input on the device), or a simulated crash on the host.
+into the step's input on the device), a forced receive-side migration drop
+(the distributed driver's), or a simulated crash on the host.
 `run_supervised_windows` runs the windowed loop under the health sentinel:
 a health halt rolls the window back to its entry snapshot and retries under
 an escalating remedy ladder; an exception restores the latest autosave.

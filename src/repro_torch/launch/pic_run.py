@@ -11,6 +11,7 @@
     PYTHONPATH=src python -m repro_torch.launch.pic_run --sentinel --fault nan_field:20:ez
     PYTHONPATH=src python -m repro_torch.launch.pic_run --sentinel --fault crash:20 --autosave-every 8
     PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario two_stream --sweep drift=0.1,0.2,0.3 --ensemble 4
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --mesh 4x2 --grid 128 128 128 --order 3
 
 Runs on the CUDA device unless ``--device`` names another. One warm-up
 window (kernel build, the step's CUDA graph capture) runs first, then the
@@ -26,6 +27,11 @@ there (``crash``), ``--autosave-every`` keeps rolling checkpoints (under
 restores; the timed line then gives the halts, retries and restarts. ``--spec`` runs a SimSpec JSON file, written by this
 launcher's ``--dump-spec`` or by the reference's, with the other options as
 overrides; ``--dump-spec`` writes the resolved spec and exits.
+``--mesh SXxSY`` runs the distributed driver (`DistSimulation`), its
+SX x SY shards on the one device (a ``--spec`` file's mesh is honoured the
+same way); the lines then name the mesh and give the growths and the
+communication totals (``comm_stats``: migrated particles, migration
+payload bytes, the largest shard imbalance).
 ``--ensemble N`` runs N seed-staggered replicas of the spec as one batched
 ensemble, ``--sweep PARAM=V1,V2,...`` (repeatable) a cartesian sweep over
 flat overrides, N replicas a point (`repro_torch.api.EnsembleSpec`): the
@@ -52,6 +58,7 @@ import torch
 
 from repro_torch.api import (
     EnsembleSpec,
+    MeshSpec,
     SimSpec,
     apply_overrides,
     make_ensemble,
@@ -149,6 +156,8 @@ def build_spec(args):
         overrides["health"] = {"enable": True}
     if args.fault is not None:
         overrides["fault"] = parse_fault(args.fault)
+    if args.mesh is not None:
+        overrides["mesh"] = MeshSpec(args.mesh).shape
     if args.spec is not None:
         with open(args.spec) as f:
             return apply_overrides(SimSpec.from_json(f.read()), **overrides)
@@ -166,7 +175,7 @@ def profile_window(sim, window: int, *, graphs: bool) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     dev = sim.device
-    steps0 = sim.state.step
+    steps0 = sim._host_step
     use_graphs, sim.use_graphs = sim.use_graphs, graphs
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         reads0 = sim.host_reads
@@ -176,7 +185,7 @@ def profile_window(sim, window: int, *, graphs: bool) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
         reads = sim.host_reads - reads0
     sim.use_graphs = use_graphs
-    steps = max(sim.state.step - steps0, 1)
+    steps = max(sim._host_step - steps0, 1)
     print(f"profile, {'replays of the captured step' if graphs else 'eager window (its phase ranges exist only here)'}: "
           f"{reads} host reads")
     busy_us = 0.0
@@ -235,6 +244,8 @@ def main(argv=None) -> None:
                     help="sort mode: incremental GPMA + adaptive policy (default), bins rebuilt every step, a "
                          "global sort every step, or none (for the scatter paths)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--mesh", default=None, metavar="SXxSY",
+                    help="run the distributed driver on an SXxSY shard mesh (every shard on the one device)")
     ap.add_argument("--profile", action="store_true",
                     help="profile two more windows, captured and eager, and print their breakdowns")
     ft = ap.add_argument_group("fault tolerance")
@@ -292,10 +303,11 @@ def main(argv=None) -> None:
         ap.error("--profile profiles windows; it does not run the host-driven loop (--window 0)")
     n_parts = sim.diagnostics()["n_alive"]
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    mesh = f", mesh {spec.mesh.shape[0]}x{spec.mesh.shape[1]}" if spec.mesh.shape else ""
     print(
         f"{spec.name}: grid {spec.grid.shape}, {n_parts} particles, order {spec.deposition.order}, "
         f"deposition {spec.deposition.mode}, gather {spec.deposition.resolved_gather}, sort {spec.sort.mode}, "
-        f"backend {spec.deposition.backend}, {f'window {window}' if window else 'host-driven loop'}, "
+        f"backend {spec.deposition.backend}, {f'window {window}' if window else 'host-driven loop'}{mesh}, "
         f"device {dev} ({name})"
     )
     sim.run(min(window or 2, n_steps), window=window)  # warm-up
@@ -311,11 +323,13 @@ def main(argv=None) -> None:
     reads = sim.host_reads - reads0
     per = f"host reads/window={reads / max(sim.windows - windows0, 1):.1f}" if window else \
         f"host reads/step={reads / n_steps:.2f}"
+    growths = sim.growths if spec.mesh.shape else sim.growths["capacity"]
+    comm = f" mesh {sim.sx}x{sim.sy} comm_stats={sim.comm_stats}" if spec.mesh.shape else ""
     print(
         f"{n_steps} steps in {dt:.3f}s ({1e3 * dt / n_steps:.3f} ms/step, "
         f"{d['n_alive'] * n_steps / dt:.3e} particle-steps/s); "
-        f"sorts={sim.sorts} rebuilds={sim.rebuilds} growths={sim.growths['capacity']} {per} "
-        f"halts={sim.halts} retries={sim.retries} restarts={sim.restarts}"
+        f"sorts={sim.sorts} rebuilds={sim.rebuilds} growths={growths} {per} "
+        f"halts={sim.halts} retries={sim.retries} restarts={sim.restarts}{comm}"
     )
     print(f"energies: field={d['field_energy']:.4e} kinetic={d['kinetic_energy']:.4e} total={d['total_energy']:.4e}")
     if dev.type == "cuda":

@@ -1,6 +1,7 @@
 """PIC substrate on PyTorch: Yee fields, Boris pusher, plasma init, the
-single-device simulation loop (windowed and host-driven) and the batched
-ensemble engine. Counterpart of `repro.pic` (single device)."""
+single-device simulation loop (windowed and host-driven), the batched
+ensemble engine and the distributed driver (a 2-D shard mesh on one
+device). Counterpart of `repro.pic`."""
 
 from repro_torch.pic.grid import B_STAGGER, E_STAGGER, FieldState, GridSpec  # noqa: F401
 from repro_torch.pic.laser import LaserSpec, inject_laser  # noqa: F401
@@ -25,3 +26,5 @@ from repro_torch.pic.simulation import (  # noqa: F401
     state_from_reference,
 )
 from repro_torch.pic.ensemble import EnsembleSimulation, member_bundle, stack_trees, unstack_tree  # noqa: F401,E402
+from repro_torch.pic.distributed import DistConfig, DistState  # noqa: F401,E402
+from repro_torch.pic.dist_simulation import DistSimulation  # noqa: F401,E402

@@ -1,6 +1,8 @@
 """FDTD Maxwell solver on the periodic Yee grid with optional CKC
 (Cole-Karkkainen-Cowan) smoothing. Counterpart of the periodic part of
-`repro.pic.maxwell`.
+`repro.pic.maxwell`, and of its guard-padded curls (`curl_b_padded`,
+`curl_e_padded`), which the distributed driver's shards run on 1-cell
+halos.
 
 Normalized units: dE/dt = curl B - J ; dB/dt = -curl E. Differences are
 `torch.roll`-based (periodic).
@@ -75,3 +77,41 @@ def maxwell_step(fields: FieldState, j, *, dx, dt: float, ckc_beta: float = 0.0)
     fields = push_b(fields, dx=dx, dt=0.5 * dt, ckc_beta=ckc_beta)
     fields = push_e(fields, j, dx=dx, dt=dt)
     return push_b(fields, dx=dx, dt=0.5 * dt, ckc_beta=ckc_beta)
+
+
+# -- guard-padded curls (the distributed driver's Maxwell update) ------------
+#
+# The same differences, with the neighbours' values read from exchanged
+# halos instead of `torch.roll`. Arrays carry g >= 1 guard cells on each
+# side of their last three axes; leading axes (a stack of shards) ride
+# along.
+
+
+def _core(f, g, shape):
+    nx, ny, nz = shape
+    return f[..., g : g + nx, g : g + ny, g : g + nz]
+
+
+def _shift(f, g, shape, axis, delta):
+    nx, ny, nz = shape
+    sl = [slice(g, g + nx), slice(g, g + ny), slice(g, g + nz)]
+    sl[axis] = slice(g + delta, g + delta + shape[axis])
+    return f[(Ellipsis, *sl)]
+
+
+def curl_b_padded(bx, by, bz, g: int, shape, dx):
+    """curl B at the E locations from guard-padded B (backward differences)."""
+    d = lambda f, ax: (_core(f, g, shape) - _shift(f, g, shape, ax, -1)) / dx[ax]
+    cx = d(bz, 1) - d(by, 2)
+    cy = d(bx, 2) - d(bz, 0)
+    cz = d(by, 0) - d(bx, 1)
+    return cx, cy, cz
+
+
+def curl_e_padded(ex, ey, ez, g: int, shape, dx):
+    """curl E at the B locations from guard-padded E (forward differences)."""
+    d = lambda f, ax: (_shift(f, g, shape, ax, 1) - _core(f, g, shape)) / dx[ax]
+    cx = d(ez, 1) - d(ey, 2)
+    cy = d(ex, 2) - d(ez, 0)
+    cz = d(ey, 0) - d(ex, 1)
+    return cx, cy, cz

@@ -592,7 +592,35 @@ def _copy_tree(dst, src) -> None:
             d.copy_(s)
 
 
-class _WindowBuffers:
+class _WindowHead:
+    """What the buffers of every windowed driver share: the counters and
+    the halt latch named in ``HEAD`` (zeroed at a window's entry and packed
+    first in its bundle, a row per member where they carry a member axis)
+    and the entry vector ``entry`` that the host writes."""
+
+    HEAD = ("n_done", "halted", "sorts", "rebuilds", "halt_code", "halt_inv", "halt_meas", "halt_ref")
+
+    def _write_entry(self, rows: list) -> None:
+        """Write the entry vector from the host without waiting on the
+        device: on CUDA an asynchronous copy from pinned memory (the caching
+        host allocator keeps the block until the copy is done)."""
+        host = torch.tensor(rows, dtype=torch.int64).reshape(self.entry.shape)
+        if self.entry.device.type == "cuda":
+            host = host.pin_memory()
+        self.entry.copy_(host, non_blocking=True)
+
+    def reset_counters(self) -> None:
+        for name in self.HEAD:
+            getattr(self, name).zero_()
+
+    def bundle(self, k: int) -> torch.Tensor:
+        """The ``HEAD`` values and the first k columns of the diagnostics
+        table as one float64 vector (a row per member)."""
+        head = torch.stack([getattr(self, name).to(torch.float64) for name in self.HEAD], dim=-1)
+        return torch.cat([head, self.diag[..., :k].reshape(*self.n_done.shape, -1)], dim=-1)
+
+
+class _WindowBuffers(_WindowHead):
     """The window's state held in place: the tensors a step reads and then
     overwrites, the policy state, the window's counters, the sentinel's
     halt latch and the per-step diagnostics table. On the card they are the
@@ -638,6 +666,10 @@ class _WindowBuffers:
         self.target = None if members is None else self.entry[..., 4]
         self.ref_charge, self.ref_energy = zeros(torch.float32), zeros(torch.float32)
 
+    def scratch(self) -> "_WindowBuffers":
+        """A single-member copy to warm a capture up on."""
+        return _WindowBuffers(self.state(), self.pstate, self.names, self.diag.shape[-1])
+
     def member(self, i: int) -> "_WindowBuffers":
         """Member i's buffers: every tensor of these as its view ``t[i]``."""
         view = object.__new__(_WindowBuffers)
@@ -660,15 +692,6 @@ class _WindowBuffers:
         if self.slab is not None:
             _copy_tree(self.slab, state.slab)
 
-    def _write_entry(self, rows: list) -> None:
-        """Write the entry vector from the host without waiting on the
-        device: on CUDA an asynchronous copy from pinned memory (the caching
-        host allocator keeps the block until the copy is done)."""
-        host = torch.tensor(rows, dtype=torch.int64).reshape(self.entry.shape)
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        self.entry.copy_(host, non_blocking=True)
-
     def enter(self, step0: int, fault_vec: torch.Tensor | None) -> None:
         """The window's start step and fault vector, in one copy."""
         self._write_entry([step0, *(fault_vec.tolist() if fault_vec is not None else (FAULT_NONE, -1, 0))])
@@ -677,23 +700,8 @@ class _WindowBuffers:
         """An ensemble window's per-member step targets, in one copy."""
         self._write_entry([[0, FAULT_NONE, -1, 0, int(k)] for k in targets])
 
-    def reset_counters(self) -> None:
-        for t in (self.n_done, self.halted, self.sorts, self.rebuilds, self.halt_code, self.halt_inv, self.halt_meas,
-                  self.halt_ref):
-            t.zero_()
 
-    def bundle(self, k: int) -> torch.Tensor:
-        """The window's counters, the sentinel's halt latch and the first k
-        diagnostics rows as one float64 vector (a row per member): n_done,
-        halted, sorts, rebuilds, halt_code, halt_inv, halt_measured,
-        halt_reference, then the table."""
-        head = torch.stack([t.to(torch.float64) for t in (
-            self.n_done, self.halted, self.sorts, self.rebuilds, self.halt_code, self.halt_inv, self.halt_meas,
-            self.halt_ref)], dim=-1)
-        return torch.cat([head, self.diag[..., :k].reshape(*self.n_done.shape, -1)], dim=-1)
-
-
-_BUNDLE_HEAD = 8
+_BUNDLE_HEAD = len(_WindowHead.HEAD)
 
 
 def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfig, *, with_energies: bool,
@@ -789,7 +797,7 @@ def capture_steps(bufs: list[_WindowBuffers], step) -> tuple[torch.cuda.CUDAGrap
     returned per buffer, for the owner to add per replay that ran them."""
     device = bufs[0].device
     torch.cuda.synchronize(device)
-    scratch = _WindowBuffers(bufs[0].state(), bufs[0].pstate, bufs[0].names, bufs[0].diag.shape[-1])
+    scratch = bufs[0].scratch()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):

@@ -65,8 +65,8 @@ def test_overrides_map_reference_backend_names_and_reject_unported():
     assert tapi.scenario("uniform", backend="pallas_reduced").deposition.backend == "cuda_reduced"
     assert tapi.scenario("uniform", backend="xla").deposition.backend == "torch"
     assert tapi.scenario("uniform", backend="pallas").to_dict()["deposition"]["backend"] == "pallas"
-    with pytest.raises(NotImplementedError, match="mesh.shape"):
-        tapi.scenario("uniform", mesh="2x2")
+    # a mesh selects the distributed driver, as in the reference
+    assert tapi.scenario("uniform", mesh="2x2").to_json() == rapi.scenario("uniform", mesh="2x2").to_json()
     with pytest.raises(TypeError):
         tapi.scenario("uniform", meshes="2x2")
     with pytest.raises(ValueError):

@@ -203,8 +203,10 @@ def test_plain_routes_sum_the_same_at_any_capacity(order):
 def test_ensemble_one_window_per_bucket():
     """A 4-member bucket builds its window once across two full windows and
     the tail (20 steps at window 8), as the reference traces its vmapped
-    window once."""
-    shape = (6, 6, 8)
+    window once. The shape is one no other test's reference ensemble
+    compiles: a window traced earlier in the same process would be a cache
+    hit, not a trace."""
+    shape = (6, 6, 10)
     ref, port = _pair([(s, 0.05) for s in range(4)], POLICY, shape=shape)
     before = rsimulation._ensemble_trace_count
     ref.run(20, window=8)
@@ -273,8 +275,8 @@ def test_ensemble_spec_replicate_and_sweep():
 
 
 def test_ensemble_spec_rejects_meshes():
-    """The port's SimSpec holds no mesh; a reference ensemble whose base or
-    a member names one is refused as in the reference ("single-device")."""
+    """An ensemble whose base or a member names a mesh is refused in both
+    packages ("single-device")."""
     base_r, base_t = _specs()
     meshed = {"base": rapi.apply_overrides(base_r, mesh=(1, 2)).to_dict(), "overrides": []}
     with pytest.raises(ValueError, match="single-device"):
@@ -328,7 +330,7 @@ def test_spec_signature_is_compile_shape_only():
         assert tapi.spec_signature(tapi.apply_overrides(base, **ov)) != tapi.spec_signature(base)
         assert tapi.spec_signature(tapi.apply_overrides(base, **ov)) == rapi.spec_signature(
             rapi.apply_overrides(base_r, **ov))
-    with pytest.raises(NotImplementedError, match="mesh"):  # the port's specs hold no mesh at all
+    with pytest.raises(ValueError, match="mesh"):  # a signature covers single-device specs, as the reference's
         tapi.spec_signature(tapi.apply_overrides(base, mesh=(1, 2)))
     with pytest.raises(ValueError, match="mesh"):
         rapi.spec_signature(rapi.apply_overrides(base_r, mesh=(1, 2)))

@@ -4,8 +4,9 @@ backend and mode; the window captured as a CUDA graph against the same
 window run eagerly; the host-driven loop against the captured window, and a
 run saved, loaded and continued against the same run uninterrupted; the
 health sentinel and a fault's rollback inside the captured window; an
-ensemble bucket captured as one graph against its members' solo runs, and
-the simulation service's window cache.
+ensemble bucket captured as one graph against its members' solo runs, the
+simulation service's window cache, and the distributed driver's captured
+window (a 2x2 mesh on the card) against its eager one.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode). They import neither JAX nor `repro`, so they run where only the
@@ -23,7 +24,8 @@ after 8 windowed steps, 1e-4 of the field's largest magnitude (those sums
 compound through the field solve); `matrix_scatter_add` against a plain
 scatter-add, 1e-5 of the output's magnitude (both add the overflow items
 with float atomics, in orders that change from run to run); the captured
-window against the eager one, exact (the same kernels on the same inputs);
+window against the eager one, exact (the same kernels on the same inputs), the
+distributed one's too;
 the host-driven loop against the captured window and a resumed run against
 an uninterrupted one, exact; the sentinel on against off, and a run that
 rolled back from an injected fault against the clean run, exact; an
@@ -258,6 +260,39 @@ def test_captured_window_matches_eager_window(cuda):
         a, b = getattr(sg, part), getattr(se, part)
         for f in dataclasses.fields(a):
             assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f"{part}.{f.name}"
+    for f in dataclasses.fields(g.policy_state):
+        assert torch.equal(getattr(g.policy_state, f.name), getattr(e.policy_state, f.name)), f.name
+
+
+@pytest.mark.gpu
+def test_distributed_captured_window_matches_eager_window(cuda):
+    """A 2x2 mesh held on the card: 20 steps in windows of 10 with a sort
+    every few steps and a capacity growth (a hot plasma in bins of 8).
+    Replays of the captured window step (every shard's kernels, the
+    exchanges, the IF nodes) give the eager window's state exactly, with
+    one host read a window and one more at the growth; each kernel launches
+    once a shard a step."""
+    spec = scenario("uniform", grid=(8, 8, 8), order=1, capacity=8, u_thermal=0.4, backend="cuda_reduced", mesh="2x2",
+                    policy=SortPolicyConfig(sort_interval=7, min_sort_interval=3))
+    sims = {}
+    for graphs in (True, False):
+        sim = make_simulation(spec)
+        sim.use_graphs = graphs
+        kernels.reset_launch_counts()
+        sim.run(20, window=10, diagnostics_every=1)
+        sims[graphs] = (sim, kernels.launch_counts())
+    (g, g_counts), (e, e_counts) = sims[True], sims[False]
+    assert g.growths["capacity"] >= 1 and g.sorts >= 1
+    assert (g.sorts, g.rebuilds, g.growths, g.halts, g.comm_stats) == (e.sorts, e.rebuilds, e.growths, e.halts,
+                                                                       e.comm_stats)
+    assert g.history == e.history
+    assert g.host_reads == g.windows + g.growths["capacity"]
+    assert e.host_reads > g.host_reads
+    assert g.graph_captures == 1 + g.growths["capacity"]
+    for name in ("fused_bin_deposit_reduced", "fused_bin_gather"):
+        assert e_counts[name] == 4 * 20 and g_counts[name] == 4 * (20 + g.graph_captures)
+    for f in dataclasses.fields(g.shard_state):
+        assert torch.equal(getattr(g.shard_state, f.name), getattr(e.shard_state, f.name)), f.name
     for f in dataclasses.fields(g.policy_state):
         assert torch.equal(getattr(g.policy_state, f.name), getattr(e.policy_state, f.name)), f.name
 

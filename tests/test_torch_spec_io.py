@@ -82,13 +82,18 @@ def test_port_spec_json_loads_in_the_reference(name):
     ids=["mesh", "comm"],
 )
 def test_unported_fields_are_refused_by_name(override, field):
-    """Each refused at construction in the port, and when a reference spec
-    that sets it is loaded."""
-    with pytest.raises(NotImplementedError, match=f"SimSpec.{field}"):
-        tapi.scenario("uniform", **override)
+    """A mesh and a communication option, which select and configure the
+    distributed driver: each builds in the port as in the reference, and a
+    reference spec that sets it loads with the same JSON and the same
+    value of ``field``."""
+    tspec = tapi.scenario("uniform", **override)
     rspec = rapi.scenario("uniform", **override)
-    with pytest.raises(NotImplementedError, match=f"SimSpec.{field}"):
-        tapi.SimSpec.from_json(rspec.to_json())
+    assert tspec.to_json() == rspec.to_json()
+    assert tapi.SimSpec.from_json(rspec.to_json()) == tspec
+    node, _, leaf = field.partition(".")
+    got = tspec.to_dict()[node]
+    assert got == rspec.to_dict()[node] != tapi.scenario("uniform").to_dict()[node]
+    assert leaf == "" or got[leaf] == [2, 2]
 
 
 @pytest.mark.parametrize(
