@@ -140,7 +140,24 @@ Phases, in order; any failure exits non-zero:
    ``nan_field`` rolled back, ``recv_drop`` replayed (one discarded step,
    ``n_local`` doubled) and a crash restored from its autosave, each
    bit-equal to the clean run, and a checkpoint at step 10 loaded and
-   resumed bit-equal.
+   resumed bit-equal;
+20. the language-model stack (no kernel of its own: plain PyTorch ops),
+   TF32 off: (a) every architecture's smoke config in float32, parameters
+   from one seed on the CPU copied to the card: the forward over 16 tokens,
+   a block prefill of 8 and 8 one-token decode steps, each pass's logits on
+   the card within 1e-4 of the CPU's largest and every MoE dispatch (expert
+   ids, slot_token, a_slot, fits) equal to the CPU's; (b) phi3-mini-3.8b and
+   deepseek-moe-16b at their published widths (vocabulary, d_ff, the 64
+   experts) cut to one period, float32, batch 2: the forward over 20
+   tokens, a block prefill of 16 and 4 one-token steps within 1e-3 of the
+   CPU's largest logit, and the share of MoE assignments that differ; (c)
+   the two full configs in bfloat16 (32 and 28 layers), parameters made on
+   the card from a seed, one after the other: batch 4, prompt 128, 32
+   tokens through `repro_torch.launch.serve.generate`, twice: prefill ms,
+   decode ms a step, tokens/s and peak memory, every logit finite, both
+   runs' greedy tokens identical, and for phi3 (nothing dropped) the last
+   step's logits within 5e-2 of the largest of the forward's over the same
+   tokens.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -199,6 +216,10 @@ SCATTER = dict(MAIN, steps=4, window=4, deposition="scatter", gather="scatter")
 # capacity 16, d_model 3072: the most frequent ids overflow their bins)
 MOE = dict(tokens=8192, top_k=2, d=6144)
 EMBED = dict(tokens=8192, vocab=32064, capacity=16, d=3072)
+# phase 20: the language-model stack (src/repro_torch/models, configs)
+LM_SMOKE_SEED = 0
+LM_FULL = dict(batch=4, prompt=128, tokens=32)     # phase 20(c): each full config's serving run
+LM_ONE_PERIOD = ("phi3-mini-3.8b", "deepseek-moe-16b")
 
 
 # the kernel that a dispatcher op's backend launches once a step
@@ -1248,6 +1269,140 @@ def dist_phase(torch, np, kernels, dispatch, dev, main_final=None) -> None:
     say(f"phase 19f: {time.perf_counter() - t0:.1f} s")
 
 
+def lm_phase(torch, dev, smi: str) -> None:
+    """Phase 20: the language-model stack on the card (see the module
+    docstring). ``smi``: the card's name and power limit, printed beside
+    every number."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.launch.serve import generate, make_inputs
+    from repro_torch.models import decode_step, encode, forward, init_decode_state, init_params
+    from repro_torch.models import moe as lm_moe
+    from repro_torch.models.common import tree_map
+
+    torch.set_float32_matmul_precision("highest")
+    # every MoE dispatch of a run, recorded as (expert ids, slot_token, a_slot, fits)
+    dispatches = []
+    dispatch_row = lm_moe._dispatch_row
+
+    def recording(expert_ids, **kw):
+        out = dispatch_row(expert_ids, **kw)
+        dispatches.append(tuple(t.cpu() for t in (expert_ids,) + out))
+        return out
+
+    def run(params, cfg, toks, extra, device, n_prefill: int):
+        """Forward over ``toks``, then a block prefill of its first
+        ``n_prefill`` tokens and one-token steps over the rest: the logits of
+        each, on the host, and the MoE dispatches they made."""
+        dispatches.clear()
+        toks = toks.to(device)
+        extra = {k: v.to(device) for k, v in extra.items()}
+        with torch.no_grad():
+            out = [forward(params, toks, cfg, remat=False, **extra)]
+            enc = encode(params, extra["frames"], cfg) if "frames" in extra else None
+            st = init_decode_state(cfg, toks.shape[0], toks.shape[1], cfg.dtype, device=device)
+            lg, st = decode_step(params, st, toks[:, :n_prefill], cfg, enc_out=enc)
+            out.append(lg)
+            for t in range(n_prefill, toks.shape[1]):
+                lg, st = decode_step(params, st, toks[:, t:t + 1], cfg, enc_out=enc)
+                out.append(lg)
+        return [o.cpu() for o in out], list(dispatches)
+
+    def card_vs_cpu(cfg, n_tokens: int, n_prefill: int, tol: float, seed: int):
+        gen = torch.Generator().manual_seed(seed)
+        params = init_params(gen, cfg, device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, n_tokens), generator=gen)
+        extra = {}
+        if cfg.encoder_layers:
+            extra["frames"] = torch.randn((2, cfg.encoder_frames, cfg.d_model), generator=gen)
+        if cfg.prefix_tokens:
+            extra["prefix_embeddings"] = torch.randn((2, cfg.prefix_tokens, cfg.d_model), generator=gen)
+        want, want_d = run(params, cfg, toks, extra, torch.device("cpu"), n_prefill)
+        got, got_d = run(tree_map(lambda t: t.to(dev), params), cfg, toks, extra, dev, n_prefill)
+        del params
+        errs = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not bool(torch.isfinite(g).all()):
+                fail(f"{cfg.name}: logits not finite on the card (pass {i})")
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max()) / scale
+            if err > tol:
+                fail(f"{cfg.name}: card against CPU {err:.3e} of max|cpu| (tolerance {tol}) in pass {i}")
+            errs.append(err)
+        if len(got_d) != len(want_d):
+            fail(f"{cfg.name}: {len(got_d)} MoE dispatches on the card, {len(want_d)} on the CPU")
+        n_diff = sum(int((g[0] != w[0]).sum()) for g, w in zip(got_d, want_d))
+        n_all = sum(w[0].numel() for w in want_d)
+        return max(errs), got_d, want_d, n_diff, n_all
+
+    lm_moe._dispatch_row = recording
+    try:
+        # (a) every arch's smoke config, float32: forward, a block prefill of
+        # 8 and 8 one-token steps, card against CPU; the dispatch exact
+        t0 = time.perf_counter()
+        for i, arch in enumerate(ARCH_IDS):
+            cfg = get_smoke_config(arch)
+            err, got_d, want_d, _, _ = card_vs_cpu(cfg, 16, 8, 1e-4, LM_SMOKE_SEED + i)
+            for g, w in zip(got_d, want_d):
+                if not all(torch.equal(a, b) for a, b in zip(g, w)):
+                    fail(f"{arch} smoke: the MoE dispatch on the card differs from the CPU's")
+            moe = f"; {len(got_d)} MoE dispatches exact" if got_d else ""
+            say(f"  {arch} smoke: card against CPU {err:.2e} of max|cpu| (tolerance 1e-4) over forward, prefill "
+                f"and 8 steps{moe} [{smi}]")
+        say(f"phase 20a: {time.perf_counter() - t0:.1f} s")
+
+        # (b) two published widths cut to one period, float32, batch 2, 16
+        # tokens (forward and a block prefill) then 4 one-token steps
+        t0 = time.perf_counter()
+        for arch in LM_ONE_PERIOD:
+            full = get_config(arch, dtype=torch.float32)
+            cfg = dataclasses.replace(full, n_layers=len(full.pattern))
+            err, _, _, n_diff, n_all = card_vs_cpu(cfg, 20, 16, 1e-3, 100)
+            share = f"{n_diff} of {n_all} MoE assignments differ" if n_all else "no MoE layer"
+            say(f"  {arch}, one period at full width (d {cfg.d_model}, vocab {cfg.vocab_size}, "
+                f"{cfg.param_count() / 1e9:.2f} B params): card against CPU {err:.2e} of max|cpu| (tolerance 1e-3); "
+                f"{share} [{smi}]")
+        say(f"phase 20b: {time.perf_counter() - t0:.1f} s")
+    finally:
+        lm_moe._dispatch_row = dispatch_row
+    torch.cuda.empty_cache()
+
+    # (c) the full configs in bfloat16, served through generate twice
+    for arch in LM_ONE_PERIOD:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        params, prompt, enc_out = make_inputs(cfg, LM_FULL["batch"], LM_FULL["prompt"], seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        runs = [generate(params, cfg, prompt, LM_FULL["tokens"], enc_out=enc_out) for _ in range(2)]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not all(g.finite for g in runs):
+            fail(f"{arch}: a logit is not finite")
+        if not torch.equal(runs[0].tokens, runs[1].tokens):
+            fail(f"{arch}: two runs gave different greedy tokens")
+        b, n = LM_FULL["batch"], LM_FULL["tokens"]
+        for j, g in enumerate(runs):
+            say(f"  {arch} (bf16, {cfg.n_layers} layers, {cfg.param_count() / 1e9:.2f} B params), batch {b}, prompt "
+                f"{LM_FULL['prompt']}, {n} tokens, run {j + 1}: prefill {g.prefill_ms:.2f} ms, decode "
+                f"{g.decode_ms:.2f} ms/step, {b * 1e3 / g.decode_ms:.1f} tokens/s; peak {peak:.2f} GB [{smi}]")
+        line = f"  {arch}: every logit finite, both runs' greedy tokens identical"
+        if cfg.moe is None:
+            # nothing is dropped: the last step's logits against the forward
+            # over the same tokens
+            seq = torch.cat([prompt, runs[1].tokens[:, :-1].to(dev)], dim=1)
+            with torch.no_grad():
+                ref = forward(params, seq, cfg, remat=False)[:, -1].float()
+            err = float((runs[1].logits.float() - ref).abs().max()) / float(ref.abs().max())
+            if err > 5e-2:
+                fail(f"{arch}: decode logits {err:.3e} of max|logit| off the forward (tolerance 5e-2)")
+            line += f"; decode against forward at the last position {err:.2e} of max|logit| (tolerance 5e-2)"
+        say(line + f"; parameters made in {init_s:.2f} s, {time.perf_counter() - t0:.1f} s in all")
+        del params, prompt, enc_out, runs
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2152,6 +2307,11 @@ def main() -> None:
     dist_phase(torch, np, kernels, dispatch, dev, main_final)
     del main_final
     say(f"phase 19: {time.perf_counter() - t0:.1f} s")
+
+    # -- 20. the language-model stack on the card ---------------------------------------------
+    t0 = time.perf_counter()
+    lm_phase(torch, dev, smi)
+    say(f"phase 20: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -31,6 +31,7 @@ from repro_torch.checkpoint import (
     save_ensemble_member,
     save_simulation,
 )
+from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.pic.grid import FieldState, GridSpec
 from repro_torch.pic.laser import inject_laser
@@ -57,20 +58,6 @@ __all__ = [
     "save_simulation",
     "spec_signature",
 ]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a `torch.device`; None means ``cuda``, which must exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def build_particles(spec: SimSpec, *, device=None) -> ParticleState:

@@ -1,7 +1,8 @@
 """Load-aware planning of the 2-D domain decomposition (the distributed
-driver's rebalance). Counterpart of the PIC half of
-`repro.distributed.sharding`; the reference's logical-axis rules belong to
-the language-model stack and are not here.
+driver's rebalance), and the language-model stack's logical-axis hooks in
+their one-device form. Counterpart of `repro.distributed.sharding`: the
+models call `constrain` where the reference does, and with no rule table
+set (the reference's rule tables are not ported yet) it is the identity.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ import numpy as np
 
 from repro_torch.core.shape_functions import max_guard
 
-__all__ = ["plan_balanced_split", "valid_mesh_splits"]
+__all__ = ["constrain", "current_rules", "plan_balanced_split", "valid_mesh_splits"]
 
 
 def valid_mesh_splits(n_devices: int, global_shape, order: int) -> list[tuple[int, int]]:
@@ -57,3 +58,16 @@ def plan_balanced_split(n_devices: int, global_shape, order: int, pos, alive):
         if best is None or key < best[0]:
             best = (key, (sx, sy, peak))
     return best[1]
+
+
+def current_rules():
+    """The active logical-axis rule table: None, as no table is set on one
+    device."""
+    return None
+
+
+def constrain(x, *axes):
+    """The reference's sharding constraint by logical axes; the identity
+    without rules."""
+    del axes
+    return x
