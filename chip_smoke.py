@@ -157,7 +157,34 @@ Phases, in order; any failure exits non-zero:
    decode ms a step, tokens/s and peak memory, every logit finite, both
    runs' greedy tokens identical, and for phi3 (nothing dropped) the last
    step's logits within 5e-2 of the largest of the forward's over the same
-   tokens.
+   tokens;
+21. language-model training (plain PyTorch ops, no kernel of the port's),
+   TF32 off: (a) every architecture's smoke config, 3 float32 train steps
+   (`repro_torch.train.make_train_step`) on the card and on the CPU from
+   the same initial state and batches: loss, grad norm and MoE load
+   balance within 1e-4 relative each step; the parameters within twice
+   the sum of the steps' learning rates everywhere (an early Adam step
+   moves a parameter by about lr * sign(g), and a gradient near 0 can flip
+   sign) and within 1e-4 of each leaf's largest at all but 0.5% of it; (b)
+   tests/test_training.py's ``tiny`` and ``tiny_moe`` on the card: two
+   straight 10-step runs bit-equal, a `Supervisor` run with async saves
+   every 2 steps and a failure injected at step 6 bit-equal to them, and
+   30 supervised steps taking the loss below 0.8 (``tiny``) and 0.9
+   (``tiny_moe``) of the first; (c) the two deterministic backwards at
+   full-width shapes, each run 3 times and bit-equal: the embedding's
+   (8192 Zipf ids into phi3-mini-3.8b's 32064 x 3072 table, bf16) and the
+   MoE dispatch gather's (deepseek-moe-16b's train shape, 2 x 4096 tokens,
+   top-6 of 64 experts, bf16), each timed beside the atomic route it
+   replaced, whose differing elements across 3 runs are printed; (d)
+   phi3-mini-3.8b at full width (32 layers, bf16 parameters, float32 AdamW
+   moments), train_4k's sequence 4096 at batch 2, remat, 6 steps through
+   the `Supervisor` (its checkpoint manager writes nothing here: saves are
+   held bit for bit at (b)'s sizes): ms a step, tokens/s, peak memory,
+   model TFLOP/s (4 x `launch.flops.forward_flops` over the step time) and
+   its share of the dense bf16 peak, the 6 losses, every one finite and
+   the last below the first; then one step with two microbatches from that
+   state, its ms and peak. No dispatcher resolution runs a plain version
+   on the card in this phase.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -197,6 +224,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # H100 SXM data sheet, dense, at its 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12      # float32 on the CUDA cores (the kernels use no tensor cores)
+PEAK_BF16_FLOPS = 989e12     # dense bfloat16 on the tensor cores (phase 21's model TFLOP/s share)
 FLOPS_PER_TAP = 8            # one B-spline tap: offset, |u|, branch, polynomial
 
 RTOL = ATOL = 1e-5           # kernel vs plain version: float32, different summation order
@@ -220,6 +248,10 @@ EMBED = dict(tokens=8192, vocab=32064, capacity=16, d=3072)
 LM_SMOKE_SEED = 0
 LM_FULL = dict(batch=4, prompt=128, tokens=32)     # phase 20(c): each full config's serving run
 LM_ONE_PERIOD = ("phi3-mini-3.8b", "deepseek-moe-16b")
+# phase 21: LM training. Full width: phi3-mini-3.8b at train_4k's sequence
+# (configs/shapes.py), its global batch of 256 cut to the 2 one card holds
+LM_TRAIN_FULL = dict(arch="phi3-mini-3.8b", batch=2, seq=4096, steps=6)
+LM_TRAIN_SMOKE_STEPS = 3
 
 
 # the kernel that a dispatcher op's backend launches once a step
@@ -1403,6 +1435,261 @@ def lm_phase(torch, dev, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+class _NoCheckpoint:
+    """A checkpoint manager that writes nothing: phase 21(d) runs the full
+    width through the `Supervisor` without a 38 GB save (saves and restores
+    are held bit for bit at (b)'s sizes). It counts the saves asked for."""
+
+    def __init__(self):
+        self.saves = 0
+
+    def save(self, step, tree, *, blocking=True):
+        self.saves += 1
+
+    def wait(self):
+        pass
+
+    def latest_step(self):
+        return None
+
+
+def train_phase(torch, np, dispatch, dev, smi: str) -> None:
+    """Phase 21: LM training on the card (see the module docstring)."""
+    import dataclasses
+    import statistics
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.distributed.fault import FailureInjector, Supervisor
+    from repro_torch.launch.flops import forward_flops
+    from repro_torch.launch.train import StepClock
+    from repro_torch.models import LayerSpec, ModelConfig, MoEConfig, params_from_numpy, params_to_numpy
+    from repro_torch.models import common as lm_common
+    from repro_torch.models import moe as lm_moe
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    torch.set_float32_matmul_precision("highest")
+    leaves = lm_common.tree_leaves
+    no_plain(dispatch, "before LM training")
+
+    def bit_equal(a, b) -> bool:
+        return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+    # (a) every arch's smoke config, 3 float32 steps, card against CPU
+    t0 = time.perf_counter()
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), schedule=ScheduleConfig(warmup_steps=2, total_steps=10))
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_smoke_config(arch)
+        cpu = init_train_state(torch.Generator().manual_seed(LM_SMOKE_SEED + i), cfg, device="cpu")
+        card = params_from_numpy(params_to_numpy(cpu), dev)
+        step = make_train_step(cfg, tcfg)
+        data = DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=16, seed=i)
+        worst, lrs = 0.0, []
+        for s in range(LM_TRAIN_SMOKE_STEPS):
+            batch = global_batch_at(s, data, device="cpu")
+            gen = torch.Generator().manual_seed(1000 + s)
+            if cfg.encoder_layers:
+                batch["frames"] = torch.randn((2, cfg.encoder_frames, cfg.d_model), generator=gen)
+            if cfg.prefix_tokens:
+                batch["prefix_embeddings"] = torch.randn((2, cfg.prefix_tokens, cfg.d_model), generator=gen)
+            cpu, m_cpu = step(cpu, batch)
+            card, m_card = step(card, {k: v.to(dev) for k, v in batch.items()})
+            lrs.append(tcfg.optimizer.lr * float(m_cpu["lr_scale"]))
+            for k in ("loss", "grad_norm", "moe_load_balance"):
+                if k not in m_cpu:
+                    continue
+                want, got = float(m_cpu[k]), float(m_card[k])
+                if not math.isfinite(got):
+                    fail(f"{arch} smoke train step {s}: {k} is not finite on the card")
+                err = abs(got - want) / max(abs(want), 1e-6)
+                if err > 1e-4:
+                    fail(f"{arch} smoke train step {s}: {k} {got!r} on the card, {want!r} on the CPU "
+                         f"(tolerance 1e-4 relative)")
+                worst = max(worst, err)
+        # an early Adam step moves a parameter by about lr * sign(g): a
+        # gradient near 0 can flip sign between the card and the CPU
+        p_err, stray, bound_abs = 0.0, 0.0, 2 * sum(lrs)
+        for a, b in zip(leaves(card["params"]), leaves(cpu["params"])):
+            diff = (a.cpu().double() - b.double()).abs()
+            scale = float(b.abs().max())
+            if float(diff.max()) > bound_abs * (1 + 1e-4):
+                fail(f"{arch} smoke: a parameter {float(diff.max()):.3e} off the CPU's after "
+                     f"{LM_TRAIN_SMOKE_STEPS} steps (tolerance 2 x the sum of the lr, {bound_abs:.1e})")
+            p_err = max(p_err, float(diff.max()) / max(scale, 1e-30))
+            stray = max(stray, float((diff > 1e-4 * scale).double().mean()))
+        if stray > 5e-3:
+            fail(f"{arch} smoke: {stray:.2%} of a leaf's parameters beyond 1e-4 of its largest off the CPU's")
+        say(f"  {arch} smoke, {LM_TRAIN_SMOKE_STEPS} train steps: loss, grad norm and MoE balance within "
+            f"{worst:.2e} of the CPU's (tolerance 1e-4); parameters within {p_err:.2e} of each leaf's largest, "
+            f"{stray:.2%} of a leaf beyond 1e-4 (tolerance 0.5%) [{smi}]")
+        del cpu, card
+    say(f"phase 21a: {time.perf_counter() - t0:.1f} s")
+
+    # (b) determinism on the card: tests/test_training.py's configs
+    t0 = time.perf_counter()
+    tiny = ModelConfig(name="tiny", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=64,
+                       pattern=(LayerSpec("attn"),))
+    tiny_moe = dataclasses.replace(tiny, name="tiny_moe", pattern=(LayerSpec("attn", "moe"),),
+                                   moe=MoEConfig(n_experts=4, top_k=2, capacity_factor=2.0))
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3), schedule=ScheduleConfig(warmup_steps=5, total_steps=100))
+    data = DataConfig(vocab_size=64, global_batch=8, seq_len=32, seed=0)
+    ckpt_root = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        for cfg, ratio in ((tiny, 0.8), (tiny_moe, 0.9)):
+            train_step = make_train_step(cfg, tcfg)
+
+            def step_fn(st, i):
+                return train_step(st, global_batch_at(i, data, device=dev))
+
+            def fresh():
+                return init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+
+            runs = []
+            for _ in range(2):
+                st = fresh()
+                for i in range(10):
+                    st, _ = step_fn(st, i)
+                runs.append(st)
+            if not bit_equal(runs[0], runs[1]):
+                fail(f"{cfg.name}: two straight 10-step runs on the card differ")
+            # a failure before step 6 finds the held state equal to the save
+            # of step 6 (the reference's test); one before step 7 finds it a
+            # step ahead, so the restore must roll it back and step 6 replays
+            for fail_at in (6, 7):
+                mgr = CheckpointManager(str(ckpt_root / cfg.name / f"crash{fail_at}"), keep=5)
+                sup = Supervisor(step_fn, mgr, save_every=2, injector=FailureInjector((fail_at,)), async_save=True)
+                crashed, last = sup.run(fresh(), 10)
+                replayed = [m["step"] for m in sup.metrics_log]
+                if (last != 10 or sup.restarts != 1 or replayed != [*range(fail_at), *range(6, 10)]
+                        or not bit_equal(crashed, runs[0])):
+                    fail(f"{cfg.name}: the run restored from the async save of step 6 after a failure at step "
+                         f"{fail_at} (saves every 2) is not bit-equal to the straight run (restarts "
+                         f"{sup.restarts}, steps run {replayed})")
+            sup = Supervisor(step_fn, CheckpointManager(str(ckpt_root / cfg.name / "long"), keep=2),
+                             async_save=True)
+            sup.run(fresh(), 30)
+            losses = [float(m["loss"]) for m in sup.metrics_log]
+            if not (all(math.isfinite(x) for x in losses) and losses[-1] < ratio * losses[0]):
+                fail(f"{cfg.name}: 30 supervised steps took the loss from {losses[0]:.4f} to {losses[-1]:.4f}, "
+                     f"not below {ratio} of the first")
+            say(f"  {cfg.name}: two straight 10-step runs bit-equal; failures at steps 6 and 7 restored from the "
+                f"async save of step 6 (at 7 rolled back a step and replayed), bit-equal to them; 30 supervised "
+                f"steps: loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f} (below {ratio} of the first)")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    say(f"phase 21b: {time.perf_counter() - t0:.1f} s")
+
+    # (c) the two repaired backwards at full-width shapes, each 3 times
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rng = np.random.default_rng(21)
+    zipf = 1.0 / np.arange(1, EMBED["vocab"] + 1)
+    ids = torch.from_numpy(rng.choice(EMBED["vocab"], size=EMBED["tokens"], p=zipf / zipf.sum())).to(dev)
+    table = torch.randn((EMBED["vocab"], EMBED["d"]), generator=gen, device=dev).to(torch.bfloat16)
+    table.requires_grad_(True)
+    g_rows = torch.randn((EMBED["tokens"], EMBED["d"]), generator=gen, device=dev).to(torch.bfloat16)
+
+    def embed_new():
+        return torch.autograd.grad(lm_common.embed_lookup(table, ids), table, g_rows)[0]
+
+    def embed_atomic():
+        # the float32 sums, before the cast to the table's dtype (which
+        # would hide most of the order's effect)
+        order = torch.argsort(ids, stable=True)
+        dt = torch.zeros((EMBED["vocab"], EMBED["d"]), dtype=torch.float32, device=dev)
+        dt.index_add_(0, ids[order], g_rows[order].float())
+        return dt
+
+    moe_cfg = get_config("deepseek-moe-16b").moe
+    b, s, d, k = 2, 4096, get_config("deepseek-moe-16b").d_model, moe_cfg.top_k
+    cap = lm_moe._capacity(s, moe_cfg)
+    logits = torch.randn((b, s, moe_cfg.n_experts), generator=gen, device=dev)
+    expert_ids = torch.topk(logits, k, dim=-1).indices
+    slot_token, a_slot, fits = lm_moe._dispatch_row(expert_ids, n_experts=moe_cfg.n_experts, cap=cap, s=s, k=k)
+    x = torch.randn((b, s, d), generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
+    cot = torch.randn((b, moe_cfg.n_experts * cap, d), generator=gen, device=dev).to(torch.bfloat16)
+
+    def dispatch_new():
+        return torch.autograd.grad(lm_moe._DispatchGather.apply(x, slot_token, a_slot, k), x, cot)[0]
+
+    def dispatch_atomic():
+        x_ext = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
+        out = torch.gather(x_ext, 1, slot_token.long()[..., None].expand(b, slot_token.shape[1], d))
+        return torch.autograd.grad(out, x, cot)[0]
+
+    for name, new, atomic, shape in (
+            ("embedding backward", embed_new, embed_atomic,
+             f"{EMBED['tokens']} Zipf ids into phi3's {EMBED['vocab']} x {EMBED['d']} table, bf16"),
+            ("MoE dispatch gather backward", dispatch_new, dispatch_atomic,
+             f"deepseek-moe-16b's train shape: {b} x {s} tokens, top-{k} of {moe_cfg.n_experts} experts, capacity "
+             f"{cap}, d {d}, bf16, {int((~fits).sum())} dropped assignments")):
+        outs = [new() for _ in range(3)]
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            fail(f"{name}: three runs on the card are not bit-equal")
+        ref = [atomic() for _ in range(3)]
+        n_diff = max(int((ref[0] != r).sum()) for r in ref[1:])
+        want = ref[0].to(outs[0].dtype).float()
+        err = float((outs[0].float() - want).abs().max()) / float(want.abs().max())
+        ms_new, ms_atomic = time_ms(torch, new, 5), time_ms(torch, atomic, 5)
+        say(f"  {name} ({shape}): 3 runs bit-equal; {ms_new:.3f} ms against the atomic route's {ms_atomic:.3f} "
+            f"ms, whose 3 runs differ in {n_diff} elements; new against atomic {err:.2e} of the largest (bf16 rounding) "
+            f"[{smi}]")
+        del outs, ref
+    del table, g_rows, x, cot
+    torch.cuda.empty_cache()
+    say(f"phase 21c: {time.perf_counter() - t0:.1f} s")
+
+    # (d) phi3-mini-3.8b at full width: bf16 params, float32 moments,
+    # train_4k's sequence at batch 2, remat on, through the Supervisor
+    t0 = time.perf_counter()
+    cfg = get_config(LM_TRAIN_FULL["arch"])
+    bsz, seq, n = LM_TRAIN_FULL["batch"], LM_TRAIN_FULL["seq"], LM_TRAIN_FULL["steps"]
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), schedule=ScheduleConfig(warmup_steps=10, total_steps=n))
+    data = DataConfig(vocab_size=cfg.vocab_size, global_batch=bsz, seq_len=seq, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    clock = StepClock(dev)
+    train_step = clock.wrap(make_train_step(cfg, tcfg))
+    saver = _NoCheckpoint()
+    sup = Supervisor(lambda st, i: train_step(st, global_batch_at(i, data, device=dev)), saver, async_save=True)
+    state, _ = sup.run(state, n)
+    step_ms = clock.ms()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in sup.metrics_log]
+    if len(losses) != n or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{cfg.name} at full width: losses {losses} (every one finite and the last below the first)")
+    ms = statistics.median(step_ms[1:])
+    fwd = forward_flops(cfg, n_tokens=bsz * seq, s_ctx=seq / 2, enc_tokens=0)
+    tflops = 4.0 * fwd / (ms * 1e-3) / 1e12
+    say(f"  {cfg.name} (bf16, {cfg.n_layers} layers, {cfg.param_count() / 1e9:.2f} B params, float32 moments; "
+        f"state {state_gb:.2f} GB), batch {bsz} x {seq}, remat, {n} steps through the Supervisor: {ms:.1f} ms/step "
+        f"(median of steps 2-{n}; first {step_ms[0]:.1f}), {bsz * seq * 1e3 / ms:.1f} tokens/s, peak {peak:.2f} GB, "
+        f"{tflops:.1f} model TFLOP/s (4 x forward_flops {fwd / 1e12:.2f} TFLOP), {tflops * 1e12 / PEAK_BF16_FLOPS:.1%} "
+        f"of the dense bf16 peak {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; saves asked {saver.saves} (not written) [{smi}]")
+    say("  losses " + " ".join(f"{x:.4f}" for x in losses))
+    # one step with two microbatches from the same state
+    torch.cuda.reset_peak_memory_stats()
+    clock2 = StepClock(dev)
+    mb_step = clock2.wrap(make_train_step(cfg, dataclasses.replace(tcfg, microbatches=2)))
+    state, m = mb_step(state, global_batch_at(n, data, device=dev))
+    mb_ms = clock2.ms()[0]
+    mb_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not math.isfinite(float(m["loss"])):
+        fail(f"{cfg.name}: the microbatches=2 step's loss is not finite")
+    say(f"  microbatches=2, one step from that state: {mb_ms:.1f} ms, peak {mb_peak:.2f} GB, loss "
+        f"{float(m['loss']):.4f} [{smi}]")
+    del state, sup, m
+    torch.cuda.empty_cache()
+    say(f"phase 21d: {time.perf_counter() - t0:.1f} s")
+    no_plain(dispatch, "LM training")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2312,6 +2599,11 @@ def main() -> None:
     t0 = time.perf_counter()
     lm_phase(torch, dev, smi)
     say(f"phase 20: {time.perf_counter() - t0:.1f} s")
+
+    # -- 21. language-model training on the card ---------------------------------------------
+    t0 = time.perf_counter()
+    train_phase(torch, np, dispatch, dev, smi)
+    say(f"phase 21: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -28,12 +28,13 @@ supervisor's autosave (`Simulation.run(autosave_every=N)`), and
 `clean_stale_tmp` sweeps what killed writers left behind.
 
 `CheckpointManager` is the reference's step-stamped store of a tree of
-tensors (nested dicts), which `grad.fit` keeps its {params, optimizer}
-state in: ``step_XXXXXXXXX/arrays.npz`` and ``manifest.json`` (leaf names,
-shapes, dtypes, CRC32s), a ``LATEST`` file, atomic renames and keep-k
-garbage collection. Leaf names are the strings JAX's key paths give for
-the same dicts (``['opt']/['mu']/['laser.a0']``), so a fit saved by either
-package resumes in the other.
+tensors (nested dicts, tuples and lists), which `grad.fit` keeps its
+{params, optimizer} state in and the LM `Supervisor` its train state:
+``step_XXXXXXXXX/arrays.npz`` and ``manifest.json`` (leaf names, shapes,
+dtypes, CRC32s), a ``LATEST`` file, atomic renames, keep-k garbage
+collection and a background-thread save. Leaf names are the strings JAX's
+key paths give for the same trees (``['opt']/['mu']/['laser.a0']``), so a
+fit saved by either package resumes in the other.
 
 An ensemble member (`repro_torch.pic.ensemble.EnsembleSimulation`) is saved
 as a standard single-driver checkpoint (`save_ensemble_member`, loadable by
@@ -49,6 +50,7 @@ import dataclasses
 import json
 import os
 import shutil
+import threading
 import zlib
 
 import numpy as np
@@ -504,54 +506,106 @@ class SimCheckpointer:
         return True
 
 
-# -- the step-stamped tree store (the fit's checkpoints) ----------------------------
+# -- the step-stamped tree store (the fit's and the LM trainer's checkpoints) ---------
 
 
 def _flatten_with_names(tree, path=()) -> list[tuple[str, torch.Tensor]]:
-    """(name, leaf) pairs of nested dicts, keys sorted, each named as JAX's
-    ``tree_flatten_with_path`` names it (``['opt']/['mu']/['laser.a0']``)."""
+    """(name, leaf) pairs of nested dicts, tuples and lists, dict keys sorted,
+    each named as JAX's ``tree_flatten_with_path`` names it
+    (``['opt']/['mu']/['laser.a0']``, ``['params']/['layers']/[0]/...``)."""
     if isinstance(tree, dict):
-        return [pair for k in sorted(tree) for pair in _flatten_with_names(tree[k], path + (k,))]
-    return [("/".join(f"[{k!r}]" for k in path), tree)]
+        return [pair for k in sorted(tree) for pair in _flatten_with_names(tree[k], path + (f"[{k!r}]",))]
+    if isinstance(tree, (tuple, list)):
+        return [pair for i, t in enumerate(tree) for pair in _flatten_with_names(t, path + (f"[{i}]",))]
+    return [("/".join(path), tree)]
 
 
-def _unflatten_like(tree, leaves):
-    """``tree``'s nested dicts with its leaves replaced, in flattening
-    order, by those of the iterator ``leaves``."""
-    if isinstance(tree, dict):
-        return {k: _unflatten_like(tree[k], leaves) for k in sorted(tree)}
-    return next(leaves)
+def _host_bits(leaf: torch.Tensor, *, own: bool) -> tuple[np.ndarray, str]:
+    """A leaf on the host as numpy, and its dtype's name: a bfloat16 leaf as
+    its 16-bit patterns (numpy has no bfloat16), named ``bfloat16``. With
+    ``own`` a leaf already on the host is copied, so that later in-place
+    updates of it do not reach the array."""
+    t = leaf.detach()
+    name = "bfloat16" if t.dtype == torch.bfloat16 else None
+    if name:
+        t = t.view(torch.int16)
+    if t.device.type == "cpu" and own:
+        t = t.clone()
+    a = t.cpu().numpy()
+    return a, name or str(a.dtype)
+
+
+def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A stored array as a tensor on the host, bfloat16 patterns as
+    bfloat16 (also the reference's `ml_dtypes` bfloat16, 2-byte items)."""
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class CheckpointManager:
     """Step-stamped checkpoints of a tree of tensors under ``directory``,
     the newest ``keep`` kept. Counterpart of
-    `repro.checkpoint.CheckpointManager` (single process; leaves are written
-    from the host, blocking: the reference's background-thread save has no
-    caller here)."""
+    `repro.checkpoint.CheckpointManager` (single process).
+
+    ``save(..., blocking=False)`` copies every leaf to the host before it
+    returns and writes the files on a background thread, which ``wait()``
+    joins (and re-raises what it raised): a caller may update its tensors in
+    place as soon as ``save`` returns. ``restore`` copies the stored leaves
+    into the caller's tensors, so a full-width state is never held twice on
+    the device. bfloat16 leaves are stored as their bit
+    patterns, with ``bfloat16`` in the manifest, and restored bit for bit."""
 
     def __init__(self, directory: str, *, keep: int = 3):
         self.directory = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         clean_stale_tmp(directory)
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
 
-    def save(self, step: int, tree) -> None:
+    def save(self, step: int, tree, *, blocking: bool = True) -> None:
         """Write ``tree`` as ``step_<step:09d>`` (atomically), point
-        ``LATEST`` at it, and drop all but the newest ``keep``."""
+        ``LATEST`` at it, and drop all but the newest ``keep``. With
+        ``blocking=False`` the write runs on a background thread; the host
+        copies are made before this returns."""
         pairs = _flatten_with_names(tree)
         names = [n for n, _ in pairs]
-        host_leaves = [_host(x) for _, x in pairs]
+        host = [_host_bits(x, own=not blocking) for _, x in pairs]
+        if blocking:
+            self._write(step, names, host)
+            return
+        self.wait()
+        self._thread = threading.Thread(target=self._write_logged, args=(step, names, host), daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the background write, if any, and raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _write_logged(self, step: int, names, host) -> None:
+        try:
+            self._write(step, names, host)
+        except Exception as exc:  # noqa: BLE001 — handed to wait(), which re-raises it
+            self._error = exc
+
+    def _write(self, step: int, names, host) -> None:
+        arrays = [a for a, _ in host]
         final = os.path.join(self.directory, f"step_{step:09d}")
         tmp = final + f".tmp-{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)
-        np.savez(os.path.join(tmp, "arrays.npz"), **{f"a{i}": a for i, a in enumerate(host_leaves)})
+        np.savez(os.path.join(tmp, "arrays.npz"), **{f"a{i}": a for i, a in enumerate(arrays)})
         manifest = {
             "step": step,
             "names": names,
-            "shapes": [list(a.shape) for a in host_leaves],
-            "dtypes": [str(a.dtype) for a in host_leaves],
-            "checksums": [_crc(a) for a in host_leaves],
+            "shapes": [list(a.shape) for a in arrays],
+            "dtypes": [dt for _, dt in host],
+            "checksums": [_crc(a) for a in arrays],
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -579,9 +633,10 @@ class CheckpointManager:
         with open(path) as f:
             return int(f.read().strip())
 
-    def restore(self, tree_like, step: int | None = None):
-        """Restore into the structure of ``tree_like`` (tensors whose dtype
-        and device the restored leaves take). Returns ``(tree, step)``."""
+    def restore(self, tree, step: int | None = None):
+        """Copy checkpoint ``step`` (the latest by default) into the tensors
+        of ``tree``, which keep their dtype and device. Returns ``(tree,
+        step)``."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found under {self.directory}")
@@ -597,12 +652,14 @@ class CheckpointManager:
             bad = [n for n, a, c in zip(manifest["names"], arrays, manifest["checksums"]) if _crc(a) != c]
             if bad or len(manifest["checksums"]) != len(arrays):
                 raise ValueError(f"corrupt checkpoint at {d}: checksum mismatch for {bad}")
-        pairs = _flatten_with_names(tree_like)
+        pairs = _flatten_with_names(tree)
         if [n for n, _ in pairs] != manifest["names"]:
             raise ValueError(f"checkpoint/model structure mismatch at {d}")
-        out = []
-        for arr, (name, like) in zip(arrays, pairs):
-            if tuple(arr.shape) != tuple(like.shape):
-                raise ValueError(f"checkpoint leaf {name} has shape {arr.shape}, expected {tuple(like.shape)}")
-            out.append(torch.from_numpy(arr).to(dtype=like.dtype, device=like.device))
-        return _unflatten_like(tree_like, iter(out)), step
+        dtypes = manifest.get("dtypes", [str(a.dtype) for a in arrays])
+        for arr, (name, leaf) in zip(arrays, pairs):
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"checkpoint leaf {name} has shape {arr.shape}, expected {tuple(leaf.shape)}")
+        with torch.no_grad():
+            for arr, dt, (_, leaf) in zip(arrays, dtypes, pairs):
+                leaf.copy_(_from_host(arr, dt))
+        return tree, step

@@ -11,15 +11,22 @@ into the step's input on the device), a forced receive-side migration drop
 a health halt rolls the window back to its entry snapshot and retries under
 an escalating remedy ladder; an exception restores the latest autosave.
 
-The training loop's generic pieces of the reference's module
-(`FailureInjector`, `StragglerMonitor`, `Supervisor`) belong to the
-language-model stack and are not here.
+The training loop's pieces of the reference's module are here too:
+`FailureInjector` (raises `SimulatedFailure` at chosen steps),
+`StragglerMonitor` (a step-time EMA that flags slow steps) and
+`Supervisor`, the checkpoint/restart loop around a step function. Its
+restore copies the checkpoint into the state it holds (the train step
+updates that state in place), and it keeps the reference's quirk: a failure
+before the first checkpoint replays from ``start_step`` on the state it
+holds, advanced as it is.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
+from typing import Callable
 
 import torch
 
@@ -36,6 +43,105 @@ log = logging.getLogger("repro_torch.fault")
 
 class SimulatedFailure(RuntimeError):
     pass
+
+
+# -- the training loop's fault tolerance ----------------------------------------------------
+
+
+class FailureInjector:
+    """Raises SimulatedFailure at the given step numbers (test/chaos tool)."""
+
+    def __init__(self, fail_at_steps=(), fail_once: bool = True):
+        self.fail_at = set(fail_at_steps)
+        self.fail_once = fail_once
+        self.fired: set[int] = set()
+
+    def maybe_fail(self, step: int) -> None:
+        if step in self.fail_at and (not self.fail_once or step not in self.fired):
+            self.fired.add(step)
+            raise SimulatedFailure(f"injected failure at step {step}")
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """Step-time EMA; flags steps slower than ``threshold`` x the EMA (a
+    flagged step does not enter the EMA)."""
+
+    threshold: float = 3.0
+    ema: float | None = None
+    alpha: float = 0.1
+    flagged: int = 0
+
+    def record(self, dt: float) -> bool:
+        is_straggler = self.ema is not None and dt > self.threshold * self.ema
+        if is_straggler:
+            self.flagged += 1
+            log.warning("straggler step: %.4fs vs EMA %.4fs", dt, self.ema)
+        else:
+            self.ema = dt if self.ema is None else (1 - self.alpha) * self.ema + self.alpha * dt
+        return is_straggler
+
+
+class Supervisor:
+    """Checkpoint/restart wrapper around a step function.
+
+    ``step_fn(state, step_idx) -> (state, metrics)``; the state is a tree
+    of tensors that ``checkpoint_manager`` (a `checkpoint.CheckpointManager`)
+    can save. Restores on any exception, up to ``max_restarts`` times, by
+    copying the latest checkpoint into the state held."""
+
+    def __init__(
+        self,
+        step_fn: Callable,
+        checkpoint_manager,
+        *,
+        save_every: int = 50,
+        max_restarts: int = 10,
+        injector: FailureInjector | None = None,
+        straggler: StragglerMonitor | None = None,
+        async_save: bool = True,
+    ):
+        self.step_fn = step_fn
+        self.ckpt = checkpoint_manager
+        self.save_every = save_every
+        self.max_restarts = max_restarts
+        self.injector = injector
+        self.straggler = straggler or StragglerMonitor()
+        self.async_save = async_save
+        self.restarts = 0
+        self.metrics_log: list[dict] = []
+
+    def run(self, state, n_steps: int, *, start_step: int = 0):
+        step = start_step
+        while step < n_steps:
+            try:
+                if self.injector is not None:
+                    self.injector.maybe_fail(step)
+                t0 = time.perf_counter()
+                state, metrics = self.step_fn(state, step)
+                dt = time.perf_counter() - t0
+                is_straggler = self.straggler.record(dt)
+                self.metrics_log.append(dict(metrics, step=step, step_time=dt, straggler=is_straggler))
+                step += 1
+                if step % self.save_every == 0 or step == n_steps:
+                    self.ckpt.save(step, state, blocking=not self.async_save)
+            except Exception as exc:  # noqa: BLE001 — any failure = node loss
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise
+                log.warning("step %d failed (%s); restoring latest checkpoint", step, exc)
+                self.ckpt.wait()
+                latest = self.ckpt.latest_step()
+                if latest is None:
+                    # nothing saved yet: replay from start_step on the state held
+                    step = start_step
+                    continue
+                state, step = self.ckpt.restore(state)
+        self.ckpt.wait()
+        return state, step
+
+
+# -- the simulation drivers' chaos harness -------------------------------------------------
 
 
 # Injected fault kinds, encoded into a device vector [kind, step,

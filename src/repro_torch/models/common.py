@@ -193,7 +193,13 @@ def rmsnorm(params, x, eps: float = 1e-6):
 class _EmbedLookup(torch.autograd.Function):
     """``table[ids]``; the backward sorts the flat ids (stable) and adds the
     cotangent rows into a float32 table in that order, cast back to the
-    table's dtype (the reference's custom VJP, `common.py:158-181`)."""
+    table's dtype (the reference's custom VJP, `common.py:158-181`).
+
+    The rows are added with ``index_put_(..., accumulate=True)``: on a card
+    it sorts the indices (a stable radix sort) and adds each id's run of
+    rows one after another, with no atomics, so the gradient repeats bit
+    for bit as the reference's does. ``index_add_`` adds them with atomics
+    there, in no fixed order. On the CPU both add in the ids' order."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -212,7 +218,7 @@ class _EmbedLookup(torch.autograd.Function):
             flat_ids = flat_ids[order]
             flat_g = flat_g[order]
         dt = torch.zeros((v, d), dtype=torch.float32, device=g.device)
-        dt.index_add_(0, flat_ids, flat_g.float())
+        dt.index_put_((flat_ids.long(),), flat_g.float(), accumulate=True)
         return dt.to(ctx.table_dtype), None
 
 

@@ -89,6 +89,40 @@ def _dispatch_row(expert_ids_k, *, n_experts: int, cap: int, s: int, k: int):
     return slot_token, a_slot, fits
 
 
+class _DispatchGather(torch.autograd.Function):
+    """Stage 2's gather of the tokens into the binned buffer: ``x_ext[b,
+    slot_token[b, j]]``, with ``x_ext`` the tokens and a zero row ``s`` for
+    the gap slots.
+
+    Its backward reads each token's gradient back through ``a_slot``: the
+    cotangents of token t's k slots, added in k order, a dropped assignment
+    (slot ``E*cap``) adding a zero row. That is a gather with no atomics,
+    so it repeats bit for bit on a card. `torch.gather`'s own backward
+    scatter-adds every slot into its token with atomics, up to k into one
+    token and every gap into the zero row, in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, slot_token, a_slot, k: int):
+        b, _, d = x.shape
+        ctx.save_for_backward(a_slot)
+        ctx.k = k
+        x_ext = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
+        return torch.gather(x_ext, 1, slot_token.long()[..., None].expand(b, slot_token.shape[1], d))
+
+    @staticmethod
+    def backward(ctx, g):
+        (a_slot,) = ctx.saved_tensors
+        b, _, d = g.shape
+        k = ctx.k
+        g_ext = torch.cat([g, g.new_zeros((b, 1, d))], dim=1)
+        picked = torch.gather(g_ext, 1, a_slot.long()[..., None].expand(b, a_slot.shape[1], d))
+        picked = picked.reshape(b, a_slot.shape[1] // k, k, d)
+        gx = picked[:, :, 0]
+        for j in range(1, k):
+            gx = gx + picked[:, :, j]
+        return gx, None, None, None
+
+
 def moe_apply(params, x, cfg: ModelConfig):
     """x: (B, S, d) -> (y (B, S, d), aux (load_balance, dropped_frac)).
     Sorted-dispatch, capacity-dropped MoE; the dispatch is per sequence, the
@@ -108,9 +142,8 @@ def moe_apply(params, x, cfg: ModelConfig):
     # --- stage 1: per-sequence counting sort into gapped expert bins
     slot_token, a_slot, fits = _dispatch_row(expert_ids, n_experts=m.n_experts, cap=cap, s=s, k=k)
 
-    # --- stage 2: gather into the binned buffer (row s of x_ext is zero)
-    x_ext = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    buf = torch.gather(x_ext, 1, slot_token.long()[..., None].expand(b, m.n_experts * cap, d))
+    # --- stage 2: gather into the binned buffer (gap slots read a zero row)
+    buf = _DispatchGather.apply(x, slot_token, a_slot, k)
     buf = buf.reshape(b, m.n_experts, cap, d)
     buf = constrain(buf, "batch", "experts", None, None)
 
@@ -120,7 +153,10 @@ def moe_apply(params, x, cfg: ModelConfig):
     out_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
     out_buf = constrain(out_buf, "batch", "experts", None, None)
 
-    # --- stage 3: weighted combine (row E*cap of out_flat is zero)
+    # --- stage 3: weighted combine (row E*cap of out_flat is zero). The
+    # gather's backward scatter-adds into out_flat, but each kept slot holds
+    # one assignment: only the discarded zero row E*cap takes more than one
+    # add, so the rows that are kept repeat bit for bit on a card.
     out_flat = torch.cat([out_buf.reshape(b, m.n_experts * cap, d), out_buf.new_zeros((b, 1, d))], dim=1)
     picked = torch.gather(out_flat, 1, a_slot.long()[..., None].expand(b, s * k, d)).reshape(b, s, k, d)
     y = torch.sum(picked * gate_vals[..., None].to(picked.dtype), dim=2)

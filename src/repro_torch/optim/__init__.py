@@ -5,6 +5,7 @@ from repro_torch.optim.adamw import (  # noqa: F401
     ScheduleConfig,
     adamw_init,
     adamw_update,
+    adamw_update_,
     clip_by_global_norm,
     global_norm,
     lr_schedule,

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
-from repro_torch.checkpoint import tree_member_set, tree_member_slice
+from repro_torch import checkpoint as _checkpoint  # a module: checkpoint imports pic in turn
 from repro_torch.core.binning import build_bins, cell_index, choose_capacity
 from repro_torch.core.health import HALT_BIN_OVERFLOW, HALT_NAMES, HALT_NONE
 from repro_torch.core.resort_policy import SortPolicyConfig, SortPolicyState, policy_init
@@ -92,7 +92,7 @@ def unstack_tree(tree, n: int | None = None) -> list:
     """A stacked tree's members, as views."""
     if n is None:
         n = _first_tensor(tree).shape[0]
-    return [tree_member_slice(tree, i) for i in range(n)]
+    return [_checkpoint.tree_member_slice(tree, i) for i in range(n)]
 
 
 def _first_tensor(tree) -> torch.Tensor | None:
@@ -231,16 +231,16 @@ class EnsembleSimulation:
 
     def member_state(self, i: int) -> PICState:
         """Member i's state: views of the bucket's tensors."""
-        return dataclasses.replace(tree_member_slice(self._state, i), step=int(self.host_step[i]))
+        return dataclasses.replace(_checkpoint.tree_member_slice(self._state, i), step=int(self.host_step[i]))
 
     def member_policy_state(self, i: int) -> SortPolicyState:
-        return tree_member_slice(self.policy_state, i)
+        return _checkpoint.tree_member_slice(self.policy_state, i)
 
     def set_member(self, i: int, state: PICState, pstate: SortPolicyState) -> None:
         """Write a member's state and policy state, of the bucket's shapes,
         into slot i in place: a captured window stays valid."""
-        tree_member_set(self._state, i, state)
-        tree_member_set(self.policy_state, i, pstate)
+        _checkpoint.tree_member_set(self._state, i, state)
+        _checkpoint.tree_member_set(self.policy_state, i, pstate)
 
     def _read(self, tensor: torch.Tensor):
         """Every device-to-host read of a run goes through here."""
