@@ -184,7 +184,32 @@ Phases, in order; any failure exits non-zero:
    its share of the dense bf16 peak, the 6 losses, every one finite and
    the last below the first; then one step with two microbatches from that
    state, its ms and peak. No dispatcher resolution runs a plain version
-   on the card in this phase.
+   on the card in this phase;
+22. the language-model stack's distributed pieces, every mesh axis held on
+   the card (plain PyTorch ops, no kernel of the port's), TF32 off: (a)
+   21(d)'s initial state and batches under the rules of a (2, 2) (data,
+   model) mesh (`rules_for`), 3 steps through the `Supervisor`: the losses
+   bit-equal to 21(d)'s first 3, with no argsort in them (the embedding
+   backward adds its rows unsorted under rules; alone at the same shapes
+   its gradient is bit-equal to the pre-sorted one's), ms a step and peak
+   memory; (b) GPipe
+   (`distributed.pipeline`): phi3-mini-3.8b's 32 periods as 4 stages of 8,
+   views of the layer stack, 8 microbatches of 1 x 512 bf16 hidden states
+   through the model's own block, no grad: bit-equal to the sequential
+   composition of the stages, both timed beside the schedule's 44/32 stage
+   calls; check B's shapes (tests/dist_lm_check.py: 4 stages, 8
+   microbatches of 4 x 16, tanh(x @ w)) within 1e-5 of the sequential
+   composition; (c) the int8 error-feedback all-reduce
+   (`distributed.compression`): check C (8 stacked data shards, 60 AdamW
+   steps of a 16x16 linear model, examples/torch_dist_lm.py) meeting the
+   reference's two criteria on the card, its losses printed beside the
+   CPU's; one reduction of the same stacked grads and residuals (float32
+   and bfloat16) bit-equal card against CPU in the compressed mean, the
+   residuals and the exact mean; one phi3-mini-3.8b period's gradient
+   leaves in bf16 over 8 shards with float32 residuals: the compressed and
+   the exact reduction timed, the int8 payload's bytes, and the
+   error-feedback identity n * mean + sum(new_r) = sum(g + r) within 4
+   float32 roundings of sum|g + r| + n|mean|.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -252,6 +277,11 @@ LM_ONE_PERIOD = ("phi3-mini-3.8b", "deepseek-moe-16b")
 # (configs/shapes.py), its global batch of 256 cut to the 2 one card holds
 LM_TRAIN_FULL = dict(arch="phi3-mini-3.8b", batch=2, seq=4096, steps=6)
 LM_TRAIN_SMOKE_STEPS = 3
+# phase 22: the LM's distributed pieces, every mesh axis on the one card:
+# 21(d)'s first steps under a (2, 2) mesh's rules; phi3's 32 periods as 4
+# GPipe stages of 8 over 8 microbatches of 1 x 512 hidden states; the
+# compressed all-reduce over 8 stacked data shards
+LM_DIST = dict(steps=3, data=2, model=2, stages=4, micro=8, mb_seq=512, shards=8)
 
 
 # the kernel that a dispatcher op's backend launches once a step
@@ -1311,7 +1341,7 @@ def lm_phase(torch, dev, smi: str) -> None:
     from repro_torch.launch.serve import generate, make_inputs
     from repro_torch.models import decode_step, encode, forward, init_decode_state, init_params
     from repro_torch.models import moe as lm_moe
-    from repro_torch.models.common import tree_map
+    from repro_torch.tree import tree_map
 
     torch.set_float32_matmul_precision("highest")
     # every MoE dispatch of a run, recorded as (expert ids, slot_token, a_slot, fits)
@@ -1453,8 +1483,9 @@ class _NoCheckpoint:
         return None
 
 
-def train_phase(torch, np, dispatch, dev, smi: str) -> None:
-    """Phase 21: LM training on the card (see the module docstring)."""
+def train_phase(torch, np, dispatch, dev, smi: str) -> list[float]:
+    """Phase 21: LM training on the card (see the module docstring).
+    Returns (d)'s losses."""
     import dataclasses
     import statistics
 
@@ -1688,6 +1719,230 @@ def train_phase(torch, np, dispatch, dev, smi: str) -> None:
     torch.cuda.empty_cache()
     say(f"phase 21d: {time.perf_counter() - t0:.1f} s")
     no_plain(dispatch, "LM training")
+    return losses
+
+
+def lm_dist_phase(torch, np, dispatch, dev, smi: str, full_losses: list[float]) -> None:
+    """Phase 22: the LM's distributed pieces on the card (see the module
+    docstring). ``full_losses``: phase 21(d)'s."""
+    import importlib.util
+    import statistics
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.distributed import Rules, Supervisor, use_rules
+    from repro_torch.distributed.compression import compressed_psum_grads, exact_pmean_grads
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.launch.train import StepClock
+    from repro_torch.models.common import embed_lookup
+    from repro_torch.models.transformer import _block_apply, init_params
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.set_float32_matmul_precision("highest")
+    spec_ex = importlib.util.spec_from_file_location("torch_dist_lm", ROOT / "examples" / "torch_dist_lm.py")
+    ex = importlib.util.module_from_spec(spec_ex)
+    spec_ex.loader.exec_module(ex)
+
+    # (a) 21(d)'s initial state and batches under a (data, model) mesh's rules
+    t0 = time.perf_counter()
+    cfg = get_config(LM_TRAIN_FULL["arch"])
+    bsz, seq, n = LM_TRAIN_FULL["batch"], LM_TRAIN_FULL["seq"], LM_TRAIN_FULL["steps"]
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), schedule=ScheduleConfig(warmup_steps=10, total_steps=n))
+    data = DataConfig(vocab_size=cfg.vocab_size, global_batch=bsz, seq_len=seq, seed=0)
+    mesh = {"data": LM_DIST["data"], "model": LM_DIST["model"]}
+    rules = Rules(rules_for(cfg, mode="train", multi_pod=False, data_axis=mesh["data"], model_axis=mesh["model"]),
+                  mesh)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    clock = StepClock(dev)
+    train_step = clock.wrap(make_train_step(cfg, tcfg))
+    sup = Supervisor(lambda st, i: train_step(st, global_batch_at(i, data, device=dev)), _NoCheckpoint(),
+                     async_save=True)
+    # phi3 is dense: the embedding backward's pre-sort is the step's only
+    # argsort, so counting argsort's calls shows which branch ran
+    argsort, sorts = torch.argsort, [0]
+
+    def counted_argsort(*a, **k):
+        sorts[0] += 1
+        return argsort(*a, **k)
+
+    torch.argsort = counted_argsort
+    try:
+        with use_rules(rules):
+            sup.run(state, LM_DIST["steps"])
+    finally:
+        torch.argsort = argsort
+    step_ms = clock.ms()
+    losses = [float(m["loss"]) for m in sup.metrics_log]
+    want = full_losses[:LM_DIST["steps"]]
+    if losses != want:
+        fail(f"{cfg.name} under the rules of mesh {mesh}: losses {losses!r}, phase 21(d)'s {want!r} (bit-equal)")
+    if sorts[0] != 0:
+        fail(f"{cfg.name} under the rules of mesh {mesh}: {sorts[0]} argsort calls in {LM_DIST['steps']} steps "
+             "(the embedding backward must skip its pre-sort under rules)")
+    # the same branch alone at the main path's shapes, against the pre-sort
+    table = state["params"]["embed"]["table"].detach().requires_grad_(True)
+    ids = global_batch_at(0, data, device=dev)["inputs"]
+    cot = torch.randn((bsz, seq, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(7),
+                      device=dev).to(table.dtype)
+    grads, counts = [], []
+    torch.argsort = counted_argsort
+    try:
+        for r in (None, rules):
+            sorts[0] = 0
+            with use_rules(r):
+                y = embed_lookup(table, ids)
+            grads.append(torch.autograd.grad(y, table, cot)[0])
+            counts.append(sorts[0])
+    finally:
+        torch.argsort = argsort
+    if counts != [1, 0] or not torch.equal(*grads):
+        fail(f"embedding backward at {tuple(ids.shape)} ids into {tuple(table.shape)}: argsort calls "
+             f"{counts} (want [1, 0] without and with rules), bit-equal {torch.equal(*grads)}")
+    del table, grads, cot
+    say(f"  {cfg.name} at full width under mesh {mesh}'s rules ("
+        + ", ".join(f"{k}={v}" for k, v in rules.table.items() if v is not None)
+        + f"), {LM_DIST['steps']} steps through the Supervisor: losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f", bit-equal to phase 21(d)'s first {LM_DIST['steps']}, no argsort in them (the embedding backward "
+        "unsorted under rules; alone at these shapes its gradient is bit-equal to the pre-sorted one's); "
+        f"{statistics.median(step_ms[1:]):.1f} ms/step (median of steps 2-{LM_DIST['steps']}; first "
+        f"{step_ms[0]:.1f}), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{smi}]")
+    del state, sup
+    torch.cuda.empty_cache()
+    say(f"phase 22a: {time.perf_counter() - t0:.1f} s")
+
+    # (b) GPipe: phi3's periods as stacked stages, on views of the layer stack
+    t0 = time.perf_counter()
+    n_st, n_mb, mb_seq = LM_DIST["stages"], LM_DIST["micro"], LM_DIST["mb_seq"]
+    per = cfg.n_periods // n_st
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    layers = params["layers"][0]            # phi3's pattern is one block: a period is a layer
+    stages = tree_map(lambda a: a.view(n_st, per, *a.shape[1:]), layers)
+    if any(a.data_ptr() != b.data_ptr() for a, b in zip(tree_leaves(stages), tree_leaves(layers))):
+        fail("the GPipe stages are not views of the layer stack")
+    spec = cfg.pattern[0]
+    pos = torch.arange(mb_seq, dtype=torch.int32, device=dev)
+
+    def stage_fn(p, x):
+        for i in range(per):
+            x, _, _ = _block_apply(tree_map(lambda a: a[i], p), x, spec, cfg, positions=pos, cache=None,
+                                   cache_index=None, causal=True, enc_out=None)
+        return x
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    hidden = torch.randn((n_mb, 1, mb_seq, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+
+    def piped():
+        return pipeline_forward(stages, hidden, stage_fn, mesh={"pipe": n_st})
+
+    def sequential():
+        outs = []
+        for m in range(n_mb):
+            x = hidden[m]
+            for s in range(n_st):
+                x = stage_fn(tree_map(lambda a, s=s: a[s], stages), x)
+            outs.append(x)
+        return torch.stack(outs)
+
+    with torch.no_grad():
+        got, ref = piped(), sequential()
+        if not bool(torch.isfinite(got.float()).all()):
+            fail(f"GPipe over {cfg.name}'s stages: output not finite")
+        if not torch.equal(got, ref):
+            diff = (got.float() - ref.float()).abs()
+            fail(f"GPipe over {cfg.name}'s stages is not bit-equal to the sequential composition: "
+                 f"{int((diff > 0).sum())} elements differ, max |diff| {float(diff.max()):.3e}")
+        ms_pipe, ms_seq = time_ms(torch, piped, 2), time_ms(torch, sequential, 2)
+    calls = n_st * (n_mb + n_st - 1) * per
+    say(f"  GPipe over {cfg.name}'s {cfg.n_periods} periods as {n_st} stages of {per} (views of the layer stack), "
+        f"{n_mb} microbatches of 1 x {mb_seq} hidden states, bf16, no grad: bit-equal to the sequential composition; "
+        f"{ms_pipe:.1f} ms against {ms_seq:.1f} ms, ratio {ms_pipe / ms_seq:.3f} (the schedule's "
+        f"{calls}/{n_st * n_mb * per} = {calls / (n_st * n_mb * per):.3f} layer calls) [{smi}]")
+    del params, layers, stages, hidden, got, ref
+    torch.cuda.empty_cache()
+    w, x = (torch.from_numpy(a).to(dev) for a in ex.pipeline_inputs())
+    got, ref = ex.pipeline_check(w, x)
+    err = float((got - ref).abs().max())
+    if err > 1e-5:
+        fail(f"GPipe at check B's shapes: {err:.3e} off the sequential composition (tolerance 1e-5)")
+    say(f"  GPipe at check B's shapes ({ex.STAGES} stages, {ex.MICRO} microbatches of {ex.MB} x {ex.D}, "
+        f"tanh(x @ w)): within {err:.2e} of the sequential composition (tolerance 1e-5)")
+    say(f"phase 22b: {time.perf_counter() - t0:.1f} s")
+
+    # (c) the compressed all-reduce: check C on the card and on the CPU
+    t0 = time.perf_counter()
+    card = {c: ex.dp_run(c, dev) for c in (False, True)}
+    cpu = {c: ex.dp_run(c, "cpu") for c in (False, True)}
+    if not ex.dp_criteria(card[False], card[True]):
+        fail(f"check C on the card: compressed losses {card[True][0]:.4f} -> {card[True][-1]:.4f}, exact "
+             f"{card[False][-1]:.4f} (last below 0.2 of the first and below 1.5 x exact + 1e-3)")
+    rel = max(abs(a - b) / abs(b) for c in (False, True) for a, b in zip(card[c], cpu[c]))
+    say(f"  check C ({ex.SHARDS} stacked data shards, {ex.STEPS} steps, a {ex.D}x{ex.D} linear model, AdamW lr "
+        f"{ex.DP_OPT.lr}): compressed {card[True][0]:.4f} -> {card[True][-1]:.4f}, exact {card[False][-1]:.4f} "
+        f"(criteria met); card against CPU, largest relative loss difference {rel:.2e} [{smi}]")
+    for c, name in ((True, "compressed"), (False, "exact")):
+        say(f"    {name} losses, card: " + " ".join(f"{v:.6g}" for v in card[c]))
+        say(f"    {name} losses, cpu:  " + " ".join(f"{v:.6g}" for v in cpu[c]))
+    # one reduction from the same stacked grads and residuals, card and CPU
+    rng = np.random.default_rng(22)
+    for dt in (torch.float32, torch.bfloat16):
+        g = {"w": torch.from_numpy(rng.normal(size=(ex.SHARDS, 1000, 1001)).astype(np.float32)).to(dt),
+             "b": torch.from_numpy(rng.normal(size=(ex.SHARDS, 77)).astype(np.float32) * 1e-3).to(dt)}
+        r = {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32) * 1e-2) for k, v in g.items()}
+        m_cpu, r_cpu = compressed_psum_grads(g, r)
+        m_card, r_card = compressed_psum_grads({k: v.to(dev) for k, v in g.items()},
+                                               {k: v.to(dev) for k, v in r.items()})
+        e_cpu, e_card = exact_pmean_grads(g), exact_pmean_grads({k: v.to(dev) for k, v in g.items()})
+        for k in g:
+            for name, a, b in (("compressed mean", m_card[k], m_cpu[k]), ("residuals", r_card[k], r_cpu[k]),
+                               ("exact mean", e_card[k], e_cpu[k])):
+                if not torch.equal(a.cpu(), b):
+                    fail(f"one {dt} reduction, leaf {k}: the card's {name} is not bit-equal to the CPU's "
+                         f"({int((a.cpu() != b).sum())} elements differ)")
+    say(f"  one reduction of {ex.SHARDS} stacked shards (8 x 1000 x 1001 and 8 x 77, float32 and bfloat16 grads, "
+        f"float32 residuals): compressed mean, residuals and exact mean bit-equal card against CPU")
+
+    # one phi3 period's gradient leaves in bf16 over 8 shards, float32 residuals
+    shards = LM_DIST["shards"]
+    shapes = [a.shape[1:] for a in tree_leaves(init_params(None, cfg, device="meta")["layers"])]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    g = [(torch.randn((shards, *sh), generator=gen, device=dev) * 1e-3).to(cfg.dtype) for sh in shapes]
+    r = [torch.randn((shards, *sh), generator=gen, device=dev) * 1e-6 for sh in shapes]
+    numel = sum(t[0].numel() for t in g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms_comp = time_ms(torch, lambda: compressed_psum_grads(g, r), 3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ms_exact = time_ms(torch, lambda: exact_pmean_grads(g), 3)
+    # the identity on the float32 values: a float32 copy of g quantizes to
+    # the same q (g32 = g.float() + r) and keeps the mean uncast
+    worst = 0.0
+    for gi, ri in zip(g, r):
+        g32 = gi.float()
+        (mean32,), (new_r,) = compressed_psum_grads([g32], [ri])
+        g32 += ri
+        lhs = shards * mean32.double() + new_r.double().sum(0)
+        rhs = g32.double().sum(0)
+        tol = 2.0 ** -22 * (g32.double().abs().sum(0) + shards * mean32.double().abs())
+        worst = max(worst, float(((lhs - rhs).abs() / tol.clamp_min(1e-300)).max()))
+        del g32, mean32, new_r, lhs, rhs, tol
+    if worst > 1.0:
+        fail(f"the error-feedback identity n * mean + sum(new_r) = sum(g + r) is off by {worst:.2f} x its "
+             f"tolerance (4 float32 roundings of sum|g + r| + n|mean|)")
+    say(f"  compressed all-reduce of one {cfg.name} period's gradients ({len(g)} leaves, {numel / 1e6:.1f} M "
+        f"parameters, bf16) over {shards} stacked shards, float32 residuals ({shards * numel * 2 / 1e9:.2f} GB of "
+        f"gradients, {shards * numel * 4 / 1e9:.2f} GB of residuals): {ms_comp:.2f} ms against the exact mean's "
+        f"{ms_exact:.2f} ms, {peak:.2f} GB of temporaries; int8 payload {shards * numel / 1e9:.2f} GB against "
+        f"{shards * numel * 4 / 1e9:.2f} GB in float32; n * mean + sum(new_r) = sum(g + r) within "
+        f"{worst:.3f} of its tolerance (4 float32 roundings of sum|g + r| + n|mean|) [{smi}]")
+    del g, r
+    torch.cuda.empty_cache()
+    say(f"phase 22c: {time.perf_counter() - t0:.1f} s")
+    no_plain(dispatch, "the LM's distributed pieces")
 
 
 def main() -> None:
@@ -2602,8 +2857,13 @@ def main() -> None:
 
     # -- 21. language-model training on the card ---------------------------------------------
     t0 = time.perf_counter()
-    train_phase(torch, np, dispatch, dev, smi)
+    full_losses = train_phase(torch, np, dispatch, dev, smi)
     say(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
+    # -- 22. the LM's distributed pieces on the card --------------------------------------------
+    t0 = time.perf_counter()
+    lm_dist_phase(torch, np, dispatch, dev, smi, full_losses)
+    say(f"phase 22: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

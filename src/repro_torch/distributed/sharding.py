@@ -1,17 +1,57 @@
-"""Load-aware planning of the 2-D domain decomposition (the distributed
-driver's rebalance), and the language-model stack's logical-axis hooks in
-their one-device form. Counterpart of `repro.distributed.sharding`: the
-models call `constrain` where the reference does, and with no rule table
-set (the reference's rule tables are not ported yet) it is the identity.
+"""Logical-axis sharding of the language-model stack, and the load-aware
+planning of the PIC driver's 2-D domain decomposition. Counterpart of
+`repro.distributed.sharding`.
+
+The models name each tensor's dims by logical axes (`constrain`); a
+launcher installs a rule table (`use_rules`) that maps each logical name to
+mesh axes. A mesh here is a mapping from axis name to size, such as
+``{"data": 2, "model": 2}``, and a spec is a plain tuple whose entries are
+None, a mesh-axis name or a tuple of names: the port's counterpart of a
+`PartitionSpec`, equal to ``tuple(P(...))`` of the reference. Every mesh
+axis is held on the one device, as the PIC driver stacks its shards, so a
+table places nothing: `constrain` checks its axes against the tensor's
+rank and returns the tensor, and a step computes the same function with
+rules as without (GSPMD leaves the reference's step the same function).
+
+Logical axes used across the stack:
+  batch       global batch                    -> ('pod','data') / ('data',)
+  seq         sequence (activations)          -> 'model' (sequence parallel)
+  kv_seq      KV-cache sequence               -> shape-strategy dependent
+  heads       attention heads                 -> 'model'
+  embed       residual stream features        -> usually None (replicated)
+  mlp         FFN hidden                      -> 'model'
+  experts     MoE expert dim                  -> 'model' (EP)
+  vocab       vocabulary                      -> 'model'
+  fsdp        parameter sharding dim          -> 'data' (ZeRO-3)
+  stack       scan-stacked layer dim          -> None
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 
 from repro_torch.core.shape_functions import max_guard
 
-__all__ = ["constrain", "current_rules", "plan_balanced_split", "valid_mesh_splits"]
+__all__ = [
+    "Rules",
+    "constrain",
+    "current_rules",
+    "decode_rules",
+    "is_axes",
+    "logical_spec",
+    "map_axes",
+    "plan_balanced_split",
+    "rules_for",
+    "train_rules",
+    "tree_specs",
+    "use_rules",
+    "valid_mesh_splits",
+]
+
+_state = threading.local()
 
 
 def valid_mesh_splits(n_devices: int, global_shape, order: int) -> list[tuple[int, int]]:
@@ -60,14 +100,170 @@ def plan_balanced_split(n_devices: int, global_shape, order: int, pos, alive):
     return best[1]
 
 
-def current_rules():
-    """The active logical-axis rule table: None, as no table is set on one
-    device."""
-    return None
+# ------------------------------------------------------------------
+# logical-axis rules (the language-model stack)
+# ------------------------------------------------------------------
+
+
+def _mesh_axes(m):
+    """One spec entry as `PartitionSpec` stores it: a 1-tuple becomes its
+    name, the empty tuple None."""
+    if isinstance(m, (tuple, list)):
+        m = tuple(m)
+        return None if not m else (m[0] if len(m) == 1 else m)
+    return m
+
+
+class Rules:
+    """A rule table, logical axis name -> mesh axes (a name, a tuple of
+    names or None), and the mesh it serves as ``{axis name: size}``."""
+
+    def __init__(self, table: dict, mesh: dict | None = None):
+        self.table = dict(table)
+        self.mesh = None if mesh is None else dict(mesh)
+
+    def spec(self, axes: tuple) -> tuple:
+        return tuple(_mesh_axes(self.table.get(ax)) if ax is not None else None for ax in axes)
+
+
+def current_rules() -> Rules | None:
+    """The table this thread installed with `use_rules`, or None."""
+    return getattr(_state, "rules", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: Rules | None):
+    """Install ``rules`` for this thread; the previous table comes back on
+    exit, also after an exception. Autograd runs a card's backward (and a
+    remat region's recompute) on a worker thread of its own, which sees no
+    table: a backward that depends on the rules reads them in its forward."""
+    prev = getattr(_state, "rules", None)
+    _state.rules = rules
+    try:
+        yield
+    finally:
+        _state.rules = prev
+
+
+def logical_spec(axes: tuple) -> tuple | None:
+    r = current_rules()
+    return r.spec(axes) if r is not None else None
 
 
 def constrain(x, *axes):
-    """The reference's sharding constraint by logical axes; the identity
-    without rules."""
-    del axes
+    """The reference's sharding constraint by logical axes. Returns ``x``
+    itself: one device holds every shard. With rules installed, more axes
+    than ``x`` has dims raise, as `with_sharding_constraint` refuses such a
+    spec when it traces."""
+    if current_rules() is not None and len(axes) > x.ndim:
+        raise ValueError(f"constrain: {len(axes)} logical axes {axes} for a tensor of rank {x.ndim}")
     return x
+
+
+def is_axes(x) -> bool:
+    """A leaf of a logical-axes tree: a tuple of names and Nones, the empty
+    tuple (a scalar's) included."""
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None))) for a in x)
+
+
+def map_axes(fn, tree):
+    """``fn`` over the logical-axis tuples of a tree of dicts and tuples."""
+    if is_axes(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    return tuple(map_axes(fn, t) for t in tree)
+
+
+def tree_specs(logical_tree, rules: Rules):
+    """A tree of logical-axis tuples -> the same tree of specs."""
+    return map_axes(rules.spec, logical_tree)
+
+
+# ------------------------------------------------------------------
+# the rule tables of each run mode
+# ------------------------------------------------------------------
+
+
+def train_rules(multi_pod: bool, *, expert_parallel: bool = True) -> dict:
+    """expert_parallel: EP shards MoE experts over 'model' (needs
+    n_experts % model_axis == 0); otherwise TP shards the expert FFN width
+    (mixtral: 8 experts < 16-way model axis)."""
+    batch = ("pod", "data") if multi_pod else ("data",)
+    return {
+        "batch": batch,
+        "seq": "model",        # sequence-parallel residual stream
+        "kv_seq": None,
+        "heads": "model",
+        "kv_heads": "model",
+        "embed": None,
+        "mlp": "model",
+        "experts": "model" if expert_parallel else None,
+        "expert_mlp": None if expert_parallel else "model",
+        "vocab": "model",
+        "fsdp": batch,         # ZeRO param/optimizer sharding
+        "stack": None,
+    }
+
+
+def rules_for(cfg, *, mode: str, multi_pod: bool, data_axis: int = 16, model_axis: int = 16,
+              shard_batch: bool = True) -> dict:
+    """Arch-aware rule table: a logical axis falls back to replication where
+    its dimension does not divide the mesh axis (whisper's 6 heads,
+    mixtral's 8 experts, ...); heads stay sharded wherever they are at least
+    the axis, evenly or not (starcoder2-7b's 36 heads pad to 48).
+
+    mode: "train" | "decode". For decode, if kv heads cannot shard over
+    'model' the KV-cache *sequence* is sharded there instead; with
+    ``shard_batch=False`` (batch-1 long-context decode) it is sharded over
+    every axis that would have held the batch.
+    """
+    batch = ("pod", "data") if multi_pod else ("data",)
+    div = lambda n, m: (n % m == 0) and n >= m  # noqa: E731
+
+    heads = "model" if cfg.n_heads >= model_axis else None
+    kv_heads = "model" if div(cfg.n_kv_heads, model_axis) else None
+    ep = cfg.moe is not None and div(cfg.moe.n_experts, model_axis)
+
+    table = {
+        "batch": batch if shard_batch else None,
+        "seq": "model" if mode == "train" else None,
+        "kv_seq": None,
+        "heads": heads,
+        "kv_heads": kv_heads,
+        "embed": None,
+        "mlp": "model",
+        "experts": "model" if ep else None,
+        "expert_mlp": None if (ep or cfg.moe is None) else "model",
+        "vocab": "model",  # always worth sharding; pad <= 1 row per shard
+        "fsdp": batch,
+        "stack": None,
+    }
+    if mode == "decode":
+        if kv_heads is None:
+            table["kv_seq"] = "model"
+        if not shard_batch:
+            table["kv_seq"] = batch + ("model",) if kv_heads is None else batch
+    if cfg.name.startswith("whisper"):
+        # tiny model: sequence parallelism not worth it / 1500-frame encoder
+        table["seq"] = None
+    return table
+
+
+def decode_rules(multi_pod: bool, *, shard_batch: bool = True, expert_parallel: bool = True) -> dict:
+    batch = ("pod", "data") if multi_pod else ("data",)
+    return {
+        "batch": batch if shard_batch else None,
+        "seq": None,
+        # batch=1 long-context decode shards the KV sequence instead
+        "kv_seq": None if shard_batch else batch,
+        "heads": "model",
+        "kv_heads": "model",
+        "embed": None,
+        "mlp": "model",
+        "experts": "model" if expert_parallel else None,
+        "expert_mlp": None if expert_parallel else "model",
+        "vocab": "model",
+        "fsdp": batch,
+        "stack": None,
+    }

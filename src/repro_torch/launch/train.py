@@ -11,7 +11,14 @@ from seed 0, AdamW moments in float32. Batches come from the synthetic
 pipeline (`repro_torch.data`). Prints the losses, then ms a step (the
 median over the steps after the first), tokens/s, peak device memory and
 the model's TFLOP/s, ``4 * forward_flops / step time`` (the reference's
-train convention, `launch.flops`). ``--mesh`` is not ported yet.
+train convention, `launch.flops`).
+
+``--mesh DxM`` (or ``D``) installs the rule table of `rules_for` for a
+(data, model) mesh of those sizes around the run, as the reference's
+launcher does. Its axes are held on the one device, so the rules place
+nothing and the step is the same function: the losses are those of the run
+without ``--mesh``, bit for bit. The table's sharded entries are printed
+before the summary.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.data import DataConfig, global_batch_at
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault import Supervisor
+from repro_torch.distributed.sharding import Rules, rules_for, use_rules
 from repro_torch.launch.flops import forward_flops
 from repro_torch.optim import AdamWConfig, ScheduleConfig
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
@@ -89,15 +97,18 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default="build/train_ckpt")
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--mesh", default=None, help="a (data, model) mesh such as 2x2: not ported yet")
+    ap.add_argument("--mesh", default=None, help="a (data, model) mesh such as 2x2, or a data mesh such as 2")
     ap.add_argument("--device", default=None, help="cuda (default; must exist) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh needs the LM's sharding rules, which are not ported yet "
-                                  "(ROADMAP queue A, the LM's distributed pieces, A13c)")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch, dtype=torch.bfloat16)
+    rules = None
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split("x"))
+        table = rules_for(cfg, mode="train", multi_pod=False, data_axis=shape[0],
+                          model_axis=shape[-1] if len(shape) > 1 else 1)
+        rules = Rules(table, dict(zip(("data", "model")[:len(shape)], shape)))
     data = DataConfig(vocab_size=cfg.vocab_size, global_batch=args.global_batch, seq_len=args.seq)
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=args.lr),
                        schedule=ScheduleConfig(warmup_steps=10, total_steps=args.steps),
@@ -116,10 +127,13 @@ def main(argv=None) -> None:
         torch.cuda.reset_peak_memory_stats(device)
     sup = Supervisor(step_fn, CheckpointManager(args.ckpt_dir, keep=3), save_every=args.save_every)
     t0 = time.perf_counter()
-    sup.run(state, args.steps)
+    with use_rules(rules):
+        sup.run(state, args.steps)
     losses = [float(m["loss"]) for m in sup.metrics_log]
     wall = time.perf_counter() - t0
 
+    if rules is not None:
+        print(f"mesh {rules.mesh}: rules " + ", ".join(f"{k}={v}" for k, v in rules.table.items() if v is not None))
     print(summary(cfg, losses, clock.ms(), args.global_batch, args.seq, device))
     print(f"wall {wall:.1f} s for {len(losses)} steps and the checkpoint saves (every {args.save_every} steps and "
           f"at the last, to {args.ckpt_dir}); restarts {sup.restarts}")

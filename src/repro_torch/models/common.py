@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import constrain, current_rules
+from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (tree_map: callers import it from here too)
 
 # ---------------------------------------------------------------------------
 # configs
@@ -101,30 +102,6 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# trees
-# ---------------------------------------------------------------------------
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a nested dict/tuple/list, dict keys in sorted order (as
-    `jax.tree.leaves` orders them)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, (tuple, list)):
-        return [leaf for t in tree for leaf in tree_leaves(t)]
-    return [tree]
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of one or more trees of the same structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
-    return fn(tree, *rest)
-
-
-# ---------------------------------------------------------------------------
 # initializers
 # ---------------------------------------------------------------------------
 
@@ -199,12 +176,18 @@ class _EmbedLookup(torch.autograd.Function):
     it sorts the indices (a stable radix sort) and adds each id's run of
     rows one after another, with no atomics, so the gradient repeats bit
     for bit as the reference's does. ``index_add_`` adds them with atomics
-    there, in no fixed order. On the CPU both add in the ids' order."""
+    there, in no fixed order. On the CPU both add in the ids' order.
+
+    Under a rule table the reference skips the pre-sort (it would cost GSPMD
+    an all-gather). Whether to sort is decided in ``forward``: the caller's
+    thread holds the rule table, and a card's backward runs on autograd's
+    own worker thread, which does not."""
 
     @staticmethod
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        ctx.presort = current_rules() is None
         return table[ids]
 
     @staticmethod
@@ -213,7 +196,7 @@ class _EmbedLookup(torch.autograd.Function):
         v, d = ctx.table_shape
         flat_ids = ids.reshape(-1)
         flat_g = g.reshape(-1, d)
-        if current_rules() is None:
+        if ctx.presort:
             order = torch.argsort(flat_ids, stable=True)
             flat_ids = flat_ids[order]
             flat_g = flat_g[order]

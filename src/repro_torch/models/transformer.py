@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import map_axes as _map_axes
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import xlstm as xl
@@ -43,10 +44,10 @@ from repro_torch.models.common import (
     rmsnorm_axes,
     rmsnorm_init,
     softcap,
-    tree_map,
 )
 from repro_torch.models.mlp import mlp_apply, mlp_axes, mlp_init
 from repro_torch.models.moe import moe_apply, moe_axes, moe_init
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # per-layer init / axes
@@ -97,19 +98,6 @@ def _layer_axes(cfg: ModelConfig, spec: LayerSpec, *, cross: bool):
         ax["norm2"] = rmsnorm_axes()
         ax["ffn"] = moe_axes(cfg)
     return ax
-
-
-def _is_axes(x) -> bool:
-    return isinstance(x, tuple) and all(isinstance(a, (str, type(None))) for a in x)
-
-
-def _map_axes(fn, tree):
-    """``fn`` over the logical-axis tuples of an axes tree."""
-    if _is_axes(tree):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map_axes(fn, v) for k, v in tree.items()}
-    return tuple(_map_axes(fn, t) for t in tree)
 
 
 def _stack_axes(tree):

@@ -17,7 +17,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import ModelConfig, cross_entropy, forward, init_params
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, ScheduleConfig, adamw_init, adamw_update_, lr_schedule
 
 __all__ = ["TrainConfig", "init_train_state", "make_train_step"]

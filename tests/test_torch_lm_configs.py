@@ -32,7 +32,7 @@ import repro_torch.models as tm  # noqa: E402
 from repro.models import transformer as rtr  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
-from repro_torch.models import transformer as ttr  # noqa: E402
+from repro_torch.distributed.sharding import is_axes  # noqa: E402
 from test_torch_models import assert_trees, close, port_config, ref_params, to_port, torch_dtype  # noqa: E402
 
 ARCHS = list(rreg.ARCH_IDS)
@@ -74,9 +74,9 @@ def _leaves_with_axes(tree, axes, path=""):
         assert isinstance(axes, dict) and set(tree) == set(axes), (path, sorted(tree), axes)
         return [x for k in tree for x in _leaves_with_axes(tree[k], axes[k], f"{path}/{k}")]
     if isinstance(tree, tuple):
-        assert isinstance(axes, tuple) and not ttr._is_axes(axes) and len(axes) == len(tree), path
+        assert isinstance(axes, tuple) and not is_axes(axes) and len(axes) == len(tree), path
         return [x for i, (t, a) in enumerate(zip(tree, axes)) for x in _leaves_with_axes(t, a, f"{path}/{i}")]
-    assert ttr._is_axes(axes), (path, axes)
+    assert is_axes(axes), (path, axes)
     return [(path, tree, axes)]
 
 
