@@ -70,30 +70,36 @@ Phases, in order; any failure exits non-zero:
    ``gather_fused`` untimed (one kernel); the seconds the timing adds to
    set-up; the main path's step time under the resolved backend against
    phase 4's;
-16. ensembles on the card: (a) `make_ensemble(EnsembleSpec.replicate(main,
-   2))` at the main shapes, one bucket advanced through one captured graph
-   a window step: each member bit-equal (fields, particles, slots, slab,
-   policy state, sorts, rebuilds) to its own solo windowed run (member 0's
-   is phase 4's run), 1.00 host read a window, one capture, each resolved
-   kernel launched once a member-step; ms per member-step against phase
-   4's ms/step and peak memory; (b) the sweep of docs/ensemble.md,
-   `two_stream` at its registry size with `--sweep drift=0.1,0.2,0.3
-   --ensemble 4` (12 members, one bucket, 300 steps): every member
-   bit-equal to its solo run, one read a window, one capture, the bucket's
-   ms per window and host reads against the 12 solo runs back to back;
+16. ensembles on the card, a bucket's step taken once over its member
+   axis: (a) `make_ensemble(EnsembleSpec.replicate(main, 2))` at the main
+   shapes, one bucket advanced through one captured graph a window step:
+   each member bit-equal (fields, particles, slots, slab, policy state,
+   sorts, rebuilds) to its own solo windowed run (member 0's is phase 4's
+   run), 1.00 host read a window, one capture, each kernel the bucket
+   resolves at batch 2 launched once a bucket step (one launch covers both
+   members); ms per member-step against phase 4's ms/step and peak
+   memory; (b) the sweep of docs/ensemble.md, `two_stream` at its registry
+   size with `--sweep drift=0.1,0.2,0.3 --ensemble 4` (12 members, one
+   bucket, 300 steps): every member bit-equal to its solo run, one read a
+   window, one capture, the bucket's ms per window and host reads against
+   the 12 solo runs back to back, the kernels one replay runs for the
+   bucket's step against one member's solo step;
    every member's field energy within 0.5 decades (window means, linear
    phase) of the cold linear solution of its own seed, and its fitted
    growth within 0.75-1.25 of the seeded mode's analytic rate wherever the
    same fit finds that rate in the linear solution (the drift-0.2
    replicas: at 0.1 and 0.3 the fit's window opens on the velocity seed's
    transient, in the linear solution as well);
-   (c) growth isolation, tests/test_torch_ensemble.py's members (6^3,
+   (c) each of #1-#5 given three members, one launch bit-equal to three
+   launches of one member each, at 32^3 (orders 1-3) and at the sweep's
+   member shape 4x4x64 (order 1);
+   (d) growth isolation, tests/test_torch_ensemble.py's members (6^3,
    order 1, capacity 12, one hot member at u_th 0.5, two mild at 0.02, 28
    steps, window 7): the hot member bit-equal to its solo run, which grows
    the same way, the mild siblings bit-equal to solo runs that never grow,
    each fused kernel giving the same bits at capacities 12 and 24 with the
    same occupied slots, captures one plus one a growth;
-   (d) member checkpoints at 32^3: `save_member(1)` at step 8,
+   (e) member checkpoints at 32^3: `save_member(1)` at step 8,
    `load_simulation` and 4 more steps bit-equal to the bucket continuing,
    and the same checkpoint restored into a fresh bucket, bit-equal;
 17. the simulation service at 32^3, order 3 (`SimService(max_batch=4)`):
@@ -422,13 +428,24 @@ def run_path(torch, kernels, sim, label: str, n_steps: int | None = None, warmup
     return out
 
 
-def resolved(dispatch, sim) -> dict[str, str]:
+def resolved(dispatch, sim, batch: int = 1) -> dict[str, str]:
     """The backend of each dispatcher op of a driver's step, as the step
-    resolves it (from the memo: the driver resolved its keys at set-up)."""
+    resolves it (from the memo: the driver resolved its keys at set-up; an
+    ensemble bucket's at ``batch`` = its member count)."""
     c = sim.config
     return dispatch.prewarm(dispatch.ops_for_modes(c.deposition, c.gather), device=sim.device, order=c.order,
                             grid_shape=c.grid.shape, capacity=c.capacity, dtype=sim.state.particles.pos.dtype,
-                            requested=c.backend)
+                            requested=c.backend, batch=batch)
+
+
+def kernels_per_replay(torch, graph) -> int:
+    """The kernels one replay of a captured step runs (IF bodies that run
+    included), counted by the profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
 
 
 def path_launches(chosen: dict[str, str], n: int) -> dict[str, int]:
@@ -538,6 +555,46 @@ def lattice_members(torch, np, specs, dev, shape=(6, 6, 6)):
     return out
 
 
+def member_axis_kernels(torch, kernels, dep, gat, dev, b: int = 3) -> str:
+    """Phase 16(c): each of #1-#5 given ``b`` members at once, one launch,
+    bit for bit against ``b`` launches of one member each: at 32^3, orders
+    1-3, and at the sweep's member shape 4x4x64, order 1. Returns the
+    report; fails on a difference."""
+    from repro_torch.core import max_guard, support
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    report = []
+    for grid, order, cap in (((32, 32, 32), 1, 16), ((32, 32, 32), 2, 24), ((32, 32, 32), 3, 32),
+                             ((4, 4, 64), 1, 16)):
+        g, n_cells = max_guard(order), math.prod(grid)
+        slabs = [synthetic_slab(torch, grid, cap, gen, dev) for _ in range(b)]
+        d, val = (torch.stack([x[k] for x in slabs]) for k in (0, 1))
+        padded = torch.randn((b, 6, *(k + 2 * g for k in grid)), generator=gen, device=dev)
+        m, n = support(order, True)[0], support(order, False)[0] ** 2
+        a, bb, nb = (torch.randn(shape, generator=gen, device=dev)
+                     for shape in ((b, n_cells, cap, m), (b, n_cells, cap, n), (b, n_cells, m, n)))
+        calls = {
+            "fused_bin_deposit": (lambda *x: dep.fused_bin_deposit(*x, order=order), (d, val)),
+            "fused_bin_deposit_reduced": (
+                lambda *x: dep.fused_bin_deposit_reduced(*x, order=order, grid_shape=grid, guard=g), (d, val)),
+            "fused_bin_gather": (lambda *x: gat.fused_bin_gather(*x, grid_shape=grid, order=order, guard=g),
+                                 (d, padded)),
+            "bin_outer_product": (dep.bin_outer_product, (a, bb)),
+            "bin_gather": (gat.bin_gather, (a, bb, nb)),
+        }
+        row = {}
+        for name, (fn, args) in calls.items():
+            before = kernels.launch_counts()[name]
+            batched = fn(*args)
+            launched = kernels.launch_counts()[name] - before
+            row[name] = launched == 1 and all(torch.equal(batched[i], fn(*(x[i] for x in args))) for i in range(b))
+        report.append(f"{'x'.join(map(str, grid))} order {order} cap {cap}: {row}")
+        if not all(row.values()):
+            fail(f"ensemble (c): a kernel given {b} members is not one launch bit-equal to a launch a member, at "
+                 f"{grid}, order {order}: {row}")
+    return "; ".join(report)
+
+
 def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, dep, gat) -> None:
     """Phase 16: ensembles on the card (see the module docstring)."""
     import shutil
@@ -582,20 +639,26 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
     ms_ms = 1e3 * (t3 - t2 - bucket.graph_setup_seconds) / member_steps
     peak = torch.cuda.max_memory_allocated() / 1e9
     reads_w = bucket.host_reads / bucket.windows
-    per_ms = {k: (counts.get(k, 0) - bucket.graph_captures) / member_steps for k in FUSED if counts.get(k)}
+    # the bucket's keys, timed at batch = 2 (phase 4's at 1)
+    chosen_b = resolved(dispatch, bucket, batch=bucket.n_members)
+    per_bs = {k: (counts.get(k, 0) - bucket.graph_captures) / bucket.bucket_steps for k in FUSED if counts.get(k)}
     equal = [same_state(torch, member_view(bucket, 0), main_final),
              same_state(torch, member_view(bucket, 1), solo_final)]
-    say(f"ensemble (a), 2 x uniform {MAIN['grid']}, order {MAIN['order']}: {member_steps} member-steps, "
-        f"{ms_ms:.2f} ms/member-step against phase 4's {main['ms_step']:.2f} ms/step "
-        f"({ms_ms / main['ms_step']:.3f}x), set-up {t2 - t1:.2f} s build + {bucket.graph_setup_seconds:.2f} s "
-        f"capture, peak {peak:.2f} GB (phase 4: {main['peak_gb']:.2f}), host reads {bucket.host_reads} in "
-        f"{bucket.windows} windows ({reads_w:.2f}/window), captures {bucket.graph_captures}, launches {counts} "
-        f"({per_ms} per member-step, the capture's warm-up step aside), bit-equal to the solo runs: {equal} "
+    say(f"ensemble (a), 2 x uniform {MAIN['grid']}, order {MAIN['order']}: {member_steps} member-steps in "
+        f"{bucket.bucket_steps} bucket steps, {ms_ms:.2f} ms/member-step against phase 4's {main['ms_step']:.2f} "
+        f"ms/step ({ms_ms / main['ms_step']:.3f}x), set-up {t2 - t1:.2f} s build + "
+        f"{bucket.graph_setup_seconds:.2f} s capture, peak {peak:.2f} GB (phase 4: {main['peak_gb']:.2f}), host "
+        f"reads {bucket.host_reads} in {bucket.windows} windows ({reads_w:.2f}/window), captures "
+        f"{bucket.graph_captures}, resolved at batch 2 {chosen_b} (phase 4: {chosen}), launches {counts} "
+        f"({per_bs} per bucket step, the capture's warm-up step aside), bit-equal to the solo runs: {equal} "
         f"(member 0: phase 4's run)")
     if not all(equal) or reads_w != 1.0 or bucket.graph_captures != 1:
         fail("ensemble (a): members not bit-equal to their solo runs, or not one host read a window and one capture")
-    if counts != path_launches(chosen, member_steps + bucket.graph_captures) or set(per_ms.values()) != {1.0}:
-        fail(f"ensemble (a): each member did not launch the resolved kernels {chosen} once a step: {counts}")
+    # each launch covers both members: one a bucket step (no longer one a
+    # member-step)
+    if counts != path_launches(chosen_b, bucket.bucket_steps + bucket.graph_captures) or \
+            bucket.bucket_steps != int(bucket.host_step.max()):
+        fail(f"ensemble (a): the bucket did not launch the resolved kernels {chosen_b} once a bucket step: {counts}")
     del ens, bucket, solo_final
     torch.cuda.empty_cache()
 
@@ -603,7 +666,7 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
     # four replicas each, as `pic_run --sweep drift=0.1,0.2,0.3 --ensemble 4`
     es = EnsembleSpec.sweep(scenario("two_stream"), parse_sweeps(["drift=0.1,0.2,0.3"]), replicas=4)
     members = es.members()
-    solo_s, solo_reads, solo_windows, solos = 0.0, 0, 0, []
+    solo_s, solo_reads, solo_windows, solos, first = 0.0, 0, 0, [], None
     for m in members:
         sim = make_simulation(m)
         torch.cuda.synchronize()
@@ -614,6 +677,7 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
         solo_reads += sim.host_reads
         solo_windows += sim.windows
         solos.append(host_copy(sim))
+        first = sim if first is None else first  # kept for its graph's kernel count below
         del sim
     ens = make_ensemble(es)
     if len(ens.sims) != 1:
@@ -664,9 +728,26 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
         fail("ensemble (b): a member's field energy strays more than 0.5 decades from the linear solution")
     if not all(equal) or bucket.host_reads != bucket.windows or bucket.graph_captures != 1:
         fail("ensemble (b): a member is not bit-equal to its solo run, or not one read a window and one capture")
-    del ens, bucket, solos
+    # the kernels of one replay: a solo member's step, and the bucket's step
+    # with every member active (the bucket captured 12 solo steps before it
+    # took one over the member axis); these replays move the states on
+    solo_buf = first._window["buffers"]
+    solo_buf.reset_counters()
+    solo_kernels = kernels_per_replay(torch, first._window["graph"])
+    buf = bucket._window.buffers
+    buf.reset_counters()
+    buf.enter_targets([1] * bucket.n_members)
+    bucket_kernels = kernels_per_replay(torch, bucket._window.graph)
+    say(f"  kernels a replay: {bucket_kernels} for the bucket's step over its {bucket.n_members} members, "
+        f"{solo_kernels} for one member's solo step ({bucket.n_members} x {solo_kernels} = "
+        f"{bucket.n_members * solo_kernels} in a graph of the members' steps one after another)")
+    del ens, bucket, solos, first, buf, solo_buf
 
-    # (c) growth isolation: tests/test_ensemble.py's members (6^3, order 1,
+    # (c) each of #1-#5 given three members at once
+    say("ensemble (c), each kernel given 3 members in one launch, bit-equal to one launch a member: "
+        + member_axis_kernels(torch, kernels, dep, gat, dev))
+
+    # (d) growth isolation: tests/test_ensemble.py's members (6^3, order 1,
     # capacity 12, one hot member, two mild), 28 steps in windows of 7
     specs = [(0, 0.5), (1, 0.02), (2, 0.02)]
     interval_only = SortPolicyConfig(sort_interval=10, sort_trigger_perf_enable=False, sort_trigger_empty_ratio=2.0,
@@ -679,12 +760,12 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
         solo = Simulation(*member, cfg, policy=interval_only)
         solo.run(28, window=7)
         if (i == 0) != (solo.growths["capacity"] > 0):
-            fail(f"ensemble (c): member {i}'s solo run grew {solo.growths['capacity']} times")
+            fail(f"ensemble (d): member {i}'s solo run grew {solo.growths['capacity']} times")
         if i == 0:
             ok = same_state(torch, member_view(ens, 0), solo)
             report.append(f"hot member bit-equal to its solo run (capacity {solo.config.capacity}): {ok}")
             if not ok:
-                fail("ensemble (c): the hot member is not bit-equal to its solo run")
+                fail("ensemble (d): the hot member is not bit-equal to its solo run")
             continue
         # a sibling shares the growth but not the sort: the kernels give the
         # same bits at any capacity, so it must stay bit-equal to its solo run
@@ -698,16 +779,16 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
         report.append(f"sibling {i} (solo capacity {solo.config.capacity}) bit-equal: "
                       f"{all(d == 0.0 for d in diffs.values())} (max |diff| {max(diffs.values()):.3e})")
         if any(diffs.values()):
-            fail(f"ensemble (c): sibling {i} is not bit-equal to its solo run: "
+            fail(f"ensemble (d): sibling {i} is not bit-equal to its solo run: "
                  + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items() if v))
         if (int(ens.sorts[i]), int(ens.rebuilds[i]), ens.member_state(i).step) != \
                 (solo.sorts, solo.rebuilds, solo.state.step):
-            fail(f"ensemble (c): sibling {i}'s sorts, rebuilds or steps differ from its solo run's")
-    say(f"ensemble (c), growth isolation: capacity 12 -> {ens.config.capacity}, growths {ens.growths['capacity']}, "
+            fail(f"ensemble (d): sibling {i}'s sorts, rebuilds or steps differ from its solo run's")
+    say(f"ensemble (d), growth isolation: capacity 12 -> {ens.config.capacity}, growths {ens.growths['capacity']}, "
         f"halts {ens.halts}, captures {ens.graph_captures}, host reads {ens.host_reads} in {ens.windows} windows; "
         + "; ".join(report))
     if ens.growths["capacity"] < 1 or ens.graph_captures != 1 + ens.growths["capacity"]:
-        fail("ensemble (c): no growth, or captures other than one plus one a growth")
+        fail("ensemble (d): no growth, or captures other than one plus one a growth")
     # the kernels at a capacity and at twice it, the same occupied slots: a
     # kernel that regroups with the capacity shows here
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -729,10 +810,10 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
     }
     say(f"  the kernels at capacity 12 and 24, same occupied slots, bit-equal: {probe}")
     if not all(probe.values()):
-        fail(f"ensemble (c): a kernel regroups its sums with the capacity: {probe}")
+        fail(f"ensemble (d): a kernel regroups its sums with the capacity: {probe}")
     del ens
 
-    # (d) member checkpoints at 32^3
+    # (e) member checkpoints at 32^3
     ckpt = ROOT / "build" / "chip_smoke_member"
     try:
         es = EnsembleSpec.replicate(scenario("uniform", grid=(32, 32, 32), ppc=2, order=3, steps=8, window=4,
@@ -751,11 +832,11 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
         fb, fs = fresh.slot(1)
         ok_restore = same_state(torch, member_view(fresh.sims[fb], fs), member_view(ens.sims[b], s_)) and \
             fresh.history(1) == ens.history(1)
-        say(f"ensemble (d), member checkpoints at 32^3: save_member(1) at step 8, load_simulation, 4 more steps "
+        say(f"ensemble (e), member checkpoints at 32^3: save_member(1) at step 8, load_simulation, 4 more steps "
             f"bit-equal to the bucket continuing: {ok_load}; restored into a fresh bucket and run 4 steps, "
             f"bit-equal: {ok_restore}")
         if not (ok_load and ok_restore):
-            fail("ensemble (d): a member checkpoint did not continue bit for bit")
+            fail("ensemble (e): a member checkpoint did not continue bit for bit")
         del ens, loaded, fresh
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)

@@ -24,6 +24,7 @@ and gradients (`GradSpec`, `make_objective`, `fit_simulation`).
 from repro_torch.api.facade import (  # noqa: F401
     EnsembleRun,
     SimCheckpointer,
+    SimDriver,
     bucket_specs,
     clean_stale_tmp,
     build_fields,

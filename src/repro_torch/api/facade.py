@@ -2,7 +2,8 @@
 `DistSimulation` when the spec names a mesh (`dist_config`), and the
 checkpoints (`save_simulation`, `restore_simulation`, `load_simulation`,
 the autosave's `SimCheckpointer` and `clean_stale_tmp`, from
-`repro_torch.checkpoint`); ensembles: `spec_signature`, `bucket_specs`,
+`repro_torch.checkpoint`) and `SimDriver`, the protocol every driver
+`make_simulation` returns provides; ensembles: `spec_signature`, `bucket_specs`,
 `make_ensemble` and its member-indexed `EnsembleRun`, and the member
 checkpoints `save_ensemble_member` / `restore_ensemble_member`; the
 gradient subsystem's `make_objective` and `fit_simulation`.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+from typing import Protocol, runtime_checkable
 
 import torch
 
@@ -40,6 +42,7 @@ from repro_torch.pic.plasma import ParticleState, apply_counter_drift, perturb_v
 __all__ = [
     "EnsembleRun",
     "SimCheckpointer",
+    "SimDriver",
     "bucket_specs",
     "build_fields",
     "build_particles",
@@ -58,6 +61,28 @@ __all__ = [
     "save_simulation",
     "spec_signature",
 ]
+
+
+@runtime_checkable
+class SimDriver(Protocol):
+    """What every driver returned by `make_simulation` provides (the
+    single-device `Simulation` and the shard mesh's `DistSimulation`).
+    ``state`` is the driver's device-resident state (a `PICState`, or the
+    mesh's dict of stacked shard tensors); `save` and `restore` checkpoint
+    it with the policy state and the host counters."""
+
+    spec: SimSpec | None
+    sorts: int
+    rebuilds: int
+    history: list
+
+    def run(self, n_steps: int | None = None, *, diagnostics_every: int | None = None,
+            window=...) -> None: ...
+    def diagnostics(self) -> dict: ...
+    @property
+    def state(self): ...
+    def save(self, path: str) -> None: ...
+    def restore(self, path: str) -> None: ...
 
 
 def build_particles(spec: SimSpec, *, device=None) -> ParticleState:

@@ -23,6 +23,7 @@ from repro_torch.core.deposition import (  # noqa: F401
     STAGGER_Y,
     STAGGER_Z,
     binned_shape_factors,
+    deposit_current,
     deposit_current_matrix_fused,
     deposit_matrix,
     deposit_rhocell,
@@ -60,6 +61,7 @@ from repro_torch.core.rhocell import (  # noqa: F401
     unfold_guards,
 )
 from repro_torch.core.shape_functions import (  # noqa: F401
+    CANONICAL_FLOPS_PER_PARTICLE,
     bspline,
     max_guard,
     packed_axis_weights,

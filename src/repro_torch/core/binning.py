@@ -9,6 +9,16 @@ storage:
 
 Cells are flattened z-fastest, ``(x * ny + y) * nz + z``. Every rank is
 taken with a stable argsort, so slots come out exactly as the reference's.
+
+An ensemble bucket's layout carries a leading member axis: ``slots``
+(B, n_cells, capacity) and ``particle_slot`` (B, n_particles), each
+member's ids and slots its own, exactly as in its solo run. The binning
+functions take it by folding the members into one problem of B·n_cells
+bins and B·n_particles particles, member i's after member i-1's
+(`fold_cells`, `member_offsets`): every rank is within a bin, and a stable
+sort keeps each member's particles in their own order, so each member's
+bins are its solo bins. The slot table is written with member-local ids
+from the start, so only per-particle indices are ever offset.
 The slot-table gather and the global sort's permutation go through
 `repro_torch.grad.permutations`, as the reference's go through
 `repro.grad.permutations`.
@@ -22,7 +32,7 @@ import torch
 
 # the differentiable index movement (re-exported: `binning.slot_gather` and
 # `binning.permute_tree` are the names the core layer calls)
-from repro_torch.grad.permutations import permute_tree, slot_gather  # noqa: F401
+from repro_torch.grad.permutations import member_offsets, permute_tree, slot_gather  # noqa: F401
 
 INVALID = -1
 
@@ -36,17 +46,36 @@ class BinnedLayout:
 
     @property
     def n_cells(self) -> int:
-        return self.slots.shape[0]
+        return self.slots.shape[-2]
 
     @property
     def capacity(self) -> int:
-        return self.slots.shape[1]
+        return self.slots.shape[-1]
 
     def valid_mask(self) -> torch.Tensor:
         return self.slots >= 0
 
     def n_empty(self) -> torch.Tensor:
+        """Empty slots: a 0-d tensor, or one a member with a member axis."""
+        if self.slots.dim() > 2:
+            return torch.sum(self.slots < 0, dim=(-2, -1))
         return torch.sum(self.slots < 0)
+
+
+def member_local(index: torch.Tensor, per_member: int | None) -> torch.Tensor:
+    """Indices into the members' rows one after another (each member
+    ``per_member`` rows) as member-local ones; -1 stays -1. ``None``: no
+    member axis, the indices as they are."""
+    if per_member is None:
+        return index
+    return torch.where(index >= 0, torch.remainder(index, per_member), index)
+
+
+def fold_cells(cell_ids: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """Member-local cell ids (B, N) as ids of the members' cells one after
+    another, flattened."""
+    cell_ids = cell_ids.long()
+    return (cell_ids + member_offsets(cell_ids, n_cells)).reshape(-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +118,7 @@ def build_bin_slab(pos: torch.Tensor, layout: BinnedLayout, *, grid_shape) -> Bi
     slots = layout.slots
     valid = slots >= 0
     pos_b = slot_gather(pos, slots)
-    cells = cell_coords(slots.shape[0], grid_shape, device=pos.device)
+    cells = cell_coords(slots.shape[-2], grid_shape, device=pos.device)
     d = pos_b - cells[:, None, :].to(pos.dtype)
     return BinSlab(d=d, valid=valid)
 
@@ -102,9 +131,9 @@ def bin_slab_staging(pos, vel, qw, layout: BinnedLayout, *, grid_shape):
     q·w·v slab, exactly 0 on gap/overflow slots."""
     slots = layout.slots
     valid = slots >= 0
-    packed = torch.cat([pos, vel, qw[:, None]], dim=1)     # (N, 7)
+    packed = torch.cat([pos, vel, qw[..., None]], dim=-1)  # (N, 7)
     staged = slot_gather(packed, slots)                      # (C, cap, 7) — once
-    cells = cell_coords(slots.shape[0], grid_shape, device=pos.device)
+    cells = cell_coords(slots.shape[-2], grid_shape, device=pos.device)
     d = staged[..., :3] - cells[:, None, :].to(pos.dtype)
     zero = torch.zeros((), dtype=qw.dtype, device=qw.device)
     qw_b = torch.where(valid, staged[..., 6], zero)
@@ -140,7 +169,24 @@ def build_bins(cell_ids: torch.Tensor, alive: torch.Tensor, *, n_cells: int, cap
     reaches `capacity` overflow: they stay unslotted and are counted.
 
     Returns ``(layout, overflow_count)`` with the count a 0-d device tensor.
+    With a member axis, ``cell_ids`` and ``alive`` (B, N) give each
+    member's bins (B, n_cells, capacity) and its count (B,).
     """
+    if cell_ids.dim() > 1:
+        b, n = cell_ids.shape
+        layout, _ = _build_bins(fold_cells(cell_ids, n_cells), alive.reshape(-1), n_cells=b * n_cells,
+                                capacity=capacity, members=(n, n_cells * capacity))
+        layout = BinnedLayout(slots=layout.slots.reshape(b, n_cells, capacity),
+                              particle_slot=layout.particle_slot.reshape(b, n))
+        # the particles that found no slot are the overflow
+        return layout, torch.sum(alive, dim=-1) - torch.sum(layout.particle_slot >= 0, dim=-1)
+    return _build_bins(cell_ids, alive, n_cells=n_cells, capacity=capacity)
+
+
+def _build_bins(cell_ids: torch.Tensor, alive: torch.Tensor, *, n_cells: int, capacity: int, members=None):
+    """`build_bins` of one problem; with ``members`` = (particles, slots)
+    of each member, of the members folded one after another, its ids and
+    slots written member-local."""
     n = cell_ids.shape[0]
     dev = cell_ids.device
     key = torch.where(alive, cell_ids.long(), n_cells)   # dead -> sentinel bin
@@ -154,17 +200,24 @@ def build_bins(cell_ids: torch.Tensor, alive: torch.Tensor, *, n_cells: int, cap
     flat_slot = torch.where(in_range, sorted_key * capacity + rank, dump)
     # every rejected entry lands in the one dump slot, dropped afterwards
     slots = torch.full((dump + 1,), INVALID, dtype=torch.int32, device=dev)
-    slots[flat_slot] = order.to(torch.int32)
+    per_ids, per_slots = members or (None, None)
+    slots[flat_slot] = member_local(order, per_ids).to(torch.int32)
     particle_slot = torch.full((n,), INVALID, dtype=torch.int32, device=dev)
-    particle_slot[order] = torch.where(in_range, flat_slot, INVALID).to(torch.int32)
+    particle_slot[order] = member_local(torch.where(in_range, flat_slot, INVALID), per_slots).to(torch.int32)
     layout = BinnedLayout(slots=slots[:-1].reshape(n_cells, capacity), particle_slot=particle_slot)
     return layout, overflow
 
 
 def sort_permutation(cell_ids: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     """Permutation putting alive particles in cell order (the global sort's
-    attribute permutation); dead particles go last, in index order."""
+    attribute permutation); dead particles go last, in index order. With a
+    member axis (B, N), each member's own permutation (B, N), from one sort
+    of the members' keys one after another."""
     key = torch.where(alive, cell_ids.long(), 2**30)
+    if key.dim() > 1:
+        b, n = key.shape
+        perm = torch.argsort((key + member_offsets(key, 2**31)).reshape(-1), stable=True).reshape(b, n)
+        return perm - member_offsets(perm, n)
     return torch.argsort(key, stable=True)
 
 

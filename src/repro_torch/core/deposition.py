@@ -30,17 +30,31 @@ dispatcher (`repro_torch.kernels.dispatch`):
                 pass itself; `_fused_grids_reduced` runs the y/x tail.
 
 All routes return guard-padded grids.
+
+Every function here also takes an ensemble bucket's operands, with a
+leading member axis on positions, values, layout and slab: each member
+deposits into its own grid (B, nx+2g, ny+2g, nz+2g), as its solo run
+would, and each kernel launches once for every member.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from repro_torch.core import shape_functions as sf
-from repro_torch.core.binning import BinnedLayout, BinSlab, bin_slab_values, build_bin_slab, cell_coords, slot_gather
-from repro_torch.core.rhocell import reduce_rhocell, reduce_rhocell_separable, reduce_rhocell_tail
+from repro_torch.core.binning import (
+    BinnedLayout,
+    BinSlab,
+    bin_slab_values,
+    build_bin_slab,
+    cell_coords,
+    member_offsets,
+    slot_gather,
+)
+from repro_torch.core.rhocell import fold_guards, reduce_rhocell, reduce_rhocell_separable, reduce_rhocell_tail
 from repro_torch.grad.remat import recomputed
 
 Stagger = tuple[bool, bool, bool]
@@ -64,45 +78,55 @@ def _per_dim_weights(pos, cells, order: int, stagger: Stagger):
     return [sf.shape_weights(d[..., k], order, stagger[k]) for k in range(3)]
 
 
+def _tap_products(wx, wy, wz):
+    """The (..., Tx, Ty, Tz) products of per-particle 1-D weights."""
+    return wx[..., :, None, None] * wy[..., None, :, None] * wz[..., None, None, :]
+
+
 def deposit_scatter(pos, values, *, grid_shape, order: int, stagger: Stagger = NO_STAGGER, guard: int | None = None):
-    """Scatter-add deposition. pos: (Np, 3) grid units; values: (Np,) q*w*v.
-    Returns the guard-padded grid (nx+2g, ny+2g, nz+2g)."""
+    """Scatter-add deposition. pos: ([B,] Np, 3) grid units; values: ([B,]
+    Np) q*w*v. Returns the guard-padded grid ([B,] nx+2g, ny+2g, nz+2g)."""
     nx, ny, nz = grid_shape
     g = sf.max_guard(order) if guard is None else guard
     cells = torch.floor(pos).long()
     wx, wy, wz = _per_dim_weights(pos, cells, order, stagger)
     (tx, ty, tz), (bx, by, bz) = _taps_and_bases(order, stagger)
 
-    w3 = wx[:, :, None, None] * wy[:, None, :, None] * wz[:, None, None, :]
-    contrib = values[:, None, None, None] * w3
+    contrib = values[..., None, None, None] * _tap_products(wx, wy, wz)
 
     nxp, nyp, nzp = nx + 2 * g, ny + 2 * g, nz + 2 * g
     dev = pos.device
-    ix = cells[:, 0, None] + (bx + g) + torch.arange(tx, device=dev)
-    iy = cells[:, 1, None] + (by + g) + torch.arange(ty, device=dev)
-    iz = cells[:, 2, None] + (bz + g) + torch.arange(tz, device=dev)
-    flat = (ix[:, :, None, None] * nyp + iy[:, None, :, None]) * nzp + iz[:, None, None, :]
-    grid = torch.zeros(nxp * nyp * nzp, dtype=values.dtype, device=dev)
+    ix = cells[..., 0, None] + (bx + g) + torch.arange(tx, device=dev)
+    iy = cells[..., 1, None] + (by + g) + torch.arange(ty, device=dev)
+    iz = cells[..., 2, None] + (bz + g) + torch.arange(tz, device=dev)
+    flat = (ix[..., :, None, None] * nyp + iy[..., None, :, None]) * nzp + iz[..., None, None, :]
+    lead = values.shape[:-1]
+    if lead:  # each member into its own grid, in one add
+        flat = flat + member_offsets(flat, nxp * nyp * nzp)
+    grid = torch.zeros(math.prod(lead) * nxp * nyp * nzp, dtype=values.dtype, device=dev)
     grid.index_add_(0, flat.reshape(-1), contrib.reshape(-1))
-    return grid.reshape(nxp, nyp, nzp)
+    return grid.reshape(*lead, nxp, nyp, nzp)
 
 
 def deposit_rhocell(pos, values, cell_ids, *, grid_shape, order: int, stagger: Stagger = NO_STAGGER,
                     guard: int | None = None):
     """Per-particle taps scatter into the per-cell rhocell row, then one
     dense reduction (Eq. 5). Conflicts are confined to a cell's row.
-    ``cell_ids``: (Np,) flattened cell of each particle."""
+    ``cell_ids``: ([B,] Np) flattened cell of each particle."""
     nx, ny, nz = grid_shape
     g = sf.max_guard(order) if guard is None else guard
     n_cells = nx * ny * nz
     cells = torch.floor(pos).long()
     wx, wy, wz = _per_dim_weights(pos, cells, order, stagger)
     (tx, ty, tz), bases = _taps_and_bases(order, stagger)
-    w3 = wx[:, :, None, None] * wy[:, None, :, None] * wz[:, None, None, :]
-    contrib = (values[:, None, None, None] * w3).reshape(-1, tx * ty * tz)
-    rho = torch.zeros((n_cells, tx * ty * tz), dtype=values.dtype, device=values.device)
-    rho.index_add_(0, cell_ids.long(), contrib)
-    return reduce_rhocell(rho.reshape(n_cells, tx, ty, tz), grid_shape, bases, g)
+    contrib = (values[..., None, None, None] * _tap_products(wx, wy, wz)).reshape(-1, tx * ty * tz)
+    lead = values.shape[:-1]
+    cell_ids = cell_ids.long()
+    if lead:  # each member's cells after the one before's
+        cell_ids = cell_ids + member_offsets(cell_ids, n_cells)
+    rho = torch.zeros((math.prod(lead) * n_cells, tx * ty * tz), dtype=values.dtype, device=values.device)
+    rho.index_add_(0, cell_ids.reshape(-1), contrib)
+    return reduce_rhocell(rho.reshape(*lead, n_cells, tx, ty, tz), grid_shape, bases, g)
 
 
 def binned_shape_factors(pos, values, layout: BinnedLayout, *, grid_shape, order: int, stagger: Stagger):
@@ -110,10 +134,10 @@ def binned_shape_factors(pos, values, layout: BinnedLayout, *, grid_shape, order
     gather the bins' particle data and build the contraction operands on the
     component's true support.
 
-    Returns ``A`` (C, cap, Tx) = w * s_x (exactly 0 on gap slots) and
-    ``B`` (C, cap, Ty*Tz) = s_y (x) s_z."""
+    Returns ``A`` ([B,] C, cap, Tx) = w * s_x (exactly 0 on gap slots) and
+    ``B`` ([B,] C, cap, Ty*Tz) = s_y (x) s_z."""
     slots = layout.slots
-    n_cells, cap = slots.shape
+    n_cells = slots.shape[-2]
     valid = slots >= 0
     pos_b = slot_gather(pos, slots)
     val_b = torch.where(valid, slot_gather(values, slots), torch.zeros((), dtype=values.dtype, device=values.device))
@@ -123,7 +147,7 @@ def binned_shape_factors(pos, values, layout: BinnedLayout, *, grid_shape, order
     wy = sf.shape_weights(d[..., 1], order, stagger[1])
     wz = sf.shape_weights(d[..., 2], order, stagger[2])
     a = wx * val_b[..., None]
-    b = (wy[..., :, None] * wz[..., None, :]).reshape(n_cells, cap, -1)
+    b = (wy[..., :, None] * wz[..., None, :]).reshape(*slots.shape, -1)
     return a, b
 
 
@@ -133,9 +157,9 @@ def _bin_matmul(a, b):
     order, can change with the slot count, and an ensemble's re-binned
     member (the same occupied slots, more zero-padded ones) must deposit
     the same bits at any capacity."""
-    out = a[:, 0, :, None] * b[:, 0, None, :]
-    for p in range(1, a.shape[1]):
-        out.addcmul_(a[:, p, :, None], b[:, p, None, :])
+    out = a[..., 0, :, None] * b[..., 0, None, :]
+    for p in range(1, a.shape[-2]):
+        out.addcmul_(a[..., p, :, None], b[..., p, None, :])
     return out
 
 
@@ -153,15 +177,16 @@ def deposit_matrix(pos, values, layout: BinnedLayout, *, grid_shape, order: int,
     g = sf.max_guard(order) if guard is None else guard
     (tx, ty, tz), bases = _taps_and_bases(order, stagger)
     a, b = binned_shape_factors(pos, values, layout, grid_shape=grid_shape, order=order, stagger=stagger)
+    lead = layout.slots.shape[:-2]
     if dispatch.resolve("deposit_unfused", backend, device=pos.device, order=order, grid_shape=grid_shape,
-                        capacity=layout.slots.shape[1], dtype=values.dtype) == "cuda":
+                        capacity=layout.capacity, dtype=values.dtype, batch=math.prod(lead)) == "cuda":
         from repro_torch.kernels.deposition.ops import bin_outer_product
 
         rho = bin_outer_product(a.contiguous(), b.contiguous())
     else:
         rho = _bin_matmul(a, b)
     reduce = reduce_rhocell_separable if separable_reduce else reduce_rhocell
-    return reduce(rho.reshape(-1, tx, ty, tz), grid_shape, bases, g)
+    return reduce(rho.reshape(*lead, -1, tx, ty, tz), grid_shape, bases, g)
 
 
 def fused_bin_slab(pos, vel, qw, layout: BinnedLayout, *, grid_shape):
@@ -174,7 +199,7 @@ def fused_bin_slab(pos, vel, qw, layout: BinnedLayout, *, grid_shape):
 def _fused_grids_torch(d, val, *, grid_shape, order, guard):
     """The plain fused route (the reference's ``_fused_grids_xla``): six
     shared weight sets, each component contracted on its true support."""
-    n_cells, cap, _ = d.shape
+    lead = d.shape[:-3]
     w_u = [sf.shape_weights(d[..., k], order, False) for k in range(3)]
     w_s = [sf.shape_weights(d[..., k], order, True) for k in range(3)]
     out = []
@@ -185,37 +210,40 @@ def _fused_grids_torch(d, val, *, grid_shape, order, guard):
         wy = w_s[1] if stagger[1] else w_u[1]
         wz = w_s[2] if stagger[2] else w_u[2]
         a = wx * val[..., comp][..., None]
-        byz = (wy[..., :, None] * wz[..., None, :]).reshape(n_cells, cap, -1)
-        rho = _bin_matmul(a, byz).reshape(-1, tx, ty, tz)
+        byz = (wy[..., :, None] * wz[..., None, :]).reshape(*d.shape[:-1], -1)
+        rho = _bin_matmul(a, byz).reshape(*lead, -1, tx, ty, tz)
         out.append(reduce_rhocell_separable(rho, grid_shape, bases, guard))
     return out
 
 
 def _fused_grids_packed(packed, *, grid_shape, order, guard):
-    """Finish the packed (C, 3, T, T*T) tiles: one rhocell reduction per
+    """Finish the packed ([B,] C, 3, T, T*T) tiles: one rhocell reduction per
     component on the unified window."""
     t, base = sf.unified_support(order)
     bases = (base, base, base)
+    lead = packed.shape[:-4]
     return [
-        reduce_rhocell_separable(packed[:, comp].reshape(-1, t, t, t), grid_shape, bases, guard)
+        reduce_rhocell_separable(packed[..., comp, :, :].reshape(*lead, -1, t, t, t), grid_shape, bases, guard)
         for comp in range(3)
     ]
 
 
 def _fused_grids_reduced(acc, *, grid_shape, order, guard):
-    """Finish the epilogue-fused (C_xy, 3, nz+2g, T, T) accumulators: the
-    z pass already happened in the kernel, the y/x tail remains."""
+    """Finish the epilogue-fused ([B,] C_xy, 3, nz+2g, T, T) accumulators:
+    the z pass already happened in the kernel, the y/x tail remains."""
     nx, ny, nz = grid_shape
     g = guard
     t, base = sf.unified_support(order)
+    lead = acc.shape[:-5]
     return [
-        reduce_rhocell_tail(acc[:, comp].reshape(nx, ny, nz + 2 * g, t, t), grid_shape, (base, base), g)
+        reduce_rhocell_tail(acc[..., comp, :, :, :].reshape(*lead, nx, ny, nz + 2 * g, t, t), grid_shape,
+                            (base, base), g)
         for comp in range(3)
     ]
 
 
 def fused_deposit_grids(d, val, *, grid_shape, order: int, guard: int | None = None, backend: str = "torch"):
-    """Post-slab fused deposition: (C, cap, 3) offsets and values ->
+    """Post-slab fused deposition: ([B,] C, cap, 3) offsets and values ->
     [Jx, Jy, Jz] guard-padded, through the named dispatcher backend. Every
     route reduces the rhocell tiles axis by axis (the reference's default
     ``separable_reduce=True``)."""
@@ -224,7 +252,7 @@ def fused_deposit_grids(d, val, *, grid_shape, order: int, guard: int | None = N
     grid_shape = tuple(grid_shape)
     g = sf.max_guard(order) if guard is None else guard
     name = dispatch.resolve("deposit_fused", backend, device=d.device, order=order, grid_shape=grid_shape,
-                            capacity=d.shape[1], dtype=val.dtype)
+                            capacity=d.shape[-2], dtype=val.dtype, batch=math.prod(d.shape[:-3]))
     if name == "cuda_reduced":
         from repro_torch.kernels.deposition.ops import fused_bin_deposit_reduced
 
@@ -254,3 +282,41 @@ def deposit_current_matrix_fused(pos, vel, qw, layout: BinnedLayout, *, grid_sha
         slab = build_bin_slab(pos, layout, grid_shape=grid_shape)
     val = values if values is not None else bin_slab_values(vel, qw, layout, slab)
     return fused_deposit_grids(slab.d, val, grid_shape=grid_shape, order=order, guard=guard, backend=backend)
+
+
+def deposit_current(pos, vel, qw, *, grid_shape, order: int, method: str = "matrix", layout: BinnedLayout | None = None,
+                    cell_ids=None, fold: bool = True, **kw):
+    """All three Yee-staggered current components by one method: ``matrix``
+    (the fused path), ``matrix_unfused``, ``scatter`` or ``rhocell``.
+    Counterpart of `repro.core.deposition.deposit_current`.
+
+    vel: (Np, 3); qw: (Np,) charge*weight; ``layout`` for the matrix
+    methods, ``cell_ids`` for rhocell; ``kw`` goes to the method's function
+    (``guard``, ``backend``, ...). Returns [Jx, Jy, Jz], folded periodic
+    grids if ``fold``, else guard-padded."""
+    # fold with the guard the deposit used
+    g = kw.get("guard")
+    g = sf.max_guard(order) if g is None else g
+    if method == "matrix":
+        if layout is None:
+            raise ValueError("method 'matrix' needs a layout")
+        out = deposit_current_matrix_fused(pos, vel, qw, layout, grid_shape=grid_shape, order=order, **kw)
+        return [fold_guards(j, g) if fold else j for j in out]
+    out = []
+    for comp in range(3):
+        values = qw * vel[..., comp]
+        stagger = CURRENT_STAGGER[comp]
+        if method == "scatter":
+            j = deposit_scatter(pos, values, grid_shape=grid_shape, order=order, stagger=stagger, **kw)
+        elif method == "rhocell":
+            if cell_ids is None:
+                raise ValueError("method 'rhocell' needs cell_ids")
+            j = deposit_rhocell(pos, values, cell_ids, grid_shape=grid_shape, order=order, stagger=stagger, **kw)
+        elif method == "matrix_unfused":
+            if layout is None:
+                raise ValueError("method 'matrix_unfused' needs a layout")
+            j = deposit_matrix(pos, values, layout, grid_shape=grid_shape, order=order, stagger=stagger, **kw)
+        else:
+            raise ValueError(f"unknown method {method!r}")
+        out.append(fold_guards(j, g) if fold else j)
+    return out

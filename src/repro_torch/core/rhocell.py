@@ -6,7 +6,10 @@ particles' contributions to the fixed tap window around it,
 statically-shifted dense adds. Grids come back padded with `guard` cells on
 every side; periodic runs fold the guards back with `fold_guards`.
 
-The adds run in the reference's order, slice by slice.
+The adds run in the reference's order, slice by slice. Every function
+here also takes a leading member axis (an ensemble bucket's): the spatial
+axes are indexed from the end, and each member's grid gets the adds its
+solo grid gets.
 """
 
 from __future__ import annotations
@@ -15,21 +18,23 @@ import torch
 
 
 def reduce_rhocell(rho_cells: torch.Tensor, grid_shape, bases, guard: int) -> torch.Tensor:
-    """Direct reduction: Tx*Ty*Tz shifted adds. rho_cells: (n_cells, Tx, Ty, Tz)."""
+    """Direct reduction: Tx*Ty*Tz shifted adds. rho_cells: ([B,] n_cells,
+    Tx, Ty, Tz)."""
     nx, ny, nz = grid_shape
     g = guard
-    _, tx, ty, tz = rho_cells.shape
+    *lead, _, tx, ty, tz = rho_cells.shape
     bx, by, bz = bases
-    rho = rho_cells.reshape(nx, ny, nz, tx, ty, tz)
-    out = rho_cells.new_zeros((nx + 2 * g, ny + 2 * g, nz + 2 * g))
+    rho = rho_cells.reshape(*lead, nx, ny, nz, tx, ty, tz)
+    out = rho_cells.new_zeros((*lead, nx + 2 * g, ny + 2 * g, nz + 2 * g))
     for a in range(tx):
         for b in range(ty):
             for c in range(tz):
                 out[
+                    ...,
                     g + bx + a : g + bx + a + nx,
                     g + by + b : g + by + b + ny,
                     g + bz + c : g + bz + c + nz,
-                ] += rho[:, :, :, a, b, c]
+                ] += rho[..., a, b, c]
     return out
 
 
@@ -37,29 +42,29 @@ def reduce_rhocell_separable(rho_cells: torch.Tensor, grid_shape, bases, guard: 
     """Axis-separable reduction (same result, Tx+Ty+Tz passes)."""
     nx, ny, nz = grid_shape
     g = guard
-    _, tx, ty, tz = rho_cells.shape
+    *lead, _, tx, ty, tz = rho_cells.shape
     bz = bases[2]
-    rho = rho_cells.reshape(nx, ny, nz, tx, ty, tz)
-    acc_z = rho_cells.new_zeros((nx, ny, nz + 2 * g, tx, ty))
+    rho = rho_cells.reshape(*lead, nx, ny, nz, tx, ty, tz)
+    acc_z = rho_cells.new_zeros((*lead, nx, ny, nz + 2 * g, tx, ty))
     for c in range(tz):
-        acc_z[:, :, g + bz + c : g + bz + c + nz] += rho[..., c]
+        acc_z[..., g + bz + c : g + bz + c + nz, :, :] += rho[..., c]
     return reduce_rhocell_tail(acc_z, grid_shape, bases[:2], g)
 
 
 def reduce_rhocell_tail(acc_z: torch.Tensor, grid_shape, bases_xy, guard: int) -> torch.Tensor:
     """The y/x passes of the separable reduction:
-    ``acc_z (nx, ny, nz+2g, Tx, Ty) -> padded grid``. Shared with the
+    ``acc_z ([B,] nx, ny, nz+2g, Tx, Ty) -> padded grid``. Shared with the
     epilogue-fused deposition, whose kernel does the z pass itself."""
     nx, ny, nz = grid_shape
     g = guard
-    _, _, _, tx, ty = acc_z.shape
+    *lead, _, _, _, tx, ty = acc_z.shape
     bx, by = bases_xy
-    acc_y = acc_z.new_zeros((nx, ny + 2 * g, nz + 2 * g, tx))
+    acc_y = acc_z.new_zeros((*lead, nx, ny + 2 * g, nz + 2 * g, tx))
     for b in range(ty):
-        acc_y[:, g + by + b : g + by + b + ny] += acc_z[..., b]
-    out = acc_z.new_zeros((nx + 2 * g, ny + 2 * g, nz + 2 * g))
+        acc_y[..., g + by + b : g + by + b + ny, :, :] += acc_z[..., b]
+    out = acc_z.new_zeros((*lead, nx + 2 * g, ny + 2 * g, nz + 2 * g))
     for a in range(tx):
-        out[g + bx + a : g + bx + a + nx] += acc_y[..., a]
+        out[..., g + bx + a : g + bx + a + nx, :, :] += acc_y[..., a]
     return out
 
 
@@ -75,9 +80,9 @@ def _fold_axis(x: torch.Tensor, guard: int, axis: int) -> torch.Tensor:
 
 
 def fold_guards(padded: torch.Tensor, guard: int) -> torch.Tensor:
-    """Fold guard cells periodically: (n+2g)^3 -> n^3."""
+    """Fold guard cells periodically: ([B,] (n+2g)^3) -> ([B,] n^3)."""
     out = padded
-    for axis in range(3):
+    for axis in (-3, -2, -1):
         out = _fold_axis(out, guard, axis)
     return out.contiguous()
 

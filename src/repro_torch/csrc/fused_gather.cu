@@ -46,6 +46,11 @@
 //     plasma moves). Pairs go in whole rounds of one a thread; a last round
 //     of only a few is split into one-component pieces, so it costs a
 //     fraction of an item's time.
+//   - an ensemble bucket (the reference vmaps this kernel over a member
+//     axis) is one launch: blocks run over the members' columns one
+//     member after another, and a block decodes its member and offsets
+//     into that member's grids and slab, so each slot's outputs are those
+//     of a launch over its member alone.
 // The summation order and the weights' rounding differ from the plain
 // version's (whose einsum order is not fixed either); the result agrees
 // within float32 rounding.
@@ -170,7 +175,9 @@ __device__ __forceinline__ void gather_pair_component(const float* g, int lw, co
 }
 
 // One block per run of `run` z cells of one column; runs = ceil(nz / run)
-// blocks per column. Shared memory (kernels/gather/ops.py mirrors it,
+// blocks per column, the columns of `members` grids one after another (d,
+// out and padded each hold the members' blocks one after another).
+// Shared memory (kernels/gather/ops.py mirrors it,
 // gather_smem): G[6][T][T][run + T - 1] floats padded to a multiple of 4,
 // the run's offsets D[run][cap][3], then ints live[run][cap], n_live[run],
 // first[run + 1].
@@ -182,8 +189,9 @@ fused_gather_kernel(const float* __restrict__ d, const float* __restrict__ padde
   extern __shared__ __align__(16) float gather_smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
   const int runs = (nz + run - 1) / run;
+  // the block's column counts over the members' columns one after another
   const int column = blockIdx.x / runs, z0 = (blockIdx.x % runs) * run;
-  const int ix = column / ny, iy = column % ny;
+  const int member = column / (nx * ny), ix = (column / ny) % nx, iy = column % ny;
   const int len = min(run, nz - z0), lw = run + T - 1, span = len + T - 1;
   const size_t cell0 = static_cast<size_t>(column) * nz + z0;
   float* G = gather_smem;
@@ -197,11 +205,12 @@ fused_gather_kernel(const float* __restrict__ d, const float* __restrict__ padde
   // copy the run's rows of the six padded grids and the run's slab of
   // offsets (one contiguous span) into shared memory, all in flight at once
   const size_t X = nx + 2 * guard, Y = ny + 2 * guard, Z = nz + 2 * guard;
+  const float* grids = padded + member * 6 * X * Y * Z;  // the member's six padded grids
   const int o = guard + BASE;
   for (int i = tid; i < 6 * T * T * span; i += blockDim.x) {
     const int row = i / span, zz = i % span;
     const int comp = row / (T * T), a = (row / T) % T, b = row % T;
-    cp_async<4>(G + row * lw + zz, padded + ((comp * X + (o + ix + a)) * Y + (o + iy + b)) * Z + (o + z0 + zz));
+    cp_async<4>(G + row * lw + zz, grids + ((comp * X + (o + ix + a)) * Y + (o + iy + b)) * Z + (o + z0 + zz));
   }
   const float* dsrc = d + cell0 * cap * 3;
   const int n_d = 3 * len * cap;
@@ -287,35 +296,37 @@ fused_gather_kernel(const float* __restrict__ d, const float* __restrict__ padde
 }
 
 template <int ORDER>
-int launch(const float* d, const float* padded, float* out, int nx, int ny, int nz, int cap, int guard, int run,
-           int threads, size_t smem, cudaStream_t s) {
+int launch(const float* d, const float* padded, float* out, int members, int nx, int ny, int nz, int cap, int guard,
+           int run, int threads, size_t smem, cudaStream_t s) {
   constexpr int T = Window<ORDER>::T;
   // the wrapper's geometry must be one this kernel takes
   const size_t g_floats = (static_cast<size_t>(6) * T * T * (run + T - 1) + 3) / 4 * 4;
   const size_t want = (g_floats + static_cast<size_t>(4) * run * cap + 2 * run + 1) * sizeof(float);
-  if (run < 1 || run > nz || threads != kGatherThreads || smem != want) return cudaErrorInvalidValue;
+  if (members < 1 || run < 1 || run > nz || threads != kGatherThreads || smem != want) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(fused_gather_kernel<ORDER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const int blocks = nx * ny * ((nz + run - 1) / run);
-  fused_gather_kernel<ORDER><<<blocks, threads, smem, s>>>(d, padded, out, nx, ny, nz, cap, guard, run);
+  const long long blocks = static_cast<long long>(members) * nx * ny * ((nz + run - 1) / run);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fused_gather_kernel<ORDER><<<static_cast<unsigned>(blocks), threads, smem, s>>>(d, padded, out, nx, ny, nz, cap,
+                                                                                 guard, run);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int mpic_fused_gather(const float* d, const float* padded, float* out, int nx, int ny, int nz,
-                                 int cap, int order, int guard, int run, int threads, size_t smem, int device,
+extern "C" int mpic_fused_gather(const float* d, const float* padded, float* out, int members, int nx, int ny,
+                                 int nz, int cap, int order, int guard, int run, int threads, size_t smem, int device,
                                  cudaStream_t stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   switch (order) {
-    case 1: return launch<1>(d, padded, out, nx, ny, nz, cap, guard, run, threads, smem, stream);
-    case 2: return launch<2>(d, padded, out, nx, ny, nz, cap, guard, run, threads, smem, stream);
-    case 3: return launch<3>(d, padded, out, nx, ny, nz, cap, guard, run, threads, smem, stream);
+    case 1: return launch<1>(d, padded, out, members, nx, ny, nz, cap, guard, run, threads, smem, stream);
+    case 2: return launch<2>(d, padded, out, members, nx, ny, nz, cap, guard, run, threads, smem, stream);
+    case 3: return launch<3>(d, padded, out, members, nx, ny, nz, cap, guard, run, threads, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }

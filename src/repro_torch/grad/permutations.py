@@ -58,13 +58,31 @@ def permute_values(values: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return _PermuteValues.apply(values, perm) if _tracked(values) else values[perm]
 
 
+def member_offsets(like: torch.Tensor, stride: int) -> torch.Tensor:
+    """Member i's offset ``i * stride``, shaped (B, 1, ...) to broadcast
+    against ``like`` (B, ...): member-local indices plus these index the
+    members' rows one after another, each member ``stride`` rows."""
+    b = like.shape[0]
+    off = torch.arange(b, device=like.device, dtype=like.dtype) * stride
+    return off.reshape(b, *([1] * (like.dim() - 1)))
+
+
 def permute_tree(tree, perm: torch.Tensor):
     """Apply one permutation to every tensor of a dataclass or dict (axis 0).
 
     Float leaves go through `permute_values`; int and bool leaves (cell
     ids, alive flags, slot bookkeeping) carry no gradient and are indexed
-    directly."""
+    directly. With a member axis, ``perm`` (B, N) permutes each member's
+    leaves (B, N, ...) along axis 1 by its own row."""
     perm = perm.long()
+    if perm.dim() > 1:
+        b, n = perm.shape
+        items = tree.items() if isinstance(tree, dict) else ((f.name, getattr(tree, f.name))
+                                                            for f in dataclasses.fields(tree))
+        folded = {k: v.reshape(b * n, *v.shape[2:]) for k, v in items}
+        moved = permute_tree(folded, (perm + member_offsets(perm, n)).reshape(-1))
+        out = {k: v.reshape(b, n, *v.shape[1:]) for k, v in moved.items()}
+        return out if isinstance(tree, dict) else dataclasses.replace(tree, **out)
 
     def move(a):
         return permute_values(a, perm) if a.is_floating_point() else a[perm]
@@ -98,7 +116,18 @@ def slot_gather(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 
     The forward is the clamp-gather ``values[max(slots, 0)]``: gap slots
     alias particle 0 and the caller's masking keeps its job. The backward
-    masks the gap slots out of the scatter-add."""
+    masks the gap slots out of the scatter-add.
+
+    With a member axis, ``values`` (B, N, ...) and ``slots`` (B, n_cells,
+    capacity) of member-local ids give (B, n_cells, capacity, ...): each
+    member's slots stage its own values (its gap slots alias its own
+    particle 0), in one gather. Only an ensemble bucket's step, which is
+    never differentiated, stages with a member axis: its backward is the
+    raw indexing's."""
+    if slots.dim() > 2:
+        b, n = values.shape[:2]
+        idx = (torch.clamp_min(slots, 0) + member_offsets(slots, n)).long()
+        return values.reshape(b * n, *values.shape[2:])[idx]
     if _tracked(values):
         return _SlotGather.apply(values, slots)
     return values[torch.clamp_min(slots, 0).long()]

@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
     p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.mpic_fused_deposit.argtypes = [p, p, p, i, i, i, i, i, i, z, i, p]
     lib.mpic_fused_deposit_reduced.argtypes = [p, p, p, i, i, i, i, i, i, i, z, i, p]
-    lib.mpic_fused_gather.argtypes = [p, p, p, i, i, i, i, i, i, i, i, z, i, p]
+    lib.mpic_fused_gather.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, z, i, p]
     lib.mpic_bin_outer_product.argtypes = [p, p, p, i, i, i, i, i, i, i, z, i, i, i, p]
     lib.mpic_bin_gather.argtypes = [p, p, p, p, i, i, i, i, i, i, i, z, i, i, p]
     lib.mpic_segment_accumulate.argtypes = [p, p, p, i, i, i, i, i, p]

@@ -11,6 +11,12 @@ Each checks its arguments and raises on what the kernel does not take. A
 tensor on the CPU runs the plain PyTorch version (`ref.py`); a CUDA tensor
 launches the kernel, and nothing else: a failed build or launch raises.
 ``LAUNCHES`` counts kernel launches, and only those.
+
+Each also takes its operands with a leading member axis (an ensemble
+bucket's, `repro_torch.pic.ensemble`) and then launches once for every
+member: the members' cells are folded into one cell axis (member i's after
+member i-1's), which is exact because a cell's tiles depend on that cell
+alone, whichever block or lane computes them.
 """
 
 from __future__ import annotations
@@ -112,11 +118,12 @@ def _threads(order: int, lanes: int) -> int:
     return (lanes * 3 * t * t + 31) // 32 * 32
 
 
-def reduced_geometry(grid_shape, order: int) -> ReducedGeometry:
-    """Columns per block of the reduced kernel, a function of the grid and
-    order alone (one column a block at lwfa's 64 columns)."""
+def reduced_geometry(grid_shape, order: int, members: int = 1) -> ReducedGeometry:
+    """Columns per block of the reduced kernel, a function of the grid,
+    order and member count alone (one column a block at lwfa's 64
+    columns). ``members`` grids stack their columns."""
     nx, ny, _ = (int(s) for s in grid_shape)
-    n_cols = nx * ny
+    n_cols = members * nx * ny
     k = _lanes_per_block(order, n_cols)
     return ReducedGeometry(n_cols, k, _threads(order, k), 4 * k * lane_floats(order), math.ceil(n_cols / k))
 
@@ -140,8 +147,8 @@ def packed_geometry(n_cells: int, order: int, cap: int) -> PackedGeometry:
 def _check_slab(d: torch.Tensor, val: torch.Tensor, order: int) -> None:
     if order not in (1, 2, 3):
         raise ValueError(f"order must be 1, 2 or 3, got {order}")
-    if d.dim() != 3 or d.shape[2] != 3 or d.shape[0] < 1 or d.shape[1] < 1:
-        raise ValueError(f"d must be (C, cap, 3) with C, cap >= 1, got {tuple(d.shape)}")
+    if d.dim() not in (3, 4) or d.shape[-1] != 3 or min(d.shape) < 1:
+        raise ValueError(f"d must be (C, cap, 3) or (B, C, cap, 3), each >= 1, got {tuple(d.shape)}")
     if val.shape != d.shape:
         raise ValueError(f"val {tuple(val.shape)} must match d {tuple(d.shape)}")
     if d.dtype != torch.float32 or val.dtype != torch.float32:
@@ -154,40 +161,59 @@ def _check_slab(d: torch.Tensor, val: torch.Tensor, order: int) -> None:
         raise ValueError("d and val must be contiguous")
 
 
+def _fold(x: torch.Tensor, dims: int) -> torch.Tensor:
+    """``x`` of ``dims`` axes, or of ``dims + 1`` with a leading member
+    axis, which is folded into the next one."""
+    return x.reshape(-1, *x.shape[2:]) if x.dim() > dims else x
+
+
+def _unfold(out: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """A folded output with its member axis ``lead`` (empty: none) back."""
+    return out.reshape(*lead, -1, *out.shape[1:]) if lead else out
+
+
 def fused_bin_deposit(d: torch.Tensor, val: torch.Tensor, *, order: int) -> torch.Tensor:
     """Fused Jx/Jy/Jz contraction: d, val (C, cap, 3) float32, val 0 on gap
-    slots -> (C, 3, T, T*T) packed rhocell tiles on the unified window. Any
+    slots -> (C, 3, T, T*T) packed rhocell tiles on the unified window; with
+    a member axis (B, C, cap, 3) -> (B, C, 3, T, T*T) in one launch. Any
     capacity: the kernel's shared memory depends on the order alone."""
     _check_slab(d, val, order)
+    lead = d.shape[:-3]
+    d, val = _fold(d, 3), _fold(val, 3)
     if d.device.type == "cpu":
-        return fused_bin_deposit_ref(d, val, order=order)
+        return _unfold(fused_bin_deposit_ref(d, val, order=order), lead)
     t, _ = unified_support(order)
     geometry = packed_geometry(d.shape[0], order, d.shape[1])
     out = torch.empty((d.shape[0], 3, t, t * t), dtype=torch.float32, device=d.device)
     kernel.fused_deposition_cuda(d, val, out, order=order, geometry=geometry)
     LAUNCHES["fused_bin_deposit"] += 1
-    return out
+    return _unfold(out, lead)
 
 
 def fused_bin_deposit_reduced(d: torch.Tensor, val: torch.Tensor, *, order: int, grid_shape,
                               guard: int) -> torch.Tensor:
     """Fused deposition with the rhocell z pass in the kernel:
-    d, val (nx*ny*nz, cap, 3) -> (nx*ny, 3, nz+2g, T, T). Any capacity and
-    column height: the kernel's shared memory depends on the order alone."""
+    d, val (nx*ny*nz, cap, 3) -> (nx*ny, 3, nz+2g, T, T); with a member
+    axis (B, nx*ny*nz, cap, 3) -> (B, nx*ny, 3, nz+2g, T, T) in one launch,
+    the members' columns one after another. Any capacity and column height:
+    the kernel's shared memory depends on the order alone."""
     _check_slab(d, val, order)
     nx, ny, nz = (int(s) for s in grid_shape)
-    if d.shape[0] != nx * ny * nz:
-        raise ValueError(f"{d.shape[0]} cells do not fill grid {(nx, ny, nz)}")
+    if d.shape[-3] != nx * ny * nz:
+        raise ValueError(f"{d.shape[-3]} cells do not fill grid {(nx, ny, nz)}")
     if guard < max_guard(order):
         raise ValueError(f"guard {guard} is below max_guard({order}) = {max_guard(order)}")
+    lead = d.shape[:-3]
+    d, val = _fold(d, 3), _fold(val, 3)
     if d.device.type == "cpu":
-        return fused_bin_deposit_reduced_ref(d, val, order=order, grid_shape=(nx, ny, nz), guard=guard)
+        return _unfold(fused_bin_deposit_reduced_ref(d, val, order=order, grid_shape=(nx, ny, nz), guard=guard),
+                       lead)
     t, _ = unified_support(order)
-    geometry = reduced_geometry((nx, ny, nz), order)
-    out = torch.empty((nx * ny, 3, nz + 2 * guard, t, t), dtype=torch.float32, device=d.device)
+    geometry = reduced_geometry((nx, ny, nz), order, members=math.prod(lead))
+    out = torch.empty((geometry.n_cols, 3, nz + 2 * guard, t, t), dtype=torch.float32, device=d.device)
     kernel.fused_deposition_reduced_cuda(d, val, out, order=order, nz=nz, guard=guard, geometry=geometry)
     LAUNCHES["fused_bin_deposit_reduced"] += 1
-    return out
+    return _unfold(out, lead)
 
 
 class OuterGeometry(NamedTuple):
@@ -246,16 +272,21 @@ def bin_outer_product_geometry(n_cells: int, cap: int, m: int, n: int, dtype: to
 def bin_outer_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-cell contraction out[c] = A_c^T B_c: a (C, cap, M), b (C, cap, N),
     both float32 or both bfloat16 -> (C, M, N) float32, accumulated in
-    float32. The reference's ``mode`` (MXU or VPU, a TPU unit) has no
-    counterpart: the kernel has one route."""
-    if a.dim() != 3 or b.dim() != 3 or a.shape[:2] != b.shape[:2] or min(a.shape) < 1 or b.shape[2] < 1:
-        raise ValueError(f"a must be (C, cap, M) and b (C, cap, N), got {tuple(a.shape)} and {tuple(b.shape)}")
+    float32; with a member axis (B, C, ...) -> (B, C, M, N) in one launch.
+    The reference's ``mode`` (MXU or VPU, a TPU unit) has no counterpart:
+    the kernel has one route."""
+    if a.dim() not in (3, 4) or b.dim() != a.dim() or a.shape[:-1] != b.shape[:-1] or min(a.shape) < 1 \
+            or b.shape[-1] < 1:
+        raise ValueError(f"a must be ([B,] C, cap, M) and b ([B,] C, cap, N), got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    lead = a.shape[:-3]
+    a, b = _fold(a, 3), _fold(b, 3)
     if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"a and b must both be float32 or both bfloat16, got {a.dtype} and {b.dtype}")
     if a.device != b.device:
         raise ValueError(f"a and b on different devices: {a.device}, {b.device}")
     if a.device.type == "cpu":
-        return bin_outer_product_ref(a, b)
+        return _unfold(bin_outer_product_ref(a, b), lead)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -267,4 +298,4 @@ def bin_outer_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((a.shape[0], m, n), dtype=torch.float32, device=a.device)
     kernel.bin_outer_product_cuda(a, b, out, geometry=geometry)
     LAUNCHES["bin_outer_product"] += 1
-    return out
+    return _unfold(out, lead)

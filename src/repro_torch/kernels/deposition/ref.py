@@ -45,13 +45,14 @@ def fused_bin_deposit_reduced_ref(d: torch.Tensor, val: torch.Tensor, *, order: 
 
 def column_z_pass(packed: torch.Tensor, *, order: int, grid_shape, guard: int) -> torch.Tensor:
     """The rhocell z pass of packed tiles (nx*ny*nz, 3, T, T*T) -> (nx*ny, 3,
-    nz+2g, T, T): each row adds its taps in ascending tap order, starting
-    from zero."""
-    nx, ny, nz = grid_shape
+    nz+2g, T, T), or of several grids' cells one after another to their
+    columns one after another: each row adds its taps in ascending tap
+    order, starting from zero."""
+    nz = grid_shape[2]
     g = guard
     t, base = unified_support(order)
-    rho = packed.reshape(nx * ny, nz, 3, t, t, t)
-    acc = packed.new_zeros((nx * ny, 3, nz + 2 * g, t, t))
+    rho = packed.reshape(-1, nz, 3, t, t, t)
+    acc = packed.new_zeros((rho.shape[0], 3, nz + 2 * g, t, t))
     for c in range(t):
         acc[:, :, g + base + c : g + base + c + nz] += torch.movedim(rho[..., c], 1, 2)
     return acc

@@ -27,8 +27,13 @@ and keeps the fastest: each candidate's thunk runs the whole op as its
 backend runs it (kernel #1 and the torch z pass on ``cuda``; #2 and its
 y/x tail on ``cuda_reduced``).
 
+An ensemble bucket runs each op once over a leading member axis of its
+``batch`` members (`repro_torch.pic.ensemble`): a batched key is timed on
+``[batch, ...]`` operands, one launch each, and kept apart from the
+single-member key of the same shapes.
+
 A choice is looked up in the in-process memo, then in a JSON cache keyed
-on (op, order, grid, capacity, bins, dtype, platform, width) at
+on (op, order, grid, capacity, bins, dtype, platform, width, batch) at
 ``$REPRO_TORCH_AUTOTUNE_CACHE`` (default ``.repro_torch_autotune_cache.json``
 in the working directory), and only then timed; the platform is the
 card's name, so a cache from another card is not reused. ``counters``
@@ -97,7 +102,9 @@ class DispatchKey:
     or the CUDA card's name; ``width`` is `segment_accumulate`'s feature
     width (0 for the PIC ops). ``fill`` is the occupied slots a bin of the
     synthetic slab a timing runs on (0: every slot); it is not part of the
-    key: a choice made at one occupancy stands at another."""
+    key: a choice made at one occupancy stands at another. ``batch`` is the
+    leading member axis the op runs over (an ensemble bucket's width; 1
+    for a single simulation), each member ``n_bins`` cells."""
 
     op: str
     order: int
@@ -108,12 +115,15 @@ class DispatchKey:
     platform: str
     width: int = 0
     fill: int = dataclasses.field(default=0, compare=False)
+    batch: int = 1
 
     def cache_key(self) -> str:
         gs = "x".join(map(str, self.grid_shape)) if self.grid_shape else "none"
         wid = f"|width{self.width}" if self.width else ""
+        # batch 1 adds nothing, so the entries of single simulations stay valid
+        bat = f"|batch{self.batch}" if self.batch != 1 else ""
         return (f"{self.op}|order{self.order}|grid{gs}|cap{self.capacity}|bins{self.n_bins}|{self.dtype}"
-                f"|{self.platform}{wid}")
+                f"|{self.platform}{wid}{bat}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,18 +201,18 @@ def _capturing() -> bool:
 
 
 def make_key(op: str, *, device, order: int = 0, grid_shape=None, capacity: int = 0, n_bins: int | None = None,
-             dtype="float32", width: int = 0, fill: int = 0) -> DispatchKey:
+             dtype="float32", width: int = 0, fill: int = 0, batch: int = 1) -> DispatchKey:
     if grid_shape is not None:
         grid_shape = tuple(int(s) for s in grid_shape)
         if n_bins is None:
             n_bins = grid_shape[0] * grid_shape[1] * grid_shape[2]
     return DispatchKey(op=op, order=int(order), grid_shape=grid_shape, capacity=int(capacity),
                        n_bins=int(n_bins or 0), dtype=str(dtype).removeprefix("torch."),
-                       platform=platform(device), width=int(width), fill=int(fill))
+                       platform=platform(device), width=int(width), fill=int(fill), batch=int(batch))
 
 
 def resolve(op: str, requested: str, *, device, order: int = 0, grid_shape=None, capacity: int = 0,
-            n_bins: int | None = None, dtype="float32", width: int = 0, fill: int = 0,
+            n_bins: int | None = None, dtype="float32", width: int = 0, fill: int = 0, batch: int = 1,
             allow_benchmark: bool = True) -> str:
     """Resolve ``requested`` ("auto" or a backend name) to the backend that
     runs ``op`` at this key on tensors of ``device``.
@@ -213,7 +223,7 @@ def resolve(op: str, requested: str, *, device, order: int = 0, grid_shape=None,
     the kernels suspected of a halt) or under a graph capture, an
     unmeasured ``auto`` answers in priority order and keeps nothing."""
     key = make_key(op, device=device, order=order, grid_shape=grid_shape, capacity=capacity, n_bins=n_bins,
-                   dtype=dtype, width=width, fill=fill)
+                   dtype=dtype, width=width, fill=fill, batch=batch)
     memo_key = (key, requested)
     if memo_key in _MEMO:
         counters["memo_hit"] += 1
@@ -287,12 +297,14 @@ def ops_for_modes(deposition: str, gather: str) -> tuple[str, ...]:
 
 
 def prewarm(ops_: tuple[str, ...] | list[str], *, device, order: int, grid_shape=None, capacity: int = 0,
-            n_bins: int | None = None, dtype="float32", fill: int = 0, requested: str = "auto") -> dict[str, str]:
+            n_bins: int | None = None, dtype="float32", fill: int = 0, requested: str = "auto",
+            batch: int = 1) -> dict[str, str]:
     """Resolve each op at one key eagerly (timing it if unmeasured, on a
     slab with ``fill`` occupied slots a bin): {op: backend}. The driver
-    calls this before it captures a step."""
+    calls this before it captures a step; an ensemble at ``batch`` = its
+    member count."""
     return {op: resolve(op, requested, device=device, order=order, grid_shape=grid_shape, capacity=capacity,
-                        n_bins=n_bins, dtype=dtype, fill=fill)
+                        n_bins=n_bins, dtype=dtype, fill=fill, batch=batch)
             for op in ops_}
 
 
@@ -398,24 +410,33 @@ def _has_grid(key: DispatchKey) -> bool:
     return key.grid_shape is not None
 
 
+def _bshape(key: DispatchKey, *shape: int) -> tuple[int, ...]:
+    """An operand's shape at the key: with a leading member axis when the
+    key is batched, so that a batched key times the one launch over every
+    member that the bucket's step makes."""
+    return (key.batch, *shape) if key.batch != 1 else tuple(shape)
+
+
 def _randn(key: DispatchKey, device, seed: int, *shapes):
-    """Normal synthetic operands of the key's type, from one seeded
-    generator on the device."""
+    """Normal synthetic operands of the key's type (each shape under the
+    key's member axis), from one seeded generator on the device."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn(shape, generator=gen, device=device).to(getattr(torch, key.dtype)) for shape in shapes]
+    return [torch.randn(_bshape(key, *shape), generator=gen, device=device).to(getattr(torch, key.dtype))
+            for shape in shapes]
 
 
 def _synthetic_slab(key: DispatchKey, device):
-    """(d, val), (n_bins, capacity, 3) each: offsets in [0, 0.999) and
-    normal values in the first ``key.fill`` slots of every bin (all of them
-    for 0), gap slots (0, 0) after them, as the driver's slab keeps them."""
+    """(d, val), (n_bins, capacity, 3) each under the key's member axis:
+    offsets in [0, 0.999) and normal values in the first ``key.fill`` slots
+    of every bin (all of them for 0), gap slots (0, 0) after them, as the
+    driver's slab keeps them."""
     gen = torch.Generator(device=device).manual_seed(0)
-    shape = (key.n_bins, key.capacity, 3)
+    shape = _bshape(key, key.n_bins, key.capacity, 3)
     d = (torch.rand(shape, generator=gen, device=device) * 0.999).to(getattr(torch, key.dtype))
-    val = _randn(key, device, 1, shape)[0]
+    val = _randn(key, device, 1, (key.n_bins, key.capacity, 3))[0]
     if 0 < key.fill < key.capacity:
-        d[:, key.fill:] = 0
-        val[:, key.fill:] = 0
+        d[..., key.fill:, :] = 0
+        val[..., key.fill:, :] = 0
     return d, val
 
 
@@ -436,7 +457,7 @@ def _gather_fused_thunk(impl: str):
 
         d, _ = _synthetic_slab(key, device)
         g = max_guard(key.order)
-        [padded] = _randn(key, device, 2, (6, *(n + 2 * g for n in key.grid_shape)))
+        [padded] = _randn(key, device, 2, (6, *(n + 2 * g for n in key.grid_shape)))  # (B, 6, ...) when batched
         return lambda: fused_gather_bins(d, padded, grid_shape=key.grid_shape, order=key.order, backend=impl)
 
     return make
@@ -460,7 +481,7 @@ def _deposit_unfused_thunk(impl: str):
             from repro_torch.kernels.deposition.ops import bin_outer_product
 
             return lambda: bin_outer_product(a, b)
-        return lambda: torch.einsum("cpm,cpn->cmn", a, b)
+        return lambda: torch.einsum("...cpm,...cpn->...cmn", a, b)
 
     return make
 
@@ -474,7 +495,7 @@ def _bin_gather_thunk(impl: str):
             from repro_torch.kernels.gather.ops import bin_gather
 
             return lambda: bin_gather(wx, byz, g)
-        return lambda: torch.sum(wx * torch.einsum("cpn,cmn->cpm", byz, g), dim=-1)
+        return lambda: torch.sum(wx * torch.einsum("...cpn,...cmn->...cpm", byz, g), dim=-1)
 
     return make
 

@@ -21,11 +21,12 @@ from repro_torch.kernels.build import check, load_library
 def fused_gather_cuda(d: torch.Tensor, padded: torch.Tensor, out: torch.Tensor, *, grid_shape,
                       order: int, guard: int, geometry) -> None:
     """d (C, cap, 3), padded (6, nx+2g, ny+2g, nz+2g) -> out (C, cap, 6),
+    or the same with a leading axis of ``geometry.members`` members,
     launched with ``geometry`` (`ops.gather_geometry`; the kernel refuses
     another)."""
     nx, ny, nz = grid_shape
     rc = load_library().mpic_fused_gather(
-        d.data_ptr(), padded.data_ptr(), out.data_ptr(), nx, ny, nz, d.shape[1], order, guard,
+        d.data_ptr(), padded.data_ptr(), out.data_ptr(), geometry.members, nx, ny, nz, d.shape[-2], order, guard,
         geometry.run, geometry.threads, geometry.smem,
         d.device.index, torch.cuda.current_stream(d.device).cuda_stream,
     )

@@ -8,6 +8,12 @@ Each checks its arguments and raises on what the kernel does not take. A
 tensor on the CPU runs the plain PyTorch version (`ref.py`); a CUDA tensor
 launches the kernel, and nothing else. ``LAUNCHES`` counts kernel launches,
 and only those.
+
+Each also takes its operands with a leading member axis (an ensemble
+bucket's) and then launches once for every member. `bin_gather` folds the
+members' cells into one cell axis, as the deposition wrappers do; the
+fused gather reads each member's own grids, so its blocks decode their
+member and offset into that member's grids and slab.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.shape_functions import max_guard, unified_support
-from repro_torch.kernels.deposition.ops import SM_BLOCK_RESERVE, SM_COUNT, SM_SMEM, SMEM_LIMIT
+from repro_torch.kernels.deposition.ops import SM_BLOCK_RESERVE, SM_COUNT, SM_SMEM, SMEM_LIMIT, _fold, _unfold
 from repro_torch.kernels.gather import kernel
 from repro_torch.kernels.gather.ref import bin_gather_ref, fused_gather_ref
 
@@ -36,16 +42,19 @@ BIN_GATHER_HEADER = 128
 
 class GatherGeometry(NamedTuple):
     """Launch of `fused_gather_kernel`: block b takes z cells
-    [z0, min(z0 + run, nz)) of column b // runs, z0 = (b % runs) * run."""
+    [z0, min(z0 + run, nz)) of column b // runs, z0 = (b % runs) * run, the
+    columns of ``members`` grids one after another."""
 
     grid_shape: tuple
     run: int
     threads: int
     smem: int
     blocks: int
+    members: int = 1
 
     def cells(self, block: int) -> range:
-        """The flat (z-fastest) cell indices of ``block``."""
+        """The flat (z-fastest) cell indices of ``block``, counted over the
+        members' cells one after another."""
         _, _, nz = self.grid_shape
         runs = math.ceil(nz / self.run)
         column, z0 = divmod(block, runs)
@@ -63,34 +72,38 @@ def gather_smem(order: int, run: int, cap: int) -> int:
     return 4 * (g_floats + 4 * run * cap + 2 * run + 1)
 
 
-def gather_geometry(grid_shape, order: int, cap: int) -> GatherGeometry:
-    """Cells per fused-gather block, a function of the grid, order and
-    capacity alone: runs of up to 32 z cells, fewer at capacities over 128
-    (the offsets and slot lists grow with run x cap), halved until the grid gives at
-    least two blocks an SM (lwfa's 8 x 8 x 64). Raises if even one cell a
-    block is over the shared memory."""
+def gather_geometry(grid_shape, order: int, cap: int, members: int = 1) -> GatherGeometry:
+    """Cells per fused-gather block, a function of the grid, order,
+    capacity and member count alone: runs of up to 32 z cells, fewer at
+    capacities over 128 (the offsets and slot lists grow with run x cap),
+    halved until the members' grids give at least two blocks an SM (lwfa's
+    8 x 8 x 64). Raises if even one cell a block is over the shared
+    memory."""
     nx, ny, nz = (int(s) for s in grid_shape)
+    cols = members * nx * ny
     run = max(1, min(GATHER_RUN, nz, 4096 // cap))
-    while run > 1 and nx * ny * math.ceil(nz / run) < 2 * SM_COUNT:
+    while run > 1 and cols * math.ceil(nz / run) < 2 * SM_COUNT:
         run = (run + 1) // 2
     smem = gather_smem(order, run, cap)
     if smem > SMEM_LIMIT:
         raise ValueError(f"capacity {cap} needs {smem} B of shared memory per block, over {SMEM_LIMIT}")
-    return GatherGeometry((nx, ny, nz), run, GATHER_THREADS, smem, nx * ny * math.ceil(nz / run))
+    return GatherGeometry((nx, ny, nz), run, GATHER_THREADS, smem, cols * math.ceil(nz / run), members)
 
 
 def fused_bin_gather(d: torch.Tensor, padded: torch.Tensor, *, grid_shape, order: int, guard: int) -> torch.Tensor:
     """Fused Ex..Bz gather: d (C, cap, 3) slab offsets and the six stacked
     guard-padded grids (6, nx+2g, ny+2g, nz+2g) -> (C, cap, 6) float32
-    per-bin values in EB_STAGGERS order."""
+    per-bin values in EB_STAGGERS order; with a member axis, d (B, C, cap,
+    3) and padded (B, 6, ...) -> (B, C, cap, 6) in one launch."""
     if order not in (1, 2, 3):
         raise ValueError(f"order must be 1, 2 or 3, got {order}")
     nx, ny, nz = (int(s) for s in grid_shape)
-    if d.dim() != 3 or d.shape[2] != 3 or d.shape[1] < 1 or d.shape[0] != nx * ny * nz:
-        raise ValueError(f"d must be ({nx * ny * nz}, cap, 3) for grid {(nx, ny, nz)}, got {tuple(d.shape)}")
+    lead = d.shape[:-3]
+    if d.dim() not in (3, 4) or d.shape[-1] != 3 or min(d.shape) < 1 or d.shape[-3] != nx * ny * nz:
+        raise ValueError(f"d must be ([B,] {nx * ny * nz}, cap, 3) for grid {(nx, ny, nz)}, got {tuple(d.shape)}")
     if guard < max_guard(order):
         raise ValueError(f"guard {guard} is below max_guard({order}) = {max_guard(order)}")
-    want = (6, nx + 2 * guard, ny + 2 * guard, nz + 2 * guard)
+    want = (*lead, 6, nx + 2 * guard, ny + 2 * guard, nz + 2 * guard)
     if tuple(padded.shape) != want:
         raise ValueError(f"padded must be {want}, got {tuple(padded.shape)}")
     if d.dtype != torch.float32 or padded.dtype != torch.float32:
@@ -103,8 +116,8 @@ def fused_bin_gather(d: torch.Tensor, padded: torch.Tensor, *, grid_shape, order
         raise ValueError(f"unsupported device {d.device}")
     if not (d.is_contiguous() and padded.is_contiguous()):
         raise ValueError("d and padded must be contiguous")
-    geometry = gather_geometry((nx, ny, nz), order, d.shape[1])
-    out = torch.empty((d.shape[0], d.shape[1], 6), dtype=torch.float32, device=d.device)
+    geometry = gather_geometry((nx, ny, nz), order, d.shape[-2], members=math.prod(lead))
+    out = torch.empty((*d.shape[:-1], 6), dtype=torch.float32, device=d.device)
     kernel.fused_gather_cuda(d, padded, out, grid_shape=(nx, ny, nz), order=order, guard=guard, geometry=geometry)
     LAUNCHES["fused_bin_gather"] += 1
     return out
@@ -163,19 +176,24 @@ def bin_gather_geometry(n_cells: int, cap: int, m: int, n: int) -> BinGatherGeom
 
 def bin_gather(wx: torch.Tensor, byz: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """One component's per-bin gather: wx (C, cap, M), byz (C, cap, N) and
-    the cells' neighbourhoods g (C, M, N), float32 -> (C, cap) float32."""
-    if wx.dim() != 3 or byz.dim() != 3 or g.dim() != 3 or wx.shape[:2] != byz.shape[:2] or min(wx.shape) < 1:
-        raise ValueError(f"wx must be (C, cap, M) and byz (C, cap, N), got {tuple(wx.shape)}, {tuple(byz.shape)}")
+    the cells' neighbourhoods g (C, M, N), float32 -> (C, cap) float32;
+    with a member axis (B, C, ...) -> (B, C, cap) in one launch."""
+    if wx.dim() not in (3, 4) or byz.dim() != wx.dim() or g.dim() != wx.dim() or wx.shape[:-1] != byz.shape[:-1] \
+            or min(wx.shape) < 1:
+        raise ValueError(f"wx must be ([B,] C, cap, M) and byz ([B,] C, cap, N), got {tuple(wx.shape)}, "
+                         f"{tuple(byz.shape)}")
+    lead = wx.shape[:-3]
+    if tuple(g.shape) != (*wx.shape[:-2], wx.shape[-1], byz.shape[-1]):
+        raise ValueError(f"g must be {(*wx.shape[:-2], wx.shape[-1], byz.shape[-1])}, got {tuple(g.shape)}")
+    wx, byz, g = _fold(wx, 3), _fold(byz, 3), _fold(g, 3)
     c, cap, m = wx.shape
     n = byz.shape[2]
-    if tuple(g.shape) != (c, m, n):
-        raise ValueError(f"g must be {(c, m, n)}, got {tuple(g.shape)}")
     if not wx.dtype == byz.dtype == g.dtype == torch.float32:
         raise TypeError(f"wx, byz and g must be float32, got {wx.dtype}, {byz.dtype}, {g.dtype}")
     if not wx.device == byz.device == g.device:
         raise ValueError(f"wx, byz and g on different devices: {wx.device}, {byz.device}, {g.device}")
     if wx.device.type == "cpu":
-        return bin_gather_ref(wx, byz, g)
+        return _unfold(bin_gather_ref(wx, byz, g), lead)
     if wx.device.type != "cuda":
         raise ValueError(f"unsupported device {wx.device}")
     if not (wx.is_contiguous() and byz.is_contiguous() and g.is_contiguous()):
@@ -184,4 +202,4 @@ def bin_gather(wx: torch.Tensor, byz: torch.Tensor, g: torch.Tensor) -> torch.Te
     out = torch.empty((c, cap), dtype=torch.float32, device=wx.device)
     kernel.bin_gather_cuda(wx, byz, g, out, geometry=geometry)
     LAUNCHES["bin_gather"] += 1
-    return out
+    return _unfold(out, lead)

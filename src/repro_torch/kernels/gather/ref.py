@@ -39,6 +39,9 @@ def fused_bin_gather_ref(d: torch.Tensor, g: torch.Tensor, *, order: int) -> tor
 
 
 def fused_gather_ref(d: torch.Tensor, padded: torch.Tensor, *, grid_shape, order: int, guard: int) -> torch.Tensor:
-    """d (C, cap, 3), padded (6, nx+2g, ny+2g, nz+2g) -> (C, cap, 6)."""
+    """d (C, cap, 3), padded (6, nx+2g, ny+2g, nz+2g) -> (C, cap, 6), or the
+    same with a leading member axis on all three (the members' cells
+    folded into one contraction)."""
     g = pack_neighborhoods(padded, grid_shape=grid_shape, order=order, guard=guard)
-    return fused_bin_gather_ref(d, g, order=order)
+    out = fused_bin_gather_ref(d.reshape(-1, *d.shape[-2:]), g.reshape(-1, *g.shape[-3:]), order=order)
+    return out.reshape(*d.shape[:-1], 6)

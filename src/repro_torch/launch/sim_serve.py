@@ -4,8 +4,9 @@ Jobs are serialized `SimSpec` JSON. The queue groups jobs of one
 `spec_signature` into one `EnsembleSimulation` batch, runs its windows in a
 worker thread and streams each job's window bundle back as it lands. The
 captured windows of each signature are cached (`ExecutableCache`, an LRU):
-a repeat batch of a signature and size copies its members into the
-captured buffers and replays, capturing nothing; evicting a signature
+one window a batch size, each a captured step over the batch's member
+axis, so a repeat batch of a signature and size copies its members into
+the captured buffers and replays, capturing nothing; evicting a signature
 frees its graphs and buffers.
 
 Protocol (asyncio and JSON lines):
@@ -56,7 +57,8 @@ __all__ = ["ExecutableCache", "SimJob", "SimService", "serve"]
 class ExecutableCache:
     """Signature-keyed LRU of window stores. Each entry is the store of one
     signature's captured windows (`EnsembleSimulation`'s ``windows``, one
-    per batch size) and nothing else, no job and no ensemble: evicting the
+    per batch size, each the bucket's batched step over that many members)
+    and nothing else, no job and no ensemble: evicting the
     least recently used signature frees that bucket's graphs and buffers,
     so the service holds at most ``maxsize`` signatures' windows."""
 

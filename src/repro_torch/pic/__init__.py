@@ -9,6 +9,7 @@ from repro_torch.pic.maxwell import maxwell_step, push_b, push_e  # noqa: F401
 from repro_torch.pic.plasma import (  # noqa: F401
     ParticleState,
     apply_counter_drift,
+    counter_streaming_plasma,
     perturb_velocity,
     profiled_plasma,
     uniform_plasma,

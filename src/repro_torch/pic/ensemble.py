@@ -4,14 +4,19 @@ one shape bucket, advanced together, with one host read a window.
 Counterpart of `repro.pic.ensemble`, which vmaps the single-device window
 over a stacked state. Here every window buffer holds its tensor once, with
 a leading member axis (`_WindowBuffers` with ``members=B``), and member i's
-tensors are the views ``t[i]``. A window step runs, for each member in
-turn, the very step of the single-device driver (`_window_step`) on that
-member's views, under the step's own guard ``~halted & (n_done <
-target)``. On a CUDA device the bucket's step, each member's under its own
-IF node, is captured once as one CUDA graph; a window is ``max_i k_i``
-replays and one read of a ``[B, head + table]`` bundle. Each member's
-kernels launch at the member's own shapes, so each member comes out
-bit-equal to its own solo `Simulation` run.
+tensors are the views ``t[i]``. A window step is one step over that axis
+(`_window_step` on the bucket's buffers): `_pic_step` advances every
+member at once, each kernel of the step launched once for the bucket (its
+wrapper folds the members' cells into one launch, or, for the fused
+gather, decodes each block's member), and each member keeps its new state
+only while it is active, ``~halted & (n_done < target)``, as the
+reference's vmapped step masks it. The global sort runs over every member
+under one guard that some active member sorts. On a CUDA device the
+bucket's step is captured once as one CUDA graph; a window is ``max_i
+k_i`` replays and one read of a ``[B, head + table]`` bundle. Every kernel
+and every torch op of the step gives each member the bits of its solo
+step, and the energies are reduced on each member's own tensors, so each
+member comes out bit-equal to its own solo `Simulation` run.
 
 Halt-and-grow stays on the host, per member. A member whose bins overflow
 halts, and its remaining replays pass it by, while its siblings run to
@@ -34,8 +39,8 @@ ensemble at a time; the last to enter it owns its buffers.
 
 Ensembles run without the health sentinel and the rollback ladder, as in
 the reference: a halt other than an overflow raises. Every ``auto``
-dispatcher key is resolved at the single-member shape, the one each
-member's kernels run at.
+dispatcher key is resolved at the bucket's shape, ``batch`` = the member
+count, the one the bucket's kernels run at.
 """
 
 from __future__ import annotations
@@ -115,19 +120,17 @@ def member_bundle(host: dict, i: int) -> dict:
 
 
 class EnsembleWindow:
-    """One window of a bucket: its stacked buffers, each member's views of
-    them, the step function and, on a CUDA device, the captured graph and
-    the kernel launches each member's step recorded into it. It refers to
-    no driver, so dropping it from its store frees its graph and its
-    buffers."""
+    """One window of a bucket: its stacked buffers, the step function and,
+    on a CUDA device, the captured graph and the kernel launches the
+    bucket's step recorded into it. It refers to no driver, so dropping it
+    from its store frees its graph and its buffers."""
 
-    def __init__(self, key: tuple, buffers: _WindowBuffers, step, n_members: int):
+    def __init__(self, key: tuple, buffers: _WindowBuffers, step):
         self.key = key
         self.buffers = buffers
-        self.members = [buffers.member(i) for i in range(n_members)]
         self.step = step
         self.graph: torch.cuda.CUDAGraph | None = None
-        self.launches: list[dict] = [{} for _ in range(n_members)]
+        self.launches: dict = {}
 
 
 class EnsembleSimulation:
@@ -144,7 +147,9 @@ class EnsembleSimulation:
     `run` is windowed only: a window advances every member ``min(window,
     remaining_i)`` steps and makes one host read for the whole bucket.
     ``host_reads`` counts the bucket's reads: one a window, two more a
-    capacity growth. ``graph_captures`` and ``window_builds`` count the
+    capacity growth. ``bucket_steps`` counts the bucket's steps (a window
+    makes ``max_i`` of its members' steps; each launches every kernel of
+    the step once). ``graph_captures`` and ``window_builds`` count the
     windows captured and built (a window taken from a shared store is
     neither).
     """
@@ -177,6 +182,7 @@ class EnsembleSimulation:
         self.halts: dict[str, int] = {}
         self.windows = 0
         self.host_reads = 0
+        self.bucket_steps = 0
         self.window_builds = 0
         self.graph_captures = 0
         self.graph_setup_seconds = 0.0
@@ -210,17 +216,18 @@ class EnsembleSimulation:
         return counts.max()
 
     def _prewarm_dispatch(self) -> None:
-        """Resolve the config's ``auto`` dispatch keys eagerly, at the
-        single-member shape (each member's kernels run at it), so that the
-        captured step finds the winner in the memo; again after a growth and
-        a restore. A timing runs at the members' mean occupancy."""
+        """Resolve the config's ``auto`` dispatch keys eagerly at the
+        bucket's shape, ``batch`` = the member count (its step runs each op
+        once over the member axis), so that the captured step finds the
+        batched winner in the memo; again after a growth and a restore. A
+        timing runs at the members' mean occupancy."""
         if self.config.backend != "auto":
             return
         p = self._state.particles
         fill = -(-int(torch.count_nonzero(p.alive)) // (self.n_members * self.config.grid.n_cells))
         dispatch.prewarm(dispatch.ops_for_modes(self.config.deposition, self.config.gather), device=self.device,
                          order=self.config.order, grid_shape=self.config.grid.shape,
-                         capacity=self.config.capacity, dtype=p.pos.dtype, fill=fill)
+                         capacity=self.config.capacity, dtype=p.pos.dtype, fill=fill, batch=self.n_members)
 
     # -- state ------------------------------------------------------------------
 
@@ -317,12 +324,12 @@ class EnsembleSimulation:
             # (no closure over the driver: a stored window must not keep it alive)
             step = functools.partial(_window_step, config=self.config, policy=self.policy,
                                      with_energies=with_energies, health=None, with_fault=False)
-            w = EnsembleWindow(key, buf, step, self.n_members)
+            w = EnsembleWindow(key, buf, step)
             self.window_builds += 1
             if self.use_graphs:
                 torch.cuda.synchronize(self.device)
                 t0 = time.perf_counter()
-                w.graph, w.launches = capture_steps(w.members, step)
+                w.graph, (w.launches,) = capture_steps([buf], step)
                 self.graph_captures += 1
                 self.graph_setup_seconds += time.perf_counter() - t0
             self._windows[self.n_members] = w
@@ -345,14 +352,16 @@ class EnsembleSimulation:
         else:
             decider = HostDecider(self._read)
             for _ in range(k_max):
-                for member in w.members:
-                    w.step(member, decider=decider)
+                w.step(buf, decider=decider)
         self.windows += 1
         rows = self._read(buf.bundle(k_max)).numpy()
         parts = [parse_bundle(rows[i], buf.names, k_max, int(self.host_step[i])) for i in range(self.n_members)]
+        # the step ran while some member was active: in the first max_i
+        # n_done_i replays
+        steps = max(part["n_done"] for part in parts)
+        self.bucket_steps += steps
         if w.graph is not None:
-            for launches, part in zip(w.launches, parts):
-                kernels.add_launches(launches, part["n_done"])
+            kernels.add_launches(w.launches, steps)
         host = {key: np.array([p[key] for p in parts]) for key in parts[0] if key != "per_step"}
         host["per_step"] = {name: np.stack([p["per_step"][name] for p in parts]) for name in buf.names}
         return host

@@ -5,7 +5,8 @@
 halos.
 
 Normalized units: dE/dt = curl B - J ; dB/dt = -curl E. Differences are
-`torch.roll`-based (periodic).
+`torch.roll`-based (periodic). The spatial axes are a field's last three,
+so an ensemble bucket's fields (B, nx, ny, nz) step every member at once.
 """
 
 from __future__ import annotations
@@ -18,13 +19,15 @@ from repro_torch.pic.grid import FieldState
 
 
 def _d_down(f, axis, d):
-    """Backward difference (f[i] - f[i-1])/d — for curls landing on E."""
-    return (f - torch.roll(f, 1, dims=axis)) / d
+    """Backward difference (f[i] - f[i-1])/d along spatial ``axis`` — for
+    curls landing on E."""
+    return (f - torch.roll(f, 1, dims=axis - 3)) / d
 
 
 def _d_up(f, axis, d):
-    """Forward difference (f[i+1] - f[i])/d — for curls landing on B."""
-    return (torch.roll(f, -1, dims=axis) - f) / d
+    """Forward difference (f[i+1] - f[i])/d along spatial ``axis`` — for
+    curls landing on B."""
+    return (torch.roll(f, -1, dims=axis - 3) - f) / d
 
 
 def curl_b(fields: FieldState, dx):
@@ -49,7 +52,7 @@ def _ckc_smooth(f, axes, beta):
     """CKC transverse smoothing of a difference field: (1-2b) f + b (f+ + f-)
     along each transverse axis. beta=0 reduces to plain Yee."""
     for ax in axes:
-        f = (1 - 2 * beta) * f + beta * (torch.roll(f, 1, dims=ax) + torch.roll(f, -1, dims=ax))
+        f = (1 - 2 * beta) * f + beta * (torch.roll(f, 1, dims=ax - 3) + torch.roll(f, -1, dims=ax - 3))
     return f
 
 

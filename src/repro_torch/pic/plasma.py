@@ -80,6 +80,18 @@ def apply_counter_drift(particles: ParticleState, *, u_drift: float, axis: int) 
     return dataclasses.replace(particles, u=u)
 
 
+def counter_streaming_plasma(generator: torch.Generator, grid: GridSpec, *, ppc_each_dim=(2, 2, 2),
+                             density: float = 1.0, u_drift: float = 0.2, drift_axis: int = 2,
+                             u_thermal: float = 0.0, device=None) -> ParticleState:
+    """Uniform plasma split into two symmetric counter-streaming beams
+    (total density `density`): the two-stream (drift along the wave vector)
+    and Weibel (drift transverse to it) unstable equilibria. See
+    `apply_counter_drift`."""
+    base = uniform_plasma(generator, grid, ppc_each_dim=ppc_each_dim, density=density, u_thermal=u_thermal,
+                          device=device)
+    return apply_counter_drift(base, u_drift=u_drift, axis=drift_axis)
+
+
 def perturb_velocity(particles: ParticleState, *, axis: int, amplitude: float, mode: int, grid: GridSpec,
                      k_axis: int | None = None) -> ParticleState:
     """u[axis] += A*sin(k x[k_axis]), k the `mode`-th harmonic of the box."""

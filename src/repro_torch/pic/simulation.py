@@ -221,12 +221,12 @@ def init_state(fields: FieldState, particles: ParticleState, config: PICConfig) 
 
 def padded_fields(fields: FieldState, guard: int) -> torch.Tensor:
     """The six components, stacked in EB_STAGGERS order and periodically
-    guard-padded: (6, nx+2g, ny+2g, nz+2g)."""
-    return unfold_guards(torch.stack(fields.all()), guard, dims=(1, 2, 3)).contiguous()
+    guard-padded: ([B,] 6, nx+2g, ny+2g, nz+2g)."""
+    return unfold_guards(torch.stack(fields.all(), dim=-4), guard, dims=(-3, -2, -1)).contiguous()
 
 
 def _gather_fields(pos, fields: FieldState, layout: BinnedLayout, slab: BinSlab | None, config: PICConfig):
-    """E and B at the particles, (Np, 3) each, by the configured gather."""
+    """E and B at the particles, ([B,] Np, 3) each, by the configured gather."""
     shape, order = config.grid.shape, config.order
     padded = padded_fields(fields, config.guard)
     if config.gather == "matrix":
@@ -234,10 +234,10 @@ def _gather_fields(pos, fields: FieldState, layout: BinnedLayout, slab: BinSlab 
     comps = []
     for k, stagger in enumerate(EB_STAGGERS):
         if config.gather == "matrix_unfused":
-            comps.append(gather_matrix(pos, padded[k], layout, grid_shape=shape, order=order, stagger=stagger,
-                                       backend=config.backend))
+            comps.append(gather_matrix(pos, padded[..., k, :, :, :], layout, grid_shape=shape, order=order,
+                                       stagger=stagger, backend=config.backend))
         else:
-            comps.append(gather_scatter(pos, padded[k], order=order, stagger=stagger))
+            comps.append(gather_scatter(pos, padded[..., k, :, :, :], order=order, stagger=stagger))
     return torch.stack(comps[:3], dim=-1), torch.stack(comps[3:], dim=-1)
 
 
@@ -252,7 +252,7 @@ def _deposit_current(pos, v, qw, layout: BinnedLayout, slab: BinSlab | None, cel
         return [fold_guards(j, config.guard) * inv_vol for j in j3]
     out = []
     for k, stagger in enumerate(CURRENT_STAGGER):
-        values = qw * v[:, k]
+        values = qw * v[..., k]
         if config.deposition == "scatter":
             j = deposit_scatter(pos, values, grid_shape=shape, order=order, stagger=stagger)
         elif config.deposition == "rhocell":
@@ -264,11 +264,22 @@ def _deposit_current(pos, v, qw, layout: BinnedLayout, slab: BinSlab | None, cel
     return out
 
 
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    """The true entries of a per-particle mask: a 0-d int64 tensor, or one
+    a member (B,) with a member axis."""
+    return torch.sum(mask, dim=-1) if mask.dim() > 1 else torch.sum(mask)
+
+
 def _pic_step(state: PICState, config: PICConfig) -> tuple[PICState, GPMAStats]:
     """One simulation step. Each phase is a `record_function` range
     (``pic.gather`` ... ``pic.maxwell``), so a profiler run attributes the
     device time to the step's layers; without a profiler a range costs a
-    few microseconds of host time."""
+    few microseconds of host time.
+
+    The state may carry a leading member axis on every tensor (an ensemble
+    bucket's, `repro_torch.pic.ensemble`): the step then advances every
+    member at once, each kernel launched once for all of them, and each
+    member's result is its solo step's; the statistics are one a member."""
     p = state.particles
     shape = config.grid.shape
     alive_f = p.alive.to(p.pos.dtype)
@@ -280,7 +291,7 @@ def _pic_step(state: PICState, config: PICConfig) -> tuple[PICState, GPMAStats]:
 
     # 2. push
     with record_function("pic.push"):
-        alive_col = p.alive[:, None]
+        alive_col = p.alive[..., None]
         u_new = torch.where(alive_col, boris_push(p.u, e_p, b_p, config.q_over_m, config.dt), p.u)
         pos_new = wrap_periodic(advance_positions(p.pos, u_new, config.dt, config.grid.dx), shape)
         pos_new = torch.where(alive_col, pos_new, p.pos)
@@ -292,19 +303,19 @@ def _pic_step(state: PICState, config: PICConfig) -> tuple[PICState, GPMAStats]:
             layout, stats = gpma_update(state.layout, new_cells, p.alive)
         elif config.sort_mode in ("rebuild", "global"):
             layout, overflow = build_bins(new_cells, p.alive, n_cells=config.grid.n_cells, capacity=config.capacity)
-            stats = GPMAStats(n_moved=torch.sum(new_cells != cell_index(p.pos, shape)), n_overflow=overflow,
-                              n_empty=layout.n_empty(), n_alive=torch.sum(p.alive))
+            stats = GPMAStats(n_moved=_count(new_cells != cell_index(p.pos, shape)), n_overflow=overflow,
+                              n_empty=layout.n_empty(), n_alive=_count(p.alive))
         else:  # none: the layout stays as it is
             layout = state.layout
-            zero = torch.zeros((), dtype=torch.int64, device=p.pos.device)
-            stats = GPMAStats(n_moved=zero, n_overflow=zero, n_empty=zero, n_alive=torch.sum(p.alive))
+            zero = torch.zeros(p.alive.shape[:-1], dtype=torch.int64, device=p.pos.device)
+            stats = GPMAStats(n_moved=zero, n_overflow=zero, n_empty=zero, n_alive=_count(p.alive))
 
     # 4. the step's one slab staging (the fused deposition stages positions
     #    and q·w·v together), then deposition at x^{n+1}, v^{n+1/2}
     particles = dataclasses.replace(p, pos=pos_new, u=u_new)
     with record_function("pic.staging"):
         gamma = lorentz_gamma(u_new)
-        v = u_new / gamma[:, None]
+        v = u_new / gamma[..., None]
         qw = config.charge * p.w * alive_f
         values = None
         if config.deposition == "matrix":
@@ -584,12 +595,23 @@ def _clone_tree(tree):
     return dataclasses.replace(tree, **{f.name: getattr(tree, f.name).clone() for f in dataclasses.fields(tree)})
 
 
-def _copy_tree(dst, src) -> None:
-    """Write every tensor of ``src`` into the same-named tensor of ``dst``."""
+def _copy_tree(dst, src, keep: torch.Tensor | None = None) -> None:
+    """Write every tensor of ``src`` into the same-named tensor of ``dst``;
+    with ``keep`` (B,) (trees with a leading member axis), only the members
+    it marks, the others left as they are."""
     for f in dataclasses.fields(dst):
         d, s = getattr(dst, f.name), getattr(src, f.name)
-        if d is not s:
+        if d is s:
+            continue
+        if keep is None:
             d.copy_(s)
+        else:  # in place: one pass over both
+            torch.where(keep.reshape(-1, *([1] * (d.dim() - 1))), s, d, out=d)
+
+
+def _member_tree(tree, i: int):
+    """Member i of a tree with a leading member axis: its tensors' views."""
+    return dataclasses.replace(tree, **{f.name: getattr(tree, f.name)[i] for f in dataclasses.fields(tree)})
 
 
 class _WindowHead:
@@ -637,9 +659,9 @@ class _WindowBuffers(_WindowHead):
     (`repro_torch.pic.ensemble`): the state's tensors carry a leading member
     axis and are taken as they are, not copied; every counter, the latch,
     the table and the entry vector get the same axis, and the entry vector
-    a fifth column, the member's step target (``target``). `member(i)`
-    gives member i's buffers as views ``t[i]``, on which the single-member
-    step runs unchanged; a member steps only while ``n_done < target``."""
+    a fifth column, the member's step target (``target``). The window step
+    then advances every member at once and keeps a member's new state only
+    while it is active: not halted and ``n_done < target``."""
 
     def __init__(self, state: PICState, pstate: SortPolicyState, names: tuple[str, ...], n_diag: int,
                  members: int | None = None):
@@ -667,30 +689,49 @@ class _WindowBuffers(_WindowHead):
         self.ref_charge, self.ref_energy = zeros(torch.float32), zeros(torch.float32)
 
     def scratch(self) -> "_WindowBuffers":
-        """A single-member copy to warm a capture up on."""
-        return _WindowBuffers(self.state(), self.pstate, self.names, self.diag.shape[-1])
-
-    def member(self, i: int) -> "_WindowBuffers":
-        """Member i's buffers: every tensor of these as its view ``t[i]``."""
-        view = object.__new__(_WindowBuffers)
-        for name, value in vars(self).items():
-            if isinstance(value, torch.Tensor):
-                value = value[i]
-            elif dataclasses.is_dataclass(value):
-                value = dataclasses.replace(value, **{f.name: getattr(value, f.name)[i]
-                                                      for f in dataclasses.fields(value)})
-            setattr(view, name, value)
-        return view
+        """A copy of the same shapes to warm a capture up on."""
+        if self.target is None:
+            return _WindowBuffers(self.state(), self.pstate, self.names, self.diag.shape[-1])
+        state = PICState(fields=_clone_tree(self.fields), particles=_clone_tree(self.particles),
+                         layout=_clone_tree(self.layout), step=0,
+                         slab=None if self.slab is None else _clone_tree(self.slab))
+        return _WindowBuffers(state, _clone_tree(self.pstate), self.names, self.diag.shape[-1],
+                              members=self.target.shape[0])
 
     def state(self, step: int = 0) -> PICState:
         return PICState(fields=self.fields, particles=self.particles, layout=self.layout, step=step, slab=self.slab)
 
-    def store(self, state: PICState) -> None:
-        _copy_tree(self.fields, state.fields)
-        _copy_tree(self.particles, state.particles)
-        _copy_tree(self.layout, state.layout)
+    def store(self, state: PICState, keep: torch.Tensor | None = None) -> None:
+        """Write ``state`` into the buffers (with ``keep``, a bucket's, only
+        the members it marks)."""
+        _copy_tree(self.fields, state.fields, keep)
+        _copy_tree(self.particles, state.particles, keep)
+        _copy_tree(self.layout, state.layout, keep)
         if self.slab is not None:
-            _copy_tree(self.slab, state.slab)
+            _copy_tree(self.slab, state.slab, keep)
+
+    def record(self, row: list, keep: torch.Tensor | None) -> None:
+        """The step's diagnostics ``row`` into column ``n_done`` of the
+        table: for a bucket, each member's at its own ``n_done``, and only
+        where ``keep`` marks it (a member past its window's end writes
+        nothing)."""
+        values = torch.stack([r.to(torch.float64) for r in row], dim=-1)
+        if keep is None:
+            self.diag.index_copy_(1, self.n_done.reshape(1), values[:, None])
+            return
+        col = torch.clamp_max(self.n_done, self.diag.shape[-1] - 1).reshape(-1, 1, 1).expand(-1, len(row), 1)
+        old = self.diag.gather(-1, col)
+        self.diag.scatter_(-1, col, torch.where(keep[:, None, None], values[..., None], old))
+
+    def energies(self, config: PICConfig) -> tuple[torch.Tensor, torch.Tensor]:
+        """The state's (field, kinetic) energies (`_energies`); a bucket's
+        one a member, each reduced on the member's own tensors, so that it
+        sums in the order of the member's solo run."""
+        if self.target is None:
+            return _energies(self.state(), config)
+        per = [_energies(PICState(fields=_member_tree(self.fields, i), particles=_member_tree(self.particles, i),
+                                  layout=None, step=0), config) for i in range(self.target.shape[0])]
+        return torch.stack([f for f, _ in per]), torch.stack([k for _, k in per])
 
     def enter(self, step0: int, fault_vec: torch.Tensor | None) -> None:
         """The window's start step and fault vector, in one copy."""
@@ -727,8 +768,41 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
 
     Only ``incremental`` touches the policy state. The decisions go to
     ``decider.run_if`` (see `kernels.conditional`: tested on the host, or IF
-    nodes of a captured graph)."""
+    nodes of a captured graph).
+
+    An ensemble bucket's buffers (``members=B``) step as the reference's
+    vmapped window does: the step runs over every member at once, under
+    one guard that some member is active, and each member keeps its new
+    state, policy state, counters and diagnostics only where it is active
+    (``keep``). The global sort runs over every member under one guard that
+    some active member sorts, and is kept by the members that sort. A
+    member that is not active comes out bit-unchanged. Buckets run without
+    the sentinel and the fault hook."""
     n_slots = config.grid.n_cells * config.capacity
+    bucket = buf.target is not None
+    if bucket and (health is not None or with_fault):
+        raise ValueError("an ensemble bucket's window runs without the health sentinel and fault injection")
+    active = ~buf.halted if not bucket else ~buf.halted & (buf.n_done < buf.target)
+    # the members whose step is kept (a bucket's); None: the single driver's
+    # whole step runs under its guard
+    keep = active if bucket else None
+
+    def kept(flag: torch.Tensor) -> torch.Tensor:
+        return flag if keep is None else flag & keep
+
+    def any_of(flag: torch.Tensor) -> torch.Tensor:
+        return flag if keep is None else torch.any(flag)
+
+    def commit(state: PICState) -> None:
+        """The step's new state into the buffers: a bucket's with the
+        members' mask only when some member is not active (a select over
+        the whole state runs at a fraction of a copy's rate)."""
+        if keep is None:
+            buf.store(state)
+            return
+        everyone = torch.all(keep)
+        decider.run_if(everyone, lambda: buf.store(state))
+        decider.run_if(~everyone, lambda: buf.store(state, keep))
 
     def policy_sort(stats: GPMAStats) -> None:
         with record_function("pic.policy"):
@@ -741,38 +815,40 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
                 n_empty=stats.n_empty, n_slots=n_slots,
             )
             do_pol = do_pol & ~mandatory
-        _copy_tree(buf.pstate, recorded)
+        _copy_tree(buf.pstate, recorded, keep)
+        sorting = kept(do_pol | mandatory)
 
         def sort():
             with record_function("pic.global_sort"):
                 state, overflow = global_sort_device(buf.state(), config)
-                buf.store(state)
-                _copy_tree(buf.pstate, policy_reset(buf.device))
-                buf.halted.logical_or_(overflow > 0)
+                # a bucket keeps the sort of the members that sort
+                mask = None if keep is None else sorting
+                buf.store(state, mask)
+                _copy_tree(buf.pstate, policy_reset(buf.device), mask)
+                buf.halted.logical_or_(overflow > 0 if mask is None else mask & (overflow > 0))
 
-        decider.run_if(do_pol | mandatory, sort)
-        buf.sorts.add_(do_pol.to(torch.int64))
-        buf.rebuilds.add_(mandatory.to(torch.int64))
+        decider.run_if(any_of(sorting), sort)
+        buf.sorts.add_(kept(do_pol).to(torch.int64))
+        buf.rebuilds.add_(kept(mandatory).to(torch.int64))
 
     def step():
         if with_fault:
             buf.store(_apply_fault(buf.state(), buf.step0 + buf.n_done, buf.fault))
         new, stats = _pic_step(buf.state(), config)
-        buf.store(new)
+        commit(new)
         if config.sort_mode == "incremental":
             policy_sort(stats)
         elif config.sort_mode == "global":
             with record_function("pic.global_sort"):
                 state, overflow = global_sort_device(buf.state(), config)
-                buf.store(state)
-                buf.halted.logical_or_(overflow > 0)
+                commit(state)
+                buf.halted.logical_or_(kept(overflow > 0))
         elif config.sort_mode == "rebuild":
-            buf.halted.logical_or_(stats.n_overflow > 0)
+            buf.halted.logical_or_(kept(stats.n_overflow > 0))
         energies = None
         if with_energies or (health is not None and health.check_energy):
-            energies = _energies(buf.state(), config)
-        row = [stats.n_moved, stats.n_alive] + (list(energies) if with_energies else [])
-        buf.diag.index_copy_(1, buf.n_done.reshape(1), torch.stack([r.to(torch.float64) for r in row])[:, None])
+            energies = buf.energies(config)
+        buf.record([stats.n_moved, stats.n_alive] + (list(energies) if with_energies else []), keep)
 
         if health is not None:
             with record_function("pic.sentinel"):
@@ -781,10 +857,9 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
                 for dst, value in zip((buf.halt_code, buf.halt_inv, buf.halt_meas, buf.halt_ref), (h_code, *h_info)):
                     dst.copy_(torch.where(bad, value, dst))
                 buf.halted.logical_or_(bad)
-        buf.n_done.add_(1)
+        buf.n_done.add_(1 if keep is None else keep.to(torch.int64))
 
-    active = ~buf.halted if buf.target is None else ~buf.halted & (buf.n_done < buf.target)
-    decider.run_if(active, step)
+    decider.run_if(any_of(active), step)
 
 
 def capture_steps(bufs: list[_WindowBuffers], step) -> tuple[torch.cuda.CUDAGraph, list[dict]]:

@@ -158,3 +158,30 @@ def test_port_imports_neither_jax_nor_the_reference():
         if hits:
             bad[str(path.relative_to(ROOT))] = sorted(hits)
     assert not bad, f"the port must not import JAX or repro: {bad}"
+
+
+def test_counter_streaming_plasma_matches_reference():
+    """Without thermal noise no random number is drawn: the two beams'
+    positions, momenta and weights are the reference's exactly."""
+    import jax
+
+    import repro.pic as rpic
+    import repro_torch.pic as tpic
+
+    kw = dict(ppc_each_dim=(1, 1, 4), density=0.5, u_drift=0.15, drift_axis=1)
+    ref = rpic.counter_streaming_plasma(jax.random.PRNGKey(0), rpic.GridSpec(shape=(2, 3, 4)), **kw)
+    port = tpic.counter_streaming_plasma(torch.Generator().manual_seed(0), tpic.GridSpec(shape=(2, 3, 4)),
+                                         device="cpu", **kw)
+    for name in ("pos", "u", "w", "alive"):
+        np.testing.assert_array_equal(getattr(port, name).numpy(), np.asarray(getattr(ref, name)), err_msg=name)
+
+
+def test_sim_driver_protocol():
+    """`SimDriver` names what the reference's protocol names, and both of
+    `make_simulation`'s drivers (single device, and a mesh) provide it."""
+    names = lambda proto: {n for n in vars(proto) if not n.startswith("_")} | set(proto.__annotations__)
+    assert names(tapi.SimDriver) == names(rapi.SimDriver)
+    spec = tapi.scenario("uniform", grid=(4, 4, 4), ppc=1, steps=2, window=2)
+    assert isinstance(tapi.make_simulation(spec, device="cpu"), tapi.SimDriver)
+    assert isinstance(tapi.make_simulation(tapi.apply_overrides(spec, mesh=(2, 2)), device="cpu"), tapi.SimDriver)
+    assert not isinstance(object(), tapi.SimDriver)

@@ -275,3 +275,37 @@ def test_dispatch_resolution(monkeypatch):
     with pytest.raises(ValueError):
         dispatch.canonical("triton")
     assert [dispatch.canonical(n) for n in ("xla", "pallas", "pallas_reduced")] == ["torch", "cuda", "cuda_reduced"]
+
+
+# ---------------------------------------------------------------- deposit_current
+
+
+@pytest.mark.parametrize("method", ["matrix", "matrix_unfused", "scatter", "rhocell"])
+def test_deposit_current_matches_reference(method):
+    """`deposit_current`'s four methods, folded and padded, against the
+    reference's on the same particles and bins."""
+    grid, order = (4, 3, 5), 2
+    pos, alive = _particles(240, grid, 11, dead_frac=0.1)
+    rng = np.random.default_rng(12)
+    vel = rng.normal(scale=0.3, size=(240, 3)).astype(np.float32)
+    qw = (rng.random(240) * alive).astype(np.float32)
+    cells_r, cells_t = rc.cell_index(_j(pos), grid), tc.cell_index(_t(pos), grid)
+    lr, _ = rc.build_bins(cells_r, _j(alive), n_cells=60, capacity=16)
+    lt, _ = tc.build_bins(cells_t, _t(alive), n_cells=60, capacity=16)
+    kw_r = dict(layout=lr, cell_ids=cells_r) | ({"backend": "xla"} if method.startswith("matrix") else {})
+    kw_t = dict(layout=lt, cell_ids=cells_t) | ({"backend": "torch"} if method.startswith("matrix") else {})
+    for fold in (True, False):
+        got = tc.deposit_current(_t(pos), _t(vel), _t(qw), grid_shape=grid, order=order, method=method, fold=fold,
+                                 **kw_t)
+        want = rc.deposit_current(_j(pos), _j(vel), _j(qw), grid_shape=grid, order=order, method=method, fold=fold,
+                                  **kw_r)
+        assert len(got) == 3
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(_np(a), _np(b), rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="unknown method"):
+        tc.deposit_current(_t(pos), _t(vel), _t(qw), grid_shape=grid, order=order, method="nope")
+
+
+def test_canonical_flops_match_reference():
+    assert tc.CANONICAL_FLOPS_PER_PARTICLE == rc.shape_functions.CANONICAL_FLOPS_PER_PARTICLE

@@ -29,9 +29,9 @@ distributed one's too;
 the host-driven loop against the captured window and a resumed run against
 an uninterrupted one, exact; the sentinel on against off, and a run that
 rolled back from an injected fault against the clean run, exact; an
-ensemble's members against their solo runs, exact (each member's kernels
-run at its own shapes), a mild sibling re-binned at a grown capacity
-included.
+ensemble's members against their solo runs, exact (each kernel's launch
+over the bucket gives each member its solo bits), a mild sibling re-binned
+at a grown capacity included.
 
 Where a test holds an ``auto`` run's launch counts, it holds them to the
 backends the dispatcher's autotune resolved (into a cache file of the
@@ -95,14 +95,15 @@ KERNEL_OF = {("deposit_fused", "cuda_reduced"): "fused_bin_deposit_reduced", ("d
              ("gather_fused", "cuda"): "fused_bin_gather"}
 
 
-def _want_launches(sim, n):
+def _want_launches(sim, n, batch: int = 1):
     """The fused kernels' launches in n steps under the backends the
-    dispatcher resolves for the driver's step: every op of the step must
-    resolve to a kernel."""
+    dispatcher resolves for the driver's step (an ensemble bucket's at
+    ``batch`` = its member count): every op of the step must resolve to a
+    kernel."""
     c = sim.config
     chosen = dispatch.prewarm(dispatch.ops_for_modes(c.deposition, c.gather), device=sim.device, order=c.order,
                               grid_shape=c.grid.shape, capacity=c.capacity, dtype=sim.state.particles.pos.dtype,
-                              requested=c.backend)
+                              requested=c.backend, batch=batch)
     assert chosen and all(kv in KERNEL_OF for kv in chosen.items()), f"resolved to no kernel: {chosen}"
     return {KERNEL_OF[kv]: n for kv in chosen.items()}
 
@@ -757,14 +758,17 @@ def _assert_member_bit_equal(ens, i, solo, *, layout=True):
 def test_ensemble_bucket_is_bit_equal_to_solo_runs(cuda):
     """A 3-member bucket at 32^3 captured as one graph: each member bit-equal
     to its own captured solo run, one capture, one host read a window, and
-    each member's kernels launched once a step."""
+    each kernel launched once a bucket step (one launch covers the three
+    members)."""
     es = EnsembleSpec.replicate(scenario("uniform", **SMALL, steps=20, window=10, diagnostics_every=5), 3)
     ens = make_ensemble(es)
     bucket = ens.sims[0]
     kernels.reset_launch_counts()
     ens.run()
     counts = {k: v for k, v in kernels.launch_counts().items() if v}
-    assert counts == _want_launches(bucket, 3 * 20 + bucket.graph_captures)  # one warm-up step a capture
+    assert bucket.bucket_steps == 20
+    # one warm-up step a capture
+    assert counts == _want_launches(bucket, bucket.bucket_steps + bucket.graph_captures, batch=3)
     assert bucket.graph_captures == 1 and bucket.windows == 2 and bucket.host_reads == 2
     assert int(bucket.sorts.sum()) >= 3, "no member sorted: the test is vacuous"
     for i, m in enumerate(es.members()):
