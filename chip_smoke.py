@@ -215,7 +215,22 @@ Phases, in order; any failure exits non-zero:
    leaves in bf16 over 8 shards with float32 residuals: the compressed and
    the exact reduction timed, the int8 payload's bytes, and the
    error-feedback identity n * mean + sum(new_r) = sum(g + r) within 4
-   float32 roundings of sum|g + r| + n|mean|.
+   float32 roundings of sum|g + r| + n|mean|;
+23. the functional faces: (a) `pic_run_window` at the main cell, 16
+   steps, ``donate=False``, twice from one state: each call bit-equal to a
+   `Simulation` window of 16 steps (state, policy state, per-step rows,
+   sorts), the second under ``torch.cuda.set_sync_debug_mode("error")``
+   with no capture, the resolved fused kernels launched 16 times a call;
+   ms/step beside phase 4's; then ``n_target`` a device tensor of 5,
+   bit-equal to 5 steps; (b) `ensemble_run_window` over the 12 two_stream
+   sweep members of 16(b), stacked, 25 steps with targets 25 and 10 in
+   turn: every member bit-equal to its solo run, each of two
+   `make_ensemble_window_fn` callables capturing once, a third call under
+   the sync debug mode; (c) `make_dist_window` at the main cell on 4x2, 16
+   steps, twice (the second under the sync debug mode, no capture),
+   bit-equal to a `DistSimulation` window, and 4 steps of `make_dist_step`
+   bit-equal to `DistSimulation.run(4, window=None)`. The card's name and
+   power limit are printed beside each time.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -612,6 +627,7 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
     from repro_torch.core import max_guard
     from repro_torch.launch.pic_run import parse_sweeps
     from repro_torch.pic import EnsembleSimulation, GridSpec, PICConfig, Simulation
+    from repro_torch.pic.simulation import enter_entry
 
     # (a) the main path at full width, two members in one bucket
     es = EnsembleSpec.replicate(scenario("uniform", **MAIN), 2)
@@ -731,12 +747,13 @@ def ensemble_phase(torch, np, kernels, dispatch, dev, main, main_final, chosen, 
     # the kernels of one replay: a solo member's step, and the bucket's step
     # with every member active (the bucket captured 12 solo steps before it
     # took one over the member axis); these replays move the states on
-    solo_buf = first._window["buffers"]
+    solo_buf = first._window.buffers
     solo_buf.reset_counters()
-    solo_kernels = kernels_per_replay(torch, first._window["graph"])
+    enter_entry(solo_buf, {4: 1})
+    solo_kernels = kernels_per_replay(torch, first._window.graph)
     buf = bucket._window.buffers
     buf.reset_counters()
-    buf.enter_targets([1] * bucket.n_members)
+    enter_entry(buf, {4: [1] * bucket.n_members})
     bucket_kernels = kernels_per_replay(torch, bucket._window.graph)
     say(f"  kernels a replay: {bucket_kernels} for the bucket's step over its {bucket.n_members} members, "
         f"{solo_kernels} for one member's solo step ({bucket.n_members} x {solo_kernels} = "
@@ -879,9 +896,10 @@ def service_phase(torch, dev) -> None:
         small = SimService(max_batch=4, batch_wait=0.25, cache_size=1)
         await small.start()
         await drain(small, [await small.submit(spec.to_json()) for _ in range(4)])
-        window = small.cache._entries[spec_signature(spec)][4]
-        refs = [weakref.ref(window)] + ([] if window.graph is None else [weakref.ref(window.graph)])
-        del window
+        fn = small.cache._entries[spec_signature(spec)]
+        window = next(iter(fn.store.values()))
+        refs = [weakref.ref(fn), weakref.ref(window)] + ([] if window.graph is None else [weakref.ref(window.graph)])
+        del window, fn
         gc.collect()
         torch.cuda.empty_cache()
         reserved_before = torch.cuda.memory_reserved(dev)
@@ -1410,6 +1428,204 @@ def dist_phase(torch, np, kernels, dispatch, dev, main_final=None) -> None:
     torch.cuda.empty_cache()
     no_plain(dispatch, "dist chaos and checkpoints")
     say(f"phase 19f: {time.perf_counter() - t0:.1f} s")
+
+
+def tree_equal(torch, a, b) -> bool:
+    """Two dataclass trees of tensors (or None) bit for bit."""
+    import dataclasses
+
+    if a is None or b is None:
+        return a is b
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
+
+
+def pic_state_equal(torch, a, b, pa=None, pb=None) -> bool:
+    """Two single-device states (and policy states) bit for bit."""
+    return all(tree_equal(torch, getattr(a, part), getattr(b, part))
+               for part in ("fields", "particles", "layout", "slab")) and (pa is None or tree_equal(torch, pa, pb))
+
+
+def functional_phase(torch, np, kernels, dispatch, dev, main, smi: str) -> None:
+    """Phase 23: the functional faces on the card (see the module
+    docstring)."""
+    import dataclasses
+
+    from repro_torch.api import EnsembleSpec, make_ensemble, make_simulation, scenario
+    from repro_torch.launch.pic_run import parse_sweeps
+    from repro_torch.pic import make_ensemble_window_fn, pic_run_window
+    from repro_torch.pic import simulation as tsim
+    from repro_torch.pic.dist_simulation import DIAG_NAMES, make_dist_window
+    from repro_torch.pic.distributed import make_dist_step
+    from repro_torch.pic.simulation import bundle_to_host
+
+    def timed(fn, *, strict: bool):
+        """fn() between two synchronizations, under the sync debug mode
+        "error" with ``strict`` (any device-to-host read raises)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) pic_run_window at the main cell, 16 steps, twice from one state
+    n = MAIN["window"]
+    sim = make_simulation(scenario("uniform", **MAIN))
+    chosen = resolved(dispatch, sim)
+    state0, pstate0, cfg, policy = sim.state, sim.policy_state, sim.config, sim.policy
+    store = tsim._PIC_WINDOWS
+    builds0, captures0 = store.builds, store.captures
+    kernels.reset_launch_counts()
+    run = lambda **kw: pic_run_window(state0, pstate0, cfg, n, policy=policy, donate=False, **kw)
+    (s1, p1, b1), first_s = timed(run, strict=False)
+    first_counts = fused_counts(kernels.launch_counts())
+    kernels.reset_launch_counts()
+    (s2, p2, b2), second_s = timed(run, strict=True)
+    second_counts = fused_counts(kernels.launch_counts())
+    captured = store.captures - captures0
+    sim.run(n, window=n, diagnostics_every=1)
+    h = bundle_to_host(b2)
+    rows_equal = (list(h["per_step"]["n_moved"]) == [r["n_moved"] for r in sim.history]
+                  and list(h["per_step"]["n_alive"]) == [r["n_alive"] for r in sim.history]
+                  and all(h["per_step"][k].tolist() == [float(np.float32(r[k])) for r in sim.history]
+                          for k in ("field_energy", "kinetic_energy"))
+                  and (int(h["n_sorts"]), int(h["n_rebuilds"])) == (sim.sorts, sim.rebuilds)
+                  and bundle_to_host(b1)["per_step"]["n_moved"].tolist() == h["per_step"]["n_moved"].tolist())
+    equal = (pic_state_equal(torch, s1, sim.state, p1, sim.policy_state)
+             and pic_state_equal(torch, s2, sim.state, p2, sim.policy_state) and int(s2.step) == n)
+    target = torch.full((), 5, dtype=torch.int32, device=dev)
+    (s5, p5, b5), _ = timed(lambda: run(n_target=target), strict=True)
+    five = make_simulation(scenario("uniform", **MAIN))
+    five.run(5, window=n)
+    equal5 = pic_state_equal(torch, s5, five.state, p5, five.policy_state) and int(s5.step) == 5
+    want = path_launches(chosen, n)
+    ms = 1e3 * second_s / n
+    say(f"functional (a) [{smi}], pic_run_window at the main cell, {n} steps, donate=False, twice from one state: "
+        f"{ms:.2f} ms/step on the second call (entry and exit copies included; phase 4: {main['ms_step']:.2f} "
+        f"ms/step), first call {first_s:.2f} s with {captured} capture(s) and {store.builds - builds0} build(s); "
+        f"launches {first_counts} then {second_counts} (want {want} a call, the capture's warm-up step aside); "
+        f"second call under set_sync_debug_mode('error') with no capture; bit-equal to a Simulation window of "
+        f"{n} (state, policy state, per-step rows, sorts {sim.sorts}, rebuilds {sim.rebuilds}): "
+        f"{equal and rows_equal}; n_target a device tensor of 5: n_done {int(b5['n_done'])}, bit-equal to 5 "
+        f"steps: {equal5}")
+    if not (equal and rows_equal and equal5) or captured != 1 or second_counts != want \
+            or first_counts != path_launches(chosen, n + 1):
+        fail("functional (a): pic_run_window not bit-equal to the Simulation window, captured more than once, or "
+             "its kernels not launched once a step")
+    del sim, five, state0, pstate0, s1, p1, s2, p2, s5, p5
+    tsim.clear_windows()
+    torch.cuda.empty_cache()
+
+    # (b) the 12 two_stream sweep members stacked, targets 25 and 10
+    es = EnsembleSpec.sweep(scenario("two_stream"), parse_sweeps(["drift=0.1,0.2,0.3"]), replicas=4)
+    members = es.members()
+    bucket = make_ensemble(es).sims[0]
+    targets = [25 if i % 2 == 0 else 10 for i in range(bucket.n_members)]
+    fns = [make_ensemble_window_fn(), make_ensemble_window_fn()]
+    outs, secs = [], []
+    for fn in fns:
+        (out, sec) = timed(lambda: fn(bucket.state, bucket.policy_state, bucket.config, 25, policy=bucket.policy,
+                                      donate=False, n_target=targets), strict=False)
+        outs.append(out)
+        secs.append(sec)
+    (_, _, b_again), again_s = timed(lambda: fns[0](bucket.state, bucket.policy_state, bucket.config, 25,
+                                                     policy=bucket.policy, donate=False, n_target=targets),
+                                     strict=True)
+    hb = bundle_to_host(outs[0][2])
+    ok = []
+    for i, (m, k) in enumerate(zip(members, targets)):
+        solo = make_simulation(m)
+        solo.run(k, window=25, diagnostics_every=1)
+        view = dataclasses.replace(outs[0][0], **{part: None if getattr(outs[0][0], part) is None else
+                                                  tsim._member_tree(getattr(outs[0][0], part), i)
+                                                  for part in ("fields", "particles", "layout", "slab")})
+        ok.append(pic_state_equal(torch, view, solo.state, tsim._member_tree(outs[0][1], i), solo.policy_state)
+                  and hb["per_step"]["n_moved"][i, :k].tolist() == [r["n_moved"] for r in solo.history]
+                  and hb["per_step"]["field_energy"][i, :k].tolist() == [float(np.float32(r["field_energy"]))
+                                                                         for r in solo.history]
+                  and (int(hb["n_sorts"][i]), int(hb["n_rebuilds"][i])) == (solo.sorts, solo.rebuilds)
+                  and int(hb["n_done"][i]) == k)
+        del solo, view
+    same = pic_state_equal(torch, outs[0][0], outs[1][0], outs[0][1], outs[1][1])
+    say(f"functional (b) [{smi}], ensemble_run_window over the {bucket.n_members} two_stream sweep members, 25 steps, "
+        f"targets 25 and 10: each member bit-equal to its solo run: {ok}; two make_ensemble_window_fn callables, "
+        f"captures {[f.captures for f in fns]}, the same bits: {same}; calls {[f'{x:.2f}' for x in secs]} s with "
+        f"the capture, {1e3 * again_s:.2f} ms a third call (25 bucket steps, no capture, no host read)")
+    if not all(ok) or not same or [f.captures for f in fns] != [1, 1] or fns[0].builds != 1:
+        fail("functional (b): a member not bit-equal to its solo run, or a callable captured other than once")
+    del bucket, fns, outs, b_again
+    torch.cuda.empty_cache()
+
+    # (c) make_dist_window and make_dist_step at the dist main shapes
+    sx, sy = DIST_MESH
+    nx_loc, ny_loc = MAIN["grid"][0] // sx, MAIN["grid"][1] // sy
+    probe = scenario("uniform", **MAIN)
+    flux = probe.plasma.ppc * max(nx_loc, ny_loc) * MAIN["grid"][2] * min(
+        1.0, 4 * (probe.plasma.u_thermal + probe.plasma.perturb.amplitude) * probe.dt)
+    dspec = scenario("uniform", **MAIN, mesh=f"{sx}x{sy}", mig_cap=1 << math.ceil(math.log2(max(flux, 256))),
+                     diagnostics_every=n)
+    dsim = make_simulation(dspec)
+    st = {k: (tuple(f.clone() for f in v) if k == "fields" else v.clone()) for k, v in dsim.state.items()}
+    keys = ("fields", "pos", "u", "w", "alive", "slots", "pslot", "slab_d", "slab_valid", "mid_pos", "mid_u")
+    win = make_dist_window((sx, sy), dsim.config, dsim.policy, n)
+    # the window takes its inputs donated: each call is given copies, made
+    # outside the timed span
+    copies = lambda: ([tuple(f.clone() for f in st[k]) if k == "fields" else st[k].clone() for k in keys],
+                      tsim._clone_tree(dsim.policy_state))
+    kernels.reset_launch_counts()
+    mine, pmine = copies()
+    out, first_s = timed(lambda: win(*mine, pmine, n, 0, 0, 0, 1, None), strict=False)
+    kernels.reset_launch_counts()
+    mine, pmine = copies()
+    out2, second_s = timed(lambda: win(*mine, pmine, n, 0, 0, 0, 1, None), strict=True)
+    del mine, pmine
+    dcounts = fused_counts(kernels.launch_counts())
+    bundles = []
+    enter = dsim._enter_window
+    dsim._enter_window = lambda *a: bundles.append(enter(*a)) or bundles[-1]
+    dsim.run(n, window=n)
+    hd = bundle_to_host(out2[-1])
+
+    def state_equal(got, want) -> bool:
+        return all((all(torch.equal(a, b) for a, b in zip(g, want[k])) if k == "fields" else torch.equal(g, want[k]))
+                   for k, g in zip(keys, got))
+
+    dequal = (state_equal(out[:11], dsim.state) and state_equal(out2[:11], dsim.state)
+              and all(np.array_equal(hd["per_step"][k], bundles[0]["per_step"][k]) for k in DIAG_NAMES)
+              and (int(hd["n_sorts"]), int(hd["n_rebuilds"])) == (dsim.sorts, dsim.rebuilds))
+    c = dsim.config
+    dchosen = dispatch.prewarm(dispatch.ops_for_modes(c.deposition, c.gather), device=dev, order=c.order,
+                               grid_shape=c.local_grid.shape, capacity=c.capacity, dtype=st["pos"].dtype,
+                               requested=c.backend)
+    dwant = path_launches(dchosen, sx * sy * n)
+    del dsim, out, out2
+    torch.cuda.empty_cache()
+    host = make_simulation(dspec)
+    st = {k: (tuple(f.clone() for f in v) if k == "fields" else v.clone()) for k, v in host.state.items()}
+    step = make_dist_step((sx, sy), host.config)
+    cur = tuple(st[k] for k in keys[:9])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        *cur, _stats = step(*cur)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 4
+    host.run(4, window=None)
+    sequal = state_equal(cur, host.state)
+    say(f"functional (c) [{smi}], make_dist_window at the main cell on {sx}x{sy}, {n} steps: "
+        f"{1e3 * second_s / n:.2f} ms/step on the second call (under set_sync_debug_mode('error'), no capture; "
+        f"first call {first_s:.2f} s with the capture), launches {dcounts} (want {dwant}), bit-equal to the "
+        f"DistSimulation window (state, per-step rows, sorts): {dequal}; make_dist_step, 4 eager steps at "
+        f"{step_ms:.2f} ms/step, bit-equal to DistSimulation.run(4, window=None): {sequal}")
+    if not (dequal and sequal) or win.captures != 1 or dcounts != dwant:
+        fail("functional (c): the distributed builders are not bit-equal to the driver, or the window captured "
+             "more than once, or its kernels did not launch once a shard a step")
+    del host, cur, st, win
+    torch.cuda.empty_cache()
 
 
 def lm_phase(torch, dev, smi: str) -> None:
@@ -2945,6 +3161,13 @@ def main() -> None:
     t0 = time.perf_counter()
     lm_dist_phase(torch, np, dispatch, dev, smi, full_losses)
     say(f"phase 22: {time.perf_counter() - t0:.1f} s")
+
+    # -- 23. the functional faces on the card ------------------------------------------------
+    t0 = time.perf_counter()
+    dispatch.counters["plain_on_card"] = 0
+    functional_phase(torch, np, kernels, dispatch, dev, main, smi)
+    no_plain(dispatch, "the functional faces")
+    say(f"phase 23: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

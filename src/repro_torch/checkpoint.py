@@ -17,7 +17,7 @@ holding
   (`SimSpec.to_dict`), the host counters and policy (the distributed
   driver's also its mesh, ``n_local``, ``mig_cap``, re-entry flags,
   communication totals and arming flag), the leaf names and a CRC32 of
-  each leaf.
+  each leaf (`array_checksums`, checked on load by `verify_checksums`).
 
 It is written to a temporary directory and renamed into place, so a crash
 leaves the old checkpoint or the new one. A run moves between the two
@@ -62,8 +62,9 @@ from repro_torch.pic.grid import FieldState
 from repro_torch.pic.plasma import ParticleState
 from repro_torch.pic.simulation import state_from_reference
 
-__all__ = ["CheckpointManager", "SimCheckpointer", "clean_stale_tmp", "load_simulation", "restore_ensemble_member", "restore_simulation",
-           "save_ensemble_member", "save_simulation", "tree_member_set", "tree_member_slice"]
+__all__ = ["CheckpointManager", "SimCheckpointer", "array_checksums", "clean_stale_tmp", "load_simulation",
+           "restore_ensemble_member", "restore_simulation", "save_ensemble_member", "save_simulation",
+           "tree_member_set", "tree_member_slice", "verify_checksums"]
 
 _ARRAYS = "arrays.npz"
 _META = "checkpoint.json"
@@ -93,8 +94,23 @@ def _host(leaf) -> np.ndarray:
     return leaf.detach().cpu().numpy()
 
 
-def _crc(a: np.ndarray) -> str:
-    return "%08x" % zlib.crc32(np.ascontiguousarray(a).tobytes())
+def array_checksums(host_leaves) -> list[str]:
+    """crc32 hex digest per array (over the raw bytes, C order): the
+    reference's manifest checksums."""
+    return ["%08x" % zlib.crc32(np.ascontiguousarray(a).tobytes()) for a in host_leaves]
+
+
+def verify_checksums(arrays, checksums, names, where: str) -> None:
+    """Raise ValueError naming every array whose bytes do not match the
+    manifest checksum (bit rot, truncation, partial write), with the
+    reference's messages."""
+    if len(arrays) != len(checksums):
+        raise ValueError(f"corrupt checkpoint at {where}: manifest lists {len(checksums)} checksums for "
+                         f"{len(arrays)} arrays")
+    bad = [names[i] if i < len(names) else f"a{i}"
+           for i, (got, want) in enumerate(zip(array_checksums(arrays), checksums)) if got != want]
+    if bad:
+        raise ValueError(f"corrupt checkpoint at {where}: checksum mismatch for {bad}")
 
 
 def _write_dir(path: str, names: list[str], host: list[np.ndarray], meta: dict) -> None:
@@ -106,7 +122,7 @@ def _write_dir(path: str, names: list[str], host: list[np.ndarray], meta: dict) 
     os.makedirs(tmp)
     np.savez(os.path.join(tmp, _ARRAYS), **{f"a{i}": a for i, a in enumerate(host)})
     with open(os.path.join(tmp, _META), "w") as f:
-        json.dump(dict(meta, names=names, checksums=[_crc(a) for a in host]), f, indent=1)
+        json.dump(dict(meta, names=names, checksums=array_checksums(host)), f, indent=1)
     old = path + f".old-{os.getpid()}"
     if os.path.exists(old):
         shutil.rmtree(old)
@@ -133,13 +149,7 @@ def _read_dir(path: str) -> tuple[dict, dict]:
     except Exception as exc:
         raise ValueError(f"corrupt or truncated checkpoint at {path}: {exc}") from exc
     if "checksums" in meta:
-        sums, names = meta["checksums"], meta["names"]
-        if len(sums) != len(host):
-            raise ValueError(f"corrupt checkpoint at {path}: manifest lists {len(sums)} checksums for "
-                             f"{len(host)} arrays")
-        bad = [names[i] for i, (a, c) in enumerate(zip(host, sums)) if _crc(a) != c]
-        if bad:
-            raise ValueError(f"corrupt checkpoint at {path}: checksum mismatch for {bad}")
+        verify_checksums(host, meta["checksums"], meta["names"], path)
     return dict(zip(meta["names"], host)), meta
 
 
@@ -605,7 +615,7 @@ class CheckpointManager:
             "names": names,
             "shapes": [list(a.shape) for a in arrays],
             "dtypes": [dt for _, dt in host],
-            "checksums": [_crc(a) for a in arrays],
+            "checksums": array_checksums(arrays),
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -649,9 +659,7 @@ class CheckpointManager:
         except Exception as exc:
             raise ValueError(f"corrupt or truncated checkpoint at {d}: {exc}") from exc
         if "checksums" in manifest:
-            bad = [n for n, a, c in zip(manifest["names"], arrays, manifest["checksums"]) if _crc(a) != c]
-            if bad or len(manifest["checksums"]) != len(arrays):
-                raise ValueError(f"corrupt checkpoint at {d}: checksum mismatch for {bad}")
+            verify_checksums(arrays, manifest["checksums"], manifest["names"], d)
         pairs = _flatten_with_names(tree)
         if [n for n, _ in pairs] != manifest["names"]:
             raise ValueError(f"checkpoint/model structure mismatch at {d}")

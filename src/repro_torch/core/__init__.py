@@ -41,6 +41,21 @@ from repro_torch.core.gather import (  # noqa: F401
     pack_neighborhoods,
 )
 from repro_torch.core.gpma import GPMAStats, gpma_update  # noqa: F401
+from repro_torch.core.health import (  # noqa: F401
+    HALT_BIN_OVERFLOW,
+    HALT_IMBALANCE,
+    HALT_INVARIANT,
+    HALT_MIG_RECV,
+    HALT_MIG_SEND,
+    HALT_NAMES,
+    HALT_NONE,
+    HALT_NONFINITE,
+    INVARIANT_NAMES,
+    HealthConfig,
+    SimulationHealthError,
+    classify_health,
+    nonfinite_count,
+)
 from repro_torch.core.matrix_scatter import bin_items, matrix_scatter_add, scatter_add_ref  # noqa: F401
 from repro_torch.core.resort_policy import (  # noqa: F401
     REASON_NAMES,

@@ -36,6 +36,12 @@ from repro_torch.grad.permutations import member_offsets, permute_tree, slot_gat
 
 INVALID = -1
 
+#: slot-table slab stagings run (`build_bin_slab`, `bin_slab_staging`):
+#: the reference's counter, which its tests read to hold one staging a
+#: fused step. Here a staging adds one each time it runs (eagerly, or when
+#: a window's step is captured or warmed up), never during a replay.
+SLAB_BUILDS = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class BinnedLayout:
@@ -115,6 +121,8 @@ def cell_index(pos: torch.Tensor, grid_shape) -> torch.Tensor:
 
 def build_bin_slab(pos: torch.Tensor, layout: BinnedLayout, *, grid_shape) -> BinSlab:
     """The slot-table slab gather: stage positions into bin order once."""
+    global SLAB_BUILDS
+    SLAB_BUILDS += 1
     slots = layout.slots
     valid = slots >= 0
     pos_b = slot_gather(pos, slots)
@@ -129,6 +137,8 @@ def bin_slab_staging(pos, vel, qw, layout: BinnedLayout, *, grid_shape):
 
     Returns ``(BinSlab, values)`` with `values` the (n_cells, capacity, 3)
     q·w·v slab, exactly 0 on gap/overflow slots."""
+    global SLAB_BUILDS
+    SLAB_BUILDS += 1
     slots = layout.slots
     valid = slots >= 0
     packed = torch.cat([pos, vel, qw[..., None]], dim=-1)  # (N, 7)

@@ -49,40 +49,42 @@ import torch
 
 from repro_torch.api.facade import build_fields, build_particles, pic_config, resolve_device, spec_signature
 from repro_torch.api.spec import SimSpec
-from repro_torch.pic.ensemble import EnsembleSimulation, member_bundle
+from repro_torch.pic.ensemble import EnsembleSimulation, make_ensemble_window_fn, member_bundle
+from repro_torch.pic.simulation import WindowFn
 
 __all__ = ["ExecutableCache", "SimJob", "SimService", "serve"]
 
 
 class ExecutableCache:
-    """Signature-keyed LRU of window stores. Each entry is the store of one
-    signature's captured windows (`EnsembleSimulation`'s ``windows``, one
-    per batch size, each the bucket's batched step over that many members)
-    and nothing else, no job and no ensemble: evicting the
-    least recently used signature frees that bucket's graphs and buffers,
-    so the service holds at most ``maxsize`` signatures' windows."""
+    """Signature-keyed LRU of ensemble-window callables. Each entry is a
+    fresh `make_ensemble_window_fn` callable, whose store holds that
+    signature's captured windows (one per batch size, each the bucket's
+    batched step over that many members), and nothing else, no job and no
+    ensemble: evicting the least recently used signature frees that
+    bucket's graphs and buffers, so the service holds at most ``maxsize``
+    signatures' windows."""
 
     def __init__(self, maxsize: int = 8):
         if maxsize < 1:
             raise ValueError(f"maxsize must be >= 1, got {maxsize}")
         self.maxsize = maxsize
-        self._entries: OrderedDict[str, dict] = OrderedDict()
+        self._entries: OrderedDict[str, WindowFn] = OrderedDict()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
 
-    def get(self, signature: str) -> dict:
-        entry = self._entries.get(signature)
-        if entry is not None:
+    def get(self, signature: str) -> WindowFn:
+        fn = self._entries.get(signature)
+        if fn is not None:
             self.hits += 1
             self._entries.move_to_end(signature)
-            return entry
+            return fn
         self.misses += 1
-        entry = self._entries[signature] = {}
+        fn = self._entries[signature] = make_ensemble_window_fn()
         while len(self._entries) > self.maxsize:
             self._entries.popitem(last=False)
             self.evictions += 1
-        return entry
+        return fn
 
     def stats(self) -> dict:
         return {"size": len(self._entries), "maxsize": self.maxsize, "hits": self.hits, "misses": self.misses,
@@ -107,7 +109,7 @@ class SimService:
     The worker takes the oldest queued job, waits up to ``batch_wait``
     seconds for more of its signature (up to ``max_batch``), puts the others
     back in order, and runs the batch as one `EnsembleSimulation` on
-    ``device`` (default ``cuda``) over the signature's cached window store.
+    ``device`` (default ``cuda``) through the signature's cached window callable.
     Each window bundle goes to each job's queue as a ``window`` event; a
     terminal ``done`` (final diagnostics and the history) or ``error`` ends
     the stream. ``graph_captures`` and ``window_builds`` sum the batches'
@@ -263,7 +265,7 @@ class SimService:
         specs = [job.spec for job in batch]
         ens = EnsembleSimulation(
             [(build_fields(s, device=self.device), build_particles(s, device=self.device)) for s in specs],
-            pic_config(specs[0]), specs[0].sort.policy, specs=specs, windows=self.cache.get(batch[0].signature))
+            pic_config(specs[0]), specs[0].sort.policy, specs=specs, window_fn=self.cache.get(batch[0].signature))
         seen = [0] * len(batch)
 
         def post(job: SimJob, event: dict) -> None:

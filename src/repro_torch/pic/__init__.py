@@ -20,12 +20,23 @@ from repro_torch.pic.simulation import (  # noqa: F401
     PICConfig,
     PICState,
     Simulation,
+    clear_windows,
+    ensemble_run_window,
     global_sort,
     global_sort_device,
     init_state,
     padded_fields,
+    pic_run_window,
+    pic_step,
+    pic_step_donated,
     state_from_reference,
 )
-from repro_torch.pic.ensemble import EnsembleSimulation, member_bundle, stack_trees, unstack_tree  # noqa: F401,E402
+from repro_torch.pic.ensemble import (  # noqa: F401,E402
+    EnsembleSimulation,
+    make_ensemble_window_fn,
+    member_bundle,
+    stack_trees,
+    unstack_tree,
+)
 from repro_torch.pic.distributed import DistConfig, DistState  # noqa: F401,E402
 from repro_torch.pic.dist_simulation import DistSimulation  # noqa: F401,E402

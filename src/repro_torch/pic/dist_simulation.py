@@ -91,7 +91,6 @@ from repro_torch.distributed.fault import (
 )
 from repro_torch.distributed.sharding import plan_balanced_split
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.conditional import HostDecider
 from repro_torch.pic.distributed import (
     STAT_KEYS,
     DistConfig,
@@ -102,23 +101,28 @@ from repro_torch.pic.distributed import (
     dist_pic_step,
     global_from_blocks,
     in_domain,
+    mesh_pair,
     partition_particles,
+    validate_shard_guard,
 )
 from repro_torch.pic.grid import FieldState, GridSpec
 from repro_torch.pic.plasma import ParticleState
 from repro_torch.pic.pusher import lorentz_gamma
 from repro_torch.pic.simulation import (
     UNSET,
+    Window,
+    WindowStore,
     _WindowHead,
     _clone_tree,
     _copy_tree,
     _same_shapes,
-    capture_steps,
+    _shapes,
     consume_window_bundle,
+    enter_entry,
     resolve_run_args,
 )
 
-__all__ = ["DIAG_NAMES", "DistSimulation"]
+__all__ = ["DIAG_NAMES", "DistSimulation", "DistWindowFn", "make_dist_window"]
 
 #: the rows of a window's per-step table, the reference's ``per_step`` keys
 DIAG_NAMES = ("active", "sorted", "reason", "n_moved", "n_alive", "mig_send_overflow", "mig_recv_dropped",
@@ -148,12 +152,15 @@ class _DistWindowBuffers(_WindowHead):
     window's counters, the halt latch and the per-step table. On the card
     they are the captured graph's inputs and outputs.
 
-    ``entry`` is what the host writes at a window's entry, in one copy: the
-    absolute step it starts at, the fault vector (kind, step, component),
-    the replay flag (``resume``: the first step replays the carried
-    mid-step snapshot) and the imbalance trigger's arming flag. The
-    counters add the count of discarded steps to the single-device
-    driver's."""
+    ``entry`` is what the host (or, for `make_dist_window`'s window, the
+    device) writes at a window's entry, in one copy: the absolute step it
+    starts at, the fault vector (kind, step, component), the replay flag
+    (``resume``: the first step replays the carried mid-step snapshot), the
+    imbalance trigger's arming flag, the step target (a step runs only
+    while ``n_done < target``) and the presort flag (`make_dist_window`'s
+    entry sorts every shard under it; `DistSimulation` sorts before the
+    window and writes 0). The counters add the count of discarded steps to
+    the single-device driver's."""
 
     HEAD = _WindowHead.HEAD + ("discarded",)
 
@@ -169,13 +176,10 @@ class _DistWindowBuffers(_WindowHead):
         self.halted = zeros(torch.bool)
         self.halt_code, self.halt_inv = zeros(torch.int32), zeros(torch.int32)
         self.halt_meas, self.halt_ref = zeros(torch.float32), zeros(torch.float32)
-        self.entry = torch.tensor([0, FAULT_NONE, -1, 0, 0, 1], dtype=torch.int64, device=dev)
+        self.entry = torch.tensor([0, FAULT_NONE, -1, 0, 0, 1, 0, 0], dtype=torch.int64, device=dev)
         self.step0, self.fault, self.resume, self.armed = self.entry[0], self.entry[1:4], self.entry[4], self.entry[5]
+        self.target, self.presort = self.entry[6], self.entry[7]
         self.ref_charge, self.ref_energy = zeros(torch.float32), zeros(torch.float32)
-
-    def scratch(self) -> "_DistWindowBuffers":
-        """A copy to warm a capture up on."""
-        return _DistWindowBuffers(self.st, self.pstate, self.diag.shape[-1])
 
     def store(self, state: DistState) -> None:
         """Commit a step: everything but the mid-step snapshot."""
@@ -183,11 +187,11 @@ class _DistWindowBuffers(_WindowHead):
             if f.name not in ("mid_pos", "mid_u"):
                 getattr(self.st, f.name).copy_(getattr(state, f.name))
 
-    def enter(self, step0: int, fault_vec: torch.Tensor | None, *, resume: bool, armed: bool) -> None:
-        """The entry vector, written without waiting on the device (on CUDA
-        an asynchronous copy from pinned memory)."""
+    def enter(self, step0: int, fault_vec: torch.Tensor | None, *, resume: bool, armed: bool, target: int) -> None:
+        """The entry vector (the presort flag 0), written without waiting on
+        the device (on CUDA an asynchronous copy from pinned memory)."""
         fault = fault_vec.tolist() if fault_vec is not None else (FAULT_NONE, -1, 0)
-        self._write_entry([step0, *fault, int(resume), int(armed)])
+        self._write_entry([step0, *fault, int(resume), int(armed), target, 0])
 
 
 def _parse_bundle(host: np.ndarray, k: int, step0: int) -> dict:
@@ -215,8 +219,9 @@ def _parse_bundle(host: np.ndarray, k: int, step0: int) -> dict:
 def _dist_window_step(buf: _DistWindowBuffers, config: DistConfig, policy: SortPolicyConfig, *, with_energies: bool,
                       health: HealthConfig | None, with_fault: bool, decider) -> None:
     """One step of a distributed window, in place on ``buf``; nothing once
-    the window has halted. With ``with_fault`` the armed fault first
-    corrupts the step's input where it fires. The step's candidate state
+    the window has halted or has made its ``target`` steps. With
+    ``with_fault`` the armed fault first corrupts the step's input where
+    it fires. The step's candidate state
     is sorted (IF node) on the policy's word or an overflow, read by the
     sentinel, and committed (IF node) unless a receive-side drop discards
     it; the halt code ranks health, then the receive-side drop, the bin
@@ -320,7 +325,41 @@ def _dist_window_step(buf: _DistWindowBuffers, config: DistConfig, policy: SortP
             dst.copy_(torch.where(bad, value, dst))
         buf.halted.logical_or_(bad)
 
-    decider.run_if(~buf.halted, step)
+    decider.run_if(~buf.halted & (buf.n_done < buf.target), step)
+
+
+def _sort_shards(st: DistState, config: DistConfig) -> None:
+    """Every shard's global sort at ``config.capacity``, in place in ``st``
+    (the overflow is left to the next step's mandatory sort)."""
+    *parts, _overflow = dist_global_sort_device(st.pos, st.u, st.w, st.alive, config)
+    for name, src in zip(("pos", "u", "w", "alive", "slots", "pslot", "slab_d", "slab_valid"), parts):
+        getattr(st, name).copy_(src)
+
+
+def _dist_window_entry(buf: _DistWindowBuffers, config: DistConfig, health: HealthConfig | None, *,
+                       decider) -> None:
+    """A functional window's entry: every shard's sort when the entry's
+    presort flag is set (the capacity growth's re-entry), then the
+    sentinel's references from the state the steps start at."""
+    decider.run_if(buf.presort != 0, lambda: _sort_shards(buf.st, config))
+    if health is not None:
+        fe, ke = _energies(buf.st, config)
+        buf.ref_charge.copy_(_total_charge(buf.st))
+        buf.ref_energy.copy_(fe + ke)
+
+
+def _prewarm_local(config: DistConfig, pos: torch.Tensor, alive: torch.Tensor) -> None:
+    """Resolve ``config``'s ``auto`` dispatch keys eagerly at the local
+    grid shape, the shape each shard's kernels run at, a timing at the
+    shards' mean occupancy (``pos`` and ``alive`` the shard stacks; a
+    set-up read)."""
+    if config.backend != "auto":
+        return
+    local = config.local_grid
+    fill = -(-int(torch.count_nonzero(alive)) // (alive.shape[0] * alive.shape[1] * local.n_cells))
+    dispatch.prewarm(dispatch.ops_for_modes(config.deposition, config.gather), device=alive.device,
+                     order=config.order, grid_shape=local.shape, capacity=config.capacity, dtype=pos.dtype,
+                     fill=fill)
 
 
 def _pad(t: torch.Tensor, dim: int, add: int, fill) -> torch.Tensor:
@@ -467,7 +506,7 @@ class DistSimulation:
         if self._window is None:
             self.shard_state, self.policy_state = state, pstate
             return
-        buf = self._window["buffers"]
+        buf = self._window.buffers
         _copy_tree(buf.st, state)
         _copy_tree(buf.pstate, pstate)
 
@@ -509,7 +548,7 @@ class DistSimulation:
 
     # -- the windowed driver ----------------------------------------------------
 
-    def _window_for(self, with_energies: bool, n_diag: int) -> dict:
+    def _window_for(self, with_energies: bool, n_diag: int) -> Window:
         """The window's buffers and, on CUDA with ``use_graphs``, its
         captured step; made anew when the configuration, the table's length,
         the sentinel or the state's shapes change. A driver with a fault
@@ -517,19 +556,18 @@ class DistSimulation:
         never fires)."""
         with_fault = self.fault_injector is not None
         key = (self.config, self.policy, with_energies, n_diag, self.use_graphs, self._health, with_fault)
-        if self._window is not None and self._window["key"] == key:
+        if self._window is not None and self._window.key == key:
             return self._window
         buf = _DistWindowBuffers(self._state, self._policy_state, n_diag)
-        w = {"key": key, "buffers": buf, "graph": None, "launches": {}}
-        step = functools.partial(_dist_window_step, config=self.config, policy=self.policy,
-                                 with_energies=with_energies, health=self._health, with_fault=with_fault)
+        w = Window(key, buf, functools.partial(_dist_window_step, config=self.config, policy=self.policy,
+                                               with_energies=with_energies, health=self._health,
+                                               with_fault=with_fault))
         if self.use_graphs:
-            torch.cuda.synchronize(self.device)
-            t0 = time.perf_counter()
-            w["graph"], (w["launches"],) = capture_steps([buf], step)
+            self.graph_setup_seconds += w.capture()
             self.graph_captures += 1
-            self.graph_setup_seconds += time.perf_counter() - t0
-        w["step"] = step
+            # the capture's warm-up step ran on the buffers: the state back in
+            _copy_tree(buf.st, self._state)
+            _copy_tree(buf.pstate, self._policy_state)
         self._window = w
         self._state, self._policy_state = buf.st, buf.pstate
         return w
@@ -539,30 +577,22 @@ class DistSimulation:
         and read its bundle: the window's one device-to-host read. Consumes
         the pending presort and replay flags."""
         w = self._window_for(bool(diagnostics_every), window)
-        buf = w["buffers"]
+        buf = w.buffers
         if self._pending_presort:  # the capacity growth's re-sort, before the first step
-            *parts, _overflow = dist_global_sort_device(buf.st.pos, buf.st.u, buf.st.w, buf.st.alive, self.config)
-            for name, src in zip(("pos", "u", "w", "alive", "slots", "pslot", "slab_d", "slab_valid"), parts):
-                getattr(buf.st, name).copy_(src)
+            _sort_shards(buf.st, self.config)
         buf.reset_counters()
-        buf.enter(self._host_step, fault_vec, resume=self._pending_resume, armed=self._rebalance_armed)
+        buf.enter(self._host_step, fault_vec, resume=self._pending_resume, armed=self._rebalance_armed, target=k)
         self._pending_presort = self._pending_resume = False
         if self._health is not None:
             # the sentinel's references, from the state the window starts at
             fe, ke = _energies(buf.st, self.config)
             buf.ref_charge.copy_(_total_charge(buf.st))
             buf.ref_energy.copy_(fe + ke)
-        if w["graph"] is not None:
-            for _ in range(k):
-                w["graph"].replay()
-        else:
-            decider = HostDecider(self._read)
-            for _ in range(k):
-                w["step"](buf, decider=decider)
+        w.run(k, self._read)
         self.windows += 1
         host = _parse_bundle(self._read(buf.bundle(k)).numpy(), k, self._host_step)
-        if w["graph"] is not None:
-            kernels.add_launches(w["launches"], host["n_done"] + host["n_discarded"])
+        if w.graph is not None:
+            kernels.add_launches(w.launches, host["n_done"] + host["n_discarded"])
         return host
 
     def _consume_bundle(self, host: dict, diagnostics_every: int) -> int:
@@ -641,14 +671,7 @@ class DistSimulation:
         captured step finds them in the memo; again after a growth, a
         re-split and a restore. A timing runs at the shards' mean
         occupancy (a set-up read, outside `host_reads`)."""
-        if self.config.backend != "auto":
-            return
-        local = self.config.local_grid
-        n_bins = self.sx * self.sy * local.n_cells
-        fill = -(-int(torch.count_nonzero(self._state.alive)) // n_bins)
-        dispatch.prewarm(dispatch.ops_for_modes(self.config.deposition, self.config.gather), device=self.device,
-                         order=self.config.order, grid_shape=local.shape, capacity=self.config.capacity,
-                         dtype=self._state.pos.dtype, fill=fill)
+        _prewarm_local(self.config, self._state.pos, self._state.alive)
 
     # -- the host-driven loop -------------------------------------------------------
 
@@ -836,3 +859,121 @@ class DistSimulation:
         em, kinetic = float(host[0]), float(host[1])
         return {"step": self._host_step, "field_energy": em, "kinetic_energy": kinetic,
                 "total_energy": em + kinetic, "n_alive": int(host[2])}
+
+
+# -- the reference's functional window builder ----------------------------------------------
+
+
+def _dist_window_bundle(buf: _DistWindowBuffers, n_steps: int) -> dict:
+    """A functional distributed window's bundle, every leaf a fresh device
+    tensor: the reference's keys, its ``per_step`` rows `DIAG_NAMES` of
+    shape (n_steps,), zero past the steps run. A halting step is the
+    window's last: a kept one its ``n_done``-th, a discarded one the step
+    after."""
+    i32 = torch.int32
+    n_done, n_discarded = buf.n_done.to(i32), buf.discarded.to(i32)
+    ran = torch.arange(n_steps, device=buf.device) < n_done + n_discarded
+    per_step = {}
+    for k, name in enumerate(DIAG_NAMES):
+        dtype = torch.bool if name in ("active", "sorted") else torch.float32 if name.endswith("_energy") else i32
+        per_step[name] = torch.where(ran, buf.diag[k], 0.0).to(dtype)
+    code = buf.halt_code.clone()
+    last = (buf.step0 + buf.n_done + buf.discarded).to(i32)
+    return {
+        "n_done": n_done,
+        "n_sorts": buf.sorts.to(i32),
+        "n_rebuilds": buf.rebuilds.to(i32),
+        "halt_code": code,
+        "halt_step": torch.where(code != HALT_NONE, last, torch.full_like(last, -1)),
+        "halt_inv": buf.halt_inv.clone(),
+        "halt_measured": buf.halt_meas.clone(),
+        "halt_reference": buf.halt_ref.clone(),
+        "n_discarded": n_discarded,
+        "per_step": per_step,
+    }
+
+
+class DistWindowFn(WindowStore):
+    """The window `make_dist_window` builds: a callable with the reference's
+    18 arguments and 13 outputs, and a store of captured windows of its own
+    (`WindowStore`), keyed by the shapes of the state and its device. On a
+    CUDA device a window is two captured graphs: the entry (every shard's
+    sort under the presort flag, the sentinel's references) and the guarded
+    step (`_dist_window_step`), replayed ``n_steps`` times. The inputs are
+    donated, as the reference's are: the caller's tensors are copied into
+    the window's own buffers, and the result back into them, which come
+    back; ``n_target``, ``presort``, ``resume``,
+    ``step0``, ``rebalance_armed`` and ``fault_vec`` may be host values or
+    device tensors, and a call on a window already built reads nothing back
+    and captures nothing."""
+
+    def __init__(self, sx: int, sy: int, config: DistConfig, policy: SortPolicyConfig, n_steps: int, *,
+                 with_energies: bool, health: HealthConfig | None, with_fault: bool):
+        super().__init__()
+        self.sx, self.sy = sx, sy
+        self.config, self.policy, self.n_steps = config, policy, int(n_steps)
+        self.with_energies, self.health, self.with_fault = with_energies, health, with_fault
+
+    def __call__(self, fields, pos, u, w, alive, slots, pslot, slab_d, slab_valid, mid_pos, mid_u, policy_state,
+                 n_target, presort, resume, step0, rebalance_armed, fault_vec):
+        if tuple(pos.shape[:2]) != (self.sx, self.sy):
+            raise ValueError(f"pos has shard axes {tuple(pos.shape[:2])}, not the mesh's ({self.sx}, {self.sy})")
+        state = DistState(fields=blocks_from_global(fields, self.sx, self.sy), pos=pos, u=u, w=w, alive=alive,
+                          slots=slots, pslot=pslot, slab_d=slab_d, slab_valid=slab_valid, mid_pos=mid_pos,
+                          mid_u=mid_u)
+        key = (str(pos.device), _shapes([state, policy_state]))
+
+        def build() -> Window:
+            _prewarm_local(self.config, pos, alive)
+            buf = _DistWindowBuffers(state, policy_state, self.n_steps)
+            step = functools.partial(_dist_window_step, config=self.config, policy=self.policy,
+                                     with_energies=self.with_energies, health=self.health,
+                                     with_fault=self.with_fault)
+            return Window(key, buf, step, functools.partial(_dist_window_entry, config=self.config,
+                                                            health=self.health))
+
+        win = self.window(key, build)
+        buf = win.buffers
+        _copy_tree(buf.st, state)
+        _copy_tree(buf.pstate, policy_state)
+        buf.reset_counters()
+        enter_entry(buf, {0: step0, slice(1, 4): fault_vec, 4: resume, 5: rebalance_armed, 6: n_target,
+                          7: presort})
+        win.run(self.n_steps)
+        bundle = _dist_window_bundle(buf, self.n_steps)
+        if win.graph is not None:
+            kernels.add_launches_later(win.launch_vector, buf.n_done + buf.discarded)
+        for dst, src in zip(fields, global_from_blocks(buf.st.fields).unbind(0)):
+            dst.copy_(src)
+        tensors = [pos, u, w, alive, slots, pslot, slab_d, slab_valid, mid_pos, mid_u]
+        for dst, name in zip(tensors, ("pos", "u", "w", "alive", "slots", "pslot", "slab_d", "slab_valid", "mid_pos",
+                                       "mid_u")):
+            dst.copy_(getattr(buf.st, name))
+        _copy_tree(policy_state, buf.pstate)
+        return (tuple(fields), *tensors, policy_state, bundle)
+
+
+def make_dist_window(mesh, cfg: DistConfig, policy: SortPolicyConfig, n_steps: int, with_energies: bool = True,
+                     health: HealthConfig | None = None, with_fault: bool = False):
+    """The reference's window builder: a `DistWindowFn` of ``n_steps``
+    steps on ``mesh`` = ``(sx, sy)``. Its call::
+
+        (fields6, pos, u, w, alive, slots, pslot, slab_d, slab_valid,
+         mid_pos, mid_u, policy_state, n_target, presort, resume, step0,
+         rebalance_armed, fault_vec)
+        -> (fields6, pos, u, w, alive, slots, pslot, slab_d, slab_valid,
+            mid_pos, mid_u, policy_state, bundle)
+
+    ``fields6`` are the six global (NX, NY, NZ) components, the particle
+    arrays ``[SX, SY, ...]`` shard stacks. ``presort`` sorts every shard
+    before the first step (a capacity growth's re-entry); ``resume``
+    replays the carried mid-step snapshot in the first step (after a
+    receive-side drop); ``rebalance_armed`` arms the imbalance halt;
+    ``fault_vec`` fires only when the window is built ``with_fault``. The
+    bundle has the reference's keys (`_dist_window_bundle`). The inputs are
+    donated, as the reference's are: the result is written into the input
+    tensors, which come back."""
+    validate_shard_guard(cfg.local_grid, cfg.order)
+    sx, sy = mesh_pair(mesh)
+    return DistWindowFn(sx, sy, cfg, policy, n_steps, with_energies=with_energies, health=health,
+                        with_fault=with_fault)

@@ -704,6 +704,79 @@ def dist_global_sort_device(pos, u, w, alive, cfg: DistConfig):
     return (*(_stack(list(c), sx, sy) for c in cols[:8]), torch.stack(list(cols[8])).sum())
 
 
+# -- the reference's functional builders --------------------------------------------------
+
+
+def mesh_pair(mesh) -> tuple[int, int]:
+    """A mesh of the port: the pair ``(sx, sy)`` of shard counts along grid
+    x and y (the reference's ``jax.sharding.Mesh``, whose devices the port
+    stacks on one device). Anything else is refused."""
+    if (isinstance(mesh, (tuple, list)) and len(mesh) == 2
+            and all(isinstance(v, (int, np.integer)) and not isinstance(v, bool) and v > 0 for v in mesh)):
+        return int(mesh[0]), int(mesh[1])
+    raise TypeError(f"a mesh in the port is the pair (sx, sy) of shard counts, got {mesh!r}: the port stacks "
+                    "the shards on one device and takes no jax.sharding.Mesh")
+
+
+def _check_stack(t: torch.Tensor, sx: int, sy: int, name: str) -> None:
+    if tuple(t.shape[:2]) != (sx, sy):
+        raise ValueError(f"{name} has shard axes {tuple(t.shape[:2])}, not the mesh's ({sx}, {sy})")
+
+
+def dist_pic_step_local(fields, pos, u, w, alive, slots, particle_slot, slab_d, slab_valid, cfg: DistConfig, *,
+                        mid_pos=None, mid_u=None, use_mid=None):
+    """The reference's shard body with its flat arguments and outputs, run
+    over the whole shard stack at once (the port's collectives are
+    operations on the stack, `dist_pic_step`). ``fields`` are the six
+    components' shard blocks, ``[SX, SY, nx, ny, nz]`` each; the particle
+    arrays carry the two shard axes first. ``use_mid`` (a 0-d bool tensor)
+    replaces the step's push output by ``mid_pos`` / ``mid_u``. Returns
+    ``(fields, pos, u, w, alive, slots, pslot, slab_d, slab_valid, mid_pos,
+    mid_u, stats)``: the six blocks as a tuple, the post-push snapshot, and
+    the mesh totals of `STAT_KEYS`."""
+    state = DistState(fields=torch.stack(list(fields)), pos=pos, u=u, w=w, alive=alive, slots=slots,
+                      pslot=particle_slot, slab_d=slab_d, slab_valid=slab_valid,
+                      mid_pos=torch.zeros_like(pos) if mid_pos is None else mid_pos,
+                      mid_u=torch.zeros_like(u) if mid_u is None else mid_u)
+    new, stats = dist_pic_step(state, cfg, use_mid=use_mid)
+    return (tuple(new.fields.unbind(0)), new.pos, new.u, new.w, new.alive, new.slots, new.pslot, new.slab_d,
+            new.slab_valid, new.mid_pos, new.mid_u, stats)
+
+
+def make_dist_step(mesh, cfg: DistConfig):
+    """The reference's per-step builder: a function of ``(fields6, pos, u,
+    w, alive, slots, pslot, slab_d, slab_valid)`` returning the same nine,
+    and the `STAT_KEYS` dict of 0-d tensors (mesh totals). ``fields6`` are
+    the six global (NX, NY, NZ) components, the particle arrays ``[SX, SY,
+    ...]`` shard stacks; ``mesh`` is the pair ``(sx, sy)``. The step writes
+    none of its inputs. The guard check runs first, as the reference's."""
+    validate_shard_guard(cfg.local_grid, cfg.order)
+    sx, sy = mesh_pair(mesh)
+
+    def step(fields, pos, u, w, alive, slots, pslot, slab_d, slab_valid):
+        _check_stack(pos, sx, sy, "pos")
+        blocks, *out, _mid_pos, _mid_u, stats = dist_pic_step_local(
+            blocks_from_global(fields, sx, sy).unbind(0), pos, u, w, alive, slots, pslot, slab_d, slab_valid, cfg)
+        return (tuple(global_from_blocks(torch.stack(blocks)).unbind(0)), *out, stats)
+
+    return step
+
+
+def make_dist_sort(mesh, cfg: DistConfig):
+    """The reference's sort builder: a function of ``(pos, u, w, alive)``,
+    shard stacks of ``mesh`` = ``(sx, sy)``, returning every shard's global
+    sort at ``cfg.capacity`` (`dist_global_sort_device`): ``(pos, u, w,
+    alive, slots, pslot, slab_d, slab_valid, overflow)``, the overflow
+    summed over the shards."""
+    sx, sy = mesh_pair(mesh)
+
+    def sort(pos, u, w, alive):
+        _check_stack(pos, sx, sy, "pos")
+        return dist_global_sort_device(pos, u, w, alive, cfg)
+
+    return sort
+
+
 # -- set-up on the host ---------------------------------------------------------------------
 
 

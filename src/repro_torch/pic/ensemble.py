@@ -30,12 +30,16 @@ cell of any member (at least doubling) and rebuilds each member:
   zero padding, which the contractions add as nothing, so its trajectory
   stays its solo run's, bit for bit.
 
-A capacity change makes new buffers and captures the step anew. The
-bucket's captured windows live in a store (``windows``: one window per
-member count) that a caller may share: the simulation service keeps one per
-spec signature, so a repeat batch copies its members into the captured
-buffers and replays, capturing nothing. A store's window serves one
-ensemble at a time; the last to enter it owns its buffers.
+A window runs through a window callable (`make_ensemble_window_fn`,
+`ensemble_run_window`'s signature). The first call copies the bucket's
+state into the window's own buffers, and from then on the bucket's state
+is those buffers, so a window copies nothing in or out, as a
+`Simulation`'s does. A capacity change changes the shapes, so the callable
+builds and captures a new window. The callable's store of captured
+windows may be shared: the simulation service keeps one callable per spec
+signature, so a repeat batch copies its members into the captured buffers
+(the earlier batch's state, which it no longer reads) and replays,
+capturing nothing.
 
 Ensembles run without the health sentinel and the rollback ladder, as in
 the reference: a halt other than an overflow raises. Every ``auto``
@@ -46,37 +50,28 @@ count, the one the bucket's kernels run at.
 from __future__ import annotations
 
 import dataclasses
-import functools
-import time
 
 import numpy as np
 import torch
 
-from repro_torch import kernels
 from repro_torch import checkpoint as _checkpoint  # a module: checkpoint imports pic in turn
 from repro_torch.core.binning import build_bins, cell_index, choose_capacity
 from repro_torch.core.health import HALT_BIN_OVERFLOW, HALT_NAMES, HALT_NONE
 from repro_torch.core.resort_policy import SortPolicyConfig, SortPolicyState, policy_init
-from repro_torch.kernels import dispatch
-from repro_torch.kernels.conditional import HostDecider
 from repro_torch.pic.simulation import (
     PICConfig,
     PICState,
-    _copy_tree,
+    WindowFn,
     _energies,
-    _same_shapes,
     _state_slab,
-    _trees,
-    _window_step,
-    _WindowBuffers,
-    capture_steps,
+    bundle_to_host,
     consume_window_bundle,
     global_sort_device,
     init_state,
-    parse_bundle,
+    prewarm_dispatch,
 )
 
-__all__ = ["EnsembleSimulation", "EnsembleWindow", "member_bundle", "stack_trees", "unstack_tree"]
+__all__ = ["EnsembleSimulation", "make_ensemble_window_fn", "member_bundle", "stack_trees", "unstack_tree"]
 
 
 def stack_trees(*trees):
@@ -119,18 +114,13 @@ def member_bundle(host: dict, i: int) -> dict:
     return out
 
 
-class EnsembleWindow:
-    """One window of a bucket: its stacked buffers, the step function and,
-    on a CUDA device, the captured graph and the kernel launches the
-    bucket's step recorded into it. It refers to no driver, so dropping it
-    from its store frees its graph and its buffers."""
-
-    def __init__(self, key: tuple, buffers: _WindowBuffers, step):
-        self.key = key
-        self.buffers = buffers
-        self.step = step
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.launches: dict = {}
+def make_ensemble_window_fn(*, donate: bool = True) -> WindowFn:
+    """A fresh ensemble-window callable, with `ensemble_run_window`'s
+    signature and a store of captured windows of its own: the unit the
+    simulation service caches and evicts per spec signature
+    (`launch.sim_serve.ExecutableCache`). Dropping it frees its graphs and
+    buffers. ``donate`` is its calls' default."""
+    return WindowFn(members=True, donate=donate)
 
 
 class EnsembleSimulation:
@@ -140,9 +130,9 @@ class EnsembleSimulation:
     on one device; every member shares ``config`` (grid, order, dt, modes,
     backend and capacity) and the sort ``policy``. Members that need other
     shapes belong in other buckets (`repro_torch.api.make_ensemble` groups
-    them by `spec_signature`). ``windows`` is the store of the bucket's
-    captured windows (a dict keyed by member count); by default the
-    ensemble keeps its own.
+    them by `spec_signature`). ``window_fn`` is the window callable, as
+    `make_ensemble_window_fn` makes it, whose store holds the bucket's
+    captured windows; by default the ensemble makes its own.
 
     `run` is windowed only: a window advances every member ``min(window,
     remaining_i)`` steps and makes one host read for the whole bucket.
@@ -150,12 +140,12 @@ class EnsembleSimulation:
     capacity growth. ``bucket_steps`` counts the bucket's steps (a window
     makes ``max_i`` of its members' steps; each launches every kernel of
     the step once). ``graph_captures`` and ``window_builds`` count the
-    windows captured and built (a window taken from a shared store is
-    neither).
+    windows captured and built for this ensemble (a window already in the
+    callable's store is neither).
     """
 
     def __init__(self, members, config: PICConfig, policy: SortPolicyConfig | None = None, *, specs=None,
-                 windows: dict | None = None):
+                 window_fn: WindowFn | None = None):
         members = list(members)
         if not members:
             raise ValueError("an ensemble needs at least one member")
@@ -167,11 +157,10 @@ class EnsembleSimulation:
         self.policy = policy or SortPolicyConfig()
         self.config = config
         self.device = members[0][1].pos.device
-        self.use_graphs = self.device.type == "cuda"
         self._state = stack_trees(*self._init_members(members))
         self.policy_state = stack_trees(*(policy_init(self.device) for _ in members))
-        self._windows = {} if windows is None else windows
-        self._window: EnsembleWindow | None = None
+        self._window_fn = window_fn if window_fn is not None else make_ensemble_window_fn()
+        self._window = None  # the window of the last call
         self._prewarm_dispatch()
 
         self.host_step = np.zeros(self.n_members, np.int64)
@@ -221,13 +210,7 @@ class EnsembleSimulation:
         once over the member axis), so that the captured step finds the
         batched winner in the memo; again after a growth and a restore. A
         timing runs at the members' mean occupancy."""
-        if self.config.backend != "auto":
-            return
-        p = self._state.particles
-        fill = -(-int(torch.count_nonzero(p.alive)) // (self.n_members * self.config.grid.n_cells))
-        dispatch.prewarm(dispatch.ops_for_modes(self.config.deposition, self.config.gather), device=self.device,
-                         order=self.config.order, grid_shape=self.config.grid.shape,
-                         capacity=self.config.capacity, dtype=p.pos.dtype, fill=fill, batch=self.n_members)
+        prewarm_dispatch(self.config, self._state.particles, batch=self.n_members)
 
     # -- state ------------------------------------------------------------------
 
@@ -304,66 +287,26 @@ class EnsembleSimulation:
                 self.halts["bin_overflow"] = self.halts.get("bin_overflow", 0) + len(overflowed)
                 self._grow_capacity(overflowed)
 
-    def _window_for(self, with_energies: bool, n_diag: int) -> EnsembleWindow:
-        """The bucket's window for these diagnostics: the current one, the
-        store's (the members copied into its buffers) when its shapes are
-        the bucket's, or one built on the bucket's own tensors (taken, not
-        copied) and, on a CUDA device, captured."""
-        names = ("n_moved", "n_alive") + (("field_energy", "kinetic_energy") if with_energies else ())
-        key = (self.config, self.policy, names, n_diag, self.use_graphs)
-        w = self._window
-        if w is not None and w.key == key:
-            return w
-        w = self._windows.get(self.n_members)
-        mine = _trees(self._state, self.policy_state)
-        if w is not None and w.key == key and _same_shapes(_trees(w.buffers.state(), w.buffers.pstate), mine):
-            for dst, src in zip(_trees(w.buffers.state(), w.buffers.pstate), mine):
-                _copy_tree(dst, src)
-        else:
-            buf = _WindowBuffers(self._state, self.policy_state, names, n_diag, members=self.n_members)
-            # (no closure over the driver: a stored window must not keep it alive)
-            step = functools.partial(_window_step, config=self.config, policy=self.policy,
-                                     with_energies=with_energies, health=None, with_fault=False)
-            w = EnsembleWindow(key, buf, step)
-            self.window_builds += 1
-            if self.use_graphs:
-                torch.cuda.synchronize(self.device)
-                t0 = time.perf_counter()
-                w.graph, (w.launches,) = capture_steps([buf], step)
-                self.graph_captures += 1
-                self.graph_setup_seconds += time.perf_counter() - t0
-            self._windows[self.n_members] = w
-        self._window = w
-        self._state, self.policy_state = w.buffers.state(), w.buffers.pstate
-        return w
-
     def _enter_window(self, k: np.ndarray, window: int, diagnostics_every: int) -> dict:
-        """One window: member i makes up to k[i] steps; then the bucket's
-        one bundle read. Returns the bundle with a member axis on every
-        entry."""
-        w = self._window_for(bool(diagnostics_every), window)
-        buf = w.buffers
-        buf.reset_counters()
-        buf.enter_targets(k)
-        k_max = int(k.max())
-        if w.graph is not None:
-            for _ in range(k_max):
-                w.graph.replay()
-        else:
-            decider = HostDecider(self._read)
-            for _ in range(k_max):
-                w.step(buf, decider=decider)
+        """One window through the window callable: member i makes up to
+        k[i] steps; then the bucket's one bundle read. The bucket's state is
+        then the window's buffers (as a `Simulation`'s is its window's), so
+        the next call with the same window copies nothing in or out.
+        Returns the bundle with a member axis on every entry."""
+        fn = self._window_fn
+        builds, captures, setup = fn.builds, fn.captures, fn.setup_seconds
+        _, _, bundle = fn(dataclasses.replace(self._state, step=self.host_step), self.policy_state, self.config,
+                          window, policy=self.policy, with_energies=bool(diagnostics_every), donate=True, n_target=k)
+        self._window = fn.last
+        self._state, self.policy_state = self._window.buffers.state(), self._window.buffers.pstate
+        self.window_builds += fn.builds - builds
+        self.graph_captures += fn.captures - captures
+        self.graph_setup_seconds += fn.setup_seconds - setup
         self.windows += 1
-        rows = self._read(buf.bundle(k_max)).numpy()
-        parts = [parse_bundle(rows[i], buf.names, k_max, int(self.host_step[i])) for i in range(self.n_members)]
+        host = bundle_to_host(bundle, self._read)
         # the step ran while some member was active: in the first max_i
         # n_done_i replays
-        steps = max(part["n_done"] for part in parts)
-        self.bucket_steps += steps
-        if w.graph is not None:
-            kernels.add_launches(w.launches, steps)
-        host = {key: np.array([p[key] for p in parts]) for key in parts[0] if key != "per_step"}
-        host["per_step"] = {name: np.stack([p["per_step"][name] for p in parts]) for name in buf.names}
+        self.bucket_steps += int(host["n_done"].max())
         return host
 
     def _consume_bundle(self, host: dict, diagnostics_every: int) -> None:
@@ -394,8 +337,8 @@ class EnsembleSimulation:
             rebuilt.append(st)
             overflows.append(overflow)
         self._state = stack_trees(*rebuilt)
+        self._window_fn.discard(self._window)  # its shapes are gone: free it now
         self._window = None
-        self._windows.pop(self.n_members, None)  # its shapes are gone: free it now
         overflow = int(self._read(torch.stack(overflows).max()))
         assert overflow == 0, "binning overflow persists after sizing capacity to the densest cell"
         self._prewarm_dispatch()  # the capacity is part of the dispatch key

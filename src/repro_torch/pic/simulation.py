@@ -69,6 +69,7 @@ import dataclasses
 import functools
 import os
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -329,6 +330,18 @@ def _pic_step(state: PICState, config: PICConfig) -> tuple[PICState, GPMAStats]:
     with record_function("pic.maxwell"):
         fields = maxwell_step(state.fields, j, dx=config.grid.dx, dt=config.dt, ckc_beta=config.ckc_beta)
     return PICState(fields=fields, particles=particles, layout=layout, step=state.step + 1, slab=slab), stats
+
+
+def pic_step(state: PICState, config: PICConfig) -> tuple[PICState, GPMAStats]:
+    """One simulation step, `_pic_step` under the reference's name: returns
+    ``(state, stats)`` in fresh tensors, leaving the input as it is. The
+    state's ``step`` may be an int or a 0-d tensor."""
+    return _pic_step(state, config)
+
+
+#: the reference's donating variant; in PyTorch a step never writes its
+#: input, so it is the same function
+pic_step_donated = pic_step
 
 
 def global_sort_device(state: PICState, config: PICConfig) -> tuple[PICState, torch.Tensor]:
@@ -622,11 +635,11 @@ class _WindowHead:
 
     HEAD = ("n_done", "halted", "sorts", "rebuilds", "halt_code", "halt_inv", "halt_meas", "halt_ref")
 
-    def _write_entry(self, rows: list) -> None:
+    def _write_entry(self, rows) -> None:
         """Write the entry vector from the host without waiting on the
         device: on CUDA an asynchronous copy from pinned memory (the caching
         host allocator keeps the block until the copy is done)."""
-        host = torch.tensor(rows, dtype=torch.int64).reshape(self.entry.shape)
+        host = torch.as_tensor(rows, dtype=torch.int64).reshape(self.entry.shape)
         if self.entry.device.type == "cuda":
             host = host.pin_memory()
         self.entry.copy_(host, non_blocking=True)
@@ -643,37 +656,38 @@ class _WindowHead:
 
 
 class _WindowBuffers(_WindowHead):
-    """The window's state held in place: the tensors a step reads and then
-    overwrites, the policy state, the window's counters, the sentinel's
-    halt latch and the per-step diagnostics table. On the card they are the
-    captured graph's inputs and outputs, at fixed addresses; the step
-    function is the same everywhere.
+    """The window's state held in place, in tensors of its own: the tensors
+    a step reads and then overwrites, the policy state, the window's
+    counters, the sentinel's halt latch and the per-step diagnostics table
+    (a row for each of ``names``). On the card they are the captured
+    graph's inputs and outputs, at fixed addresses; the step function is
+    the same everywhere.
 
-    ``entry`` is what the host writes at the entry of a window of a driver
-    with a fault spec, in one copy: the absolute step the window starts at
-    (``step0``) and the fault vector (``fault``: kind, step, component).
-    ``ref_charge`` and ``ref_energy`` are the sentinel's references, taken
-    on the device at window entry.
+    ``entry`` is what the host (or, for a functional window, the device)
+    writes at the entry of a window, in one copy: the absolute step the
+    window starts at (``step0``), the fault vector (``fault``: kind, step,
+    component) and the window's step target (``target``: a step runs only
+    while ``n_done < target``). ``ref_charge`` and ``ref_energy`` are the
+    sentinel's references, taken on the device at window entry.
 
     With ``members=B`` the buffers are an ensemble bucket's
     (`repro_torch.pic.ensemble`): the state's tensors carry a leading member
-    axis and are taken as they are, not copied; every counter, the latch,
-    the table and the entry vector get the same axis, and the entry vector
-    a fifth column, the member's step target (``target``). The window step
-    then advances every member at once and keeps a member's new state only
-    while it is active: not halted and ``n_done < target``."""
+    axis; every counter, the latch, the table and the entry vector get the
+    same axis. The window step then advances every member at once and keeps
+    a member's new state only while it is active: not halted and ``n_done <
+    target``."""
 
     def __init__(self, state: PICState, pstate: SortPolicyState, names: tuple[str, ...], n_diag: int,
                  members: int | None = None):
         dev = state.particles.pos.device
         self.device = dev
-        own = _clone_tree if members is None else (lambda tree: tree)
-        self.fields = own(state.fields)
-        self.particles = own(state.particles)
-        self.layout = own(state.layout)
-        self.slab = None if state.slab is None else own(state.slab)
-        self.pstate = own(pstate)
+        self.fields = _clone_tree(state.fields)
+        self.particles = _clone_tree(state.particles)
+        self.layout = _clone_tree(state.layout)
+        self.slab = None if state.slab is None else _clone_tree(state.slab)
+        self.pstate = _clone_tree(pstate)
         self.names = names
+        self.members = members
         lead = () if members is None else (members,)
         self.diag = torch.zeros((*lead, len(names), n_diag), dtype=torch.float64, device=dev)
         zeros = lambda dtype: torch.zeros(lead, dtype=dtype, device=dev)
@@ -682,21 +696,10 @@ class _WindowBuffers(_WindowHead):
         # the sentinel's halt latch: code, invariant, measured, reference
         self.halt_code, self.halt_inv = zeros(torch.int32), zeros(torch.int32)
         self.halt_meas, self.halt_ref = zeros(torch.float32), zeros(torch.float32)
-        self.entry = torch.tensor([0, FAULT_NONE, -1, 0] if members is None else [[0, FAULT_NONE, -1, 0, 0]] * members,
-                                  dtype=torch.int64, device=dev)
-        self.step0, self.fault = self.entry[..., 0], self.entry[..., 1:4]
-        self.target = None if members is None else self.entry[..., 4]
+        row = [0, FAULT_NONE, -1, 0, 0]
+        self.entry = torch.tensor([row] * members if members is not None else row, dtype=torch.int64, device=dev)
+        self.step0, self.fault, self.target = self.entry[..., 0], self.entry[..., 1:4], self.entry[..., 4]
         self.ref_charge, self.ref_energy = zeros(torch.float32), zeros(torch.float32)
-
-    def scratch(self) -> "_WindowBuffers":
-        """A copy of the same shapes to warm a capture up on."""
-        if self.target is None:
-            return _WindowBuffers(self.state(), self.pstate, self.names, self.diag.shape[-1])
-        state = PICState(fields=_clone_tree(self.fields), particles=_clone_tree(self.particles),
-                         layout=_clone_tree(self.layout), step=0,
-                         slab=None if self.slab is None else _clone_tree(self.slab))
-        return _WindowBuffers(state, _clone_tree(self.pstate), self.names, self.diag.shape[-1],
-                              members=self.target.shape[0])
 
     def state(self, step: int = 0) -> PICState:
         return PICState(fields=self.fields, particles=self.particles, layout=self.layout, step=step, slab=self.slab)
@@ -727,19 +730,17 @@ class _WindowBuffers(_WindowHead):
         """The state's (field, kinetic) energies (`_energies`); a bucket's
         one a member, each reduced on the member's own tensors, so that it
         sums in the order of the member's solo run."""
-        if self.target is None:
+        if self.members is None:
             return _energies(self.state(), config)
         per = [_energies(PICState(fields=_member_tree(self.fields, i), particles=_member_tree(self.particles, i),
-                                  layout=None, step=0), config) for i in range(self.target.shape[0])]
+                                  layout=None, step=0), config) for i in range(self.members)]
         return torch.stack([f for f, _ in per]), torch.stack([k for _, k in per])
 
-    def enter(self, step0: int, fault_vec: torch.Tensor | None) -> None:
-        """The window's start step and fault vector, in one copy."""
-        self._write_entry([step0, *(fault_vec.tolist() if fault_vec is not None else (FAULT_NONE, -1, 0))])
-
-    def enter_targets(self, targets) -> None:
-        """An ensemble window's per-member step targets, in one copy."""
-        self._write_entry([[0, FAULT_NONE, -1, 0, int(k)] for k in targets])
+    def enter(self, step0: int, fault_vec: torch.Tensor | None, target: int) -> None:
+        """The window's start step, fault vector and step target, in one
+        copy."""
+        fault = fault_vec.tolist() if fault_vec is not None else (FAULT_NONE, -1, 0)
+        self._write_entry([step0, *fault, target])
 
 
 _BUNDLE_HEAD = len(_WindowHead.HEAD)
@@ -748,10 +749,10 @@ _BUNDLE_HEAD = len(_WindowHead.HEAD)
 def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfig, *, with_energies: bool,
                  health: HealthConfig | None, with_fault: bool, decider) -> None:
     """One step of a window, in place on ``buf``; nothing once the window
-    has halted (or, for an ensemble member, once it has made its
-    ``target`` steps). With ``with_fault``, the armed fault first corrupts the
-    step's input where it fires. Then the step, its sort mode's decision,
-    the step's diagnostics at row ``buf.n_done``, and the halt:
+    has halted or has made its ``target`` steps. With ``with_fault``, the
+    armed fault first corrupts the step's input where it fires. Then the
+    step, its sort mode's decision, the step's diagnostics at row
+    ``buf.n_done``, and the halt:
 
     - ``incremental``: the re-sort policy, and the global sort under its
       word or on an overflow; a sort that still overflows halts the window;
@@ -759,6 +760,13 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
       overflow halts the window;
     - ``rebuild``: the step rebuilt the bins; their overflow halts the window;
     - ``none``: nothing.
+
+    The table's rows are the buffers' ``names``: ``n_moved``, ``n_alive``
+    and, where named, the energies, ``sorted`` (the step's sort, policy or
+    mandatory; every step in ``global``) and ``reason`` (`REASON_OVERFLOW`
+    on a mandatory sort, else the policy's code; 0 outside
+    ``incremental``), the reference's per-step rows. A row not named is not
+    computed.
 
     With ``health``, the sentinel reads the post-step state; a health halt
     latches its code, its invariant and the values compared, and outranks
@@ -779,13 +787,14 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
     member that is not active comes out bit-unchanged. Buckets run without
     the sentinel and the fault hook."""
     n_slots = config.grid.n_cells * config.capacity
-    bucket = buf.target is not None
+    bucket = buf.members is not None
     if bucket and (health is not None or with_fault):
         raise ValueError("an ensemble bucket's window runs without the health sentinel and fault injection")
-    active = ~buf.halted if not bucket else ~buf.halted & (buf.n_done < buf.target)
+    active = ~buf.halted & (buf.n_done < buf.target)
     # the members whose step is kept (a bucket's); None: the single driver's
     # whole step runs under its guard
     keep = active if bucket else None
+    named = set(buf.names)
 
     def kept(flag: torch.Tensor) -> torch.Tensor:
         return flag if keep is None else flag & keep
@@ -804,19 +813,23 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
         decider.run_if(everyone, lambda: buf.store(state))
         decider.run_if(~everyone, lambda: buf.store(state, keep))
 
-    def policy_sort(stats: GPMAStats) -> None:
+    def policy_sort(stats: GPMAStats, row: dict) -> None:
         with record_function("pic.policy"):
             if config.needs_bins:
                 mandatory = stats.n_overflow > 0
             else:
                 mandatory = torch.zeros((), dtype=torch.bool, device=buf.device)
-            do_pol, _reason, recorded = policy_update(
+            do_pol, reason, recorded = policy_update(
                 buf.pstate, policy, n_moved=stats.n_moved, n_alive=stats.n_alive,
                 n_empty=stats.n_empty, n_slots=n_slots,
             )
             do_pol = do_pol & ~mandatory
         _copy_tree(buf.pstate, recorded, keep)
         sorting = kept(do_pol | mandatory)
+        if "sorted" in named:
+            row["sorted"] = sorting
+        if "reason" in named:
+            row["reason"] = torch.where(mandatory, REASON_OVERFLOW, reason)
 
         def sort():
             with record_function("pic.global_sort"):
@@ -836,8 +849,12 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
             buf.store(_apply_fault(buf.state(), buf.step0 + buf.n_done, buf.fault))
         new, stats = _pic_step(buf.state(), config)
         commit(new)
+        row = {"n_moved": stats.n_moved, "n_alive": stats.n_alive}
+        if named & {"sorted", "reason"} and config.sort_mode != "incremental":  # (the policy's own there)
+            row["sorted"] = torch.full(buf.n_done.shape, config.sort_mode == "global", device=buf.device)
+            row["reason"] = torch.zeros(buf.n_done.shape, dtype=torch.int32, device=buf.device)
         if config.sort_mode == "incremental":
-            policy_sort(stats)
+            policy_sort(stats, row)
         elif config.sort_mode == "global":
             with record_function("pic.global_sort"):
                 state, overflow = global_sort_device(buf.state(), config)
@@ -848,7 +865,9 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
         energies = None
         if with_energies or (health is not None and health.check_energy):
             energies = buf.energies(config)
-        buf.record([stats.n_moved, stats.n_alive] + (list(energies) if with_energies else []), keep)
+        if with_energies:
+            row["field_energy"], row["kinetic_energy"] = energies
+        buf.record([row[name] for name in buf.names], keep)
 
         if health is not None:
             with record_function("pic.sentinel"):
@@ -862,36 +881,131 @@ def _window_step(buf: _WindowBuffers, config: PICConfig, policy: SortPolicyConfi
     decider.run_if(any_of(active), step)
 
 
-def capture_steps(bufs: list[_WindowBuffers], step) -> tuple[torch.cuda.CUDAGraph, list[dict]]:
-    """Capture the guarded step of each of ``bufs``, in order, as one CUDA
-    graph, after one warm-up step on a copy of the first that takes both
-    branches (it brings every lazily built library object, such as a BLAS
-    handle, into being before the capture; buffers of one shape need no
-    more). The kernel wrappers count launches when they run, which during a
+def capture_steps(buf, step) -> tuple[torch.cuda.CUDAGraph, dict]:
+    """Capture ``step(buf)``, the window's guarded step, as one CUDA graph,
+    after one warm-up step that takes every branch (it brings every lazily
+    built library object, such as a BLAS handle, into being before the
+    capture). The warm-up runs on ``buf`` itself, not on a copy, so that a
+    capture holds no third copy of the state: it leaves the buffers a step
+    on, and their owner writes its state back into them after the capture.
+    The kernel wrappers count launches when they run, which during a
     capture means once per recorded launch: those counts are taken back and
-    returned per buffer, for the owner to add per replay that ran them."""
-    device = bufs[0].device
+    returned, for the owner to add once for every replay that ran them."""
+    device = buf.device
     torch.cuda.synchronize(device)
-    scratch = bufs[0].scratch()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
-        step(scratch, decider=EveryBranch())
+        step(buf, decider=EveryBranch())
     torch.cuda.current_stream(device).wait_stream(side)
-    del scratch
     graph = torch.cuda.CUDAGraph()
     capture = GraphCapture(graph, device)
-    launches = []
+    before = kernels.launch_counts()
     with capture.capturing():
-        for buf in bufs:
-            before = kernels.launch_counts()
-            step(buf, decider=capture)
-            after = kernels.launch_counts()
-            launches.append({name: after[name] - before[name] for name in after})
-    for counts in launches:
-        kernels.add_launches(counts, -1)
+        step(buf, decider=capture)
+    after = kernels.launch_counts()
+    launches = {name: after[name] - before[name] for name in after}
+    kernels.add_launches(launches, -1)
     torch.cuda.synchronize(device)
     return graph, launches
+
+
+class Window:
+    """One window of a store: its buffers, its step function and, on a CUDA
+    device, the captured graph and the kernel launches the step recorded
+    into it. ``entry``, if given, is work a window does once at its entry,
+    before the steps (captured as a graph of its own). A window refers to
+    no caller, so dropping it from its store frees its graphs and
+    buffers."""
+
+    def __init__(self, key: tuple, buffers, step, entry=None):
+        self.key = key
+        self.buffers = buffers
+        self.step = step
+        self.entry = entry
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.entry_graph: torch.cuda.CUDAGraph | None = None
+        self.launches: dict = {}
+        self.launch_vector: torch.Tensor | None = None
+
+    def capture(self) -> float:
+        """Capture the step (`capture_steps`), and the entry work; returns
+        the seconds it took. The buffers are left a warm-up step on: the
+        owner writes its state into them next. ``launches`` is what a
+        replay of the step launches, and ``launch_vector`` the same on the
+        device (`kernels.add_launches_later`)."""
+        torch.cuda.synchronize(self.buffers.device)
+        t0 = time.perf_counter()
+        if self.entry is not None:
+            self.entry_graph, _ = capture_steps(self.buffers, self.entry)
+        self.graph, self.launches = capture_steps(self.buffers, self.step)
+        self.launch_vector = kernels.launch_vector(self.launches, self.buffers.device)
+        return time.perf_counter() - t0
+
+    def run(self, k: int, read=None) -> None:
+        """The entry work, then k guarded steps: replays of the graphs, or
+        on the CPU the same functions run eagerly, deciding on the host
+        (``read`` moves a device predicate to the host)."""
+        if self.graph is not None:
+            if self.entry_graph is not None:
+                self.entry_graph.replay()
+            for _ in range(k):
+                self.graph.replay()
+            return
+        decider = HostDecider(read)
+        if self.entry is not None:
+            self.entry(self.buffers, decider=decider)
+        for _ in range(k):
+            self.step(self.buffers, decider=decider)
+
+
+class WindowStore:
+    """The captured windows of one functional face, the counterpart of a
+    jitted function's executable cache: the ``SLOTS`` most recently used
+    windows by key (a service's callable keeps one a batch size). A new
+    window first frees the least recently used one that it would push out.
+    ``builds``, ``captures`` and ``setup_seconds`` count the windows built,
+    captured, and the seconds their capture took; ``last`` is the window of
+    the last call."""
+
+    SLOTS = 4
+
+    def __init__(self):
+        self.store: OrderedDict[tuple, Window] = OrderedDict()
+        self.builds = 0
+        self.captures = 0
+        self.setup_seconds = 0.0
+        self.last: Window | None = None
+
+    def window(self, key: tuple, build) -> Window:
+        """The window of ``key``: the store's, or ``build()``'s, captured on
+        a CUDA device. A failed capture raises; nothing falls back to an
+        eager loop."""
+        w = self.store.get(key)
+        if w is None:
+            while len(self.store) >= self.SLOTS:
+                self.discard(next(iter(self.store.values())))
+            w = build()
+            self.builds += 1
+            if w.buffers.device.type == "cuda":
+                self.setup_seconds += w.capture()
+                self.captures += 1
+            self.store[key] = w
+        else:
+            self.store.move_to_end(key)
+        self.last = w
+        return w
+
+    def discard(self, window: Window | None) -> None:
+        """Drop ``window`` from the store, freeing its graphs and buffers."""
+        if window is not None and self.store.get(window.key) is window:
+            del self.store[window.key]
+        if self.last is window:
+            self.last = None
+
+    def clear(self) -> None:
+        self.store.clear()
+        self.last = None
 
 
 def parse_bundle(host: np.ndarray, names: tuple[str, ...], k: int, step0: int) -> dict:
@@ -1059,7 +1173,7 @@ class Simulation:
         if self._window is None:
             self.state, self.policy_state = state, pstate
             return
-        buf = self._window["buffers"]
+        buf = self._window.buffers
         buf.store(state)
         _copy_tree(buf.pstate, pstate)
         self._state = buf.state(state.step)
@@ -1147,7 +1261,7 @@ class Simulation:
 
     # -- the windowed driver ------------------------------------------------
 
-    def _window_for(self, with_energies: bool, n_diag: int) -> dict:
+    def _window_for(self, with_energies: bool, n_diag: int) -> Window:
         """The window's buffers and, on CUDA with ``use_graphs``, its
         captured step; made anew when the configuration, the diagnostics,
         the sentinel or the state's shapes change. A driver with a fault
@@ -1156,55 +1270,42 @@ class Simulation:
         names = ("n_moved", "n_alive") + (("field_energy", "kinetic_energy") if with_energies else ())
         with_fault = self.fault_injector is not None
         key = (self.config, self.policy, names, n_diag, self.use_graphs, self._health, with_fault)
-        if self._window is not None and self._window["key"] == key:
+        if self._window is not None and self._window.key == key:
             return self._window
         buf = _WindowBuffers(self._state, self._policy_state, names, n_diag)
-        w = {"key": key, "buffers": buf, "graph": None, "launches": {}}
         # (no closure over the driver: the window must not keep it alive)
-        step = functools.partial(_window_step, config=self.config, policy=self.policy, with_energies=with_energies,
-                                 health=self._health, with_fault=with_fault)
+        w = Window(key, buf, functools.partial(_window_step, config=self.config, policy=self.policy,
+                                               with_energies=with_energies, health=self._health,
+                                               with_fault=with_fault))
         if self.use_graphs:
-            self._capture(w, step)
-        w["step"] = step
+            self.graph_setup_seconds += w.capture()
+            self.graph_captures += 1
+            # the capture's warm-up step ran on the buffers: the state back in
+            buf.store(self._state)
+            _copy_tree(buf.pstate, self._policy_state)
         self._window = w
         self._state, self._policy_state = buf.state(self._state.step), buf.pstate
         return w
-
-    def _capture(self, w: dict, step) -> None:
-        """Capture one guarded step of ``w``'s buffers as a CUDA graph
-        (`capture_steps`)."""
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        w["graph"], (w["launches"],) = capture_steps([w["buffers"]], step)
-        self.graph_captures += 1
-        self.graph_setup_seconds += time.perf_counter() - t0
 
     def _run_window(self, k: int, *, with_energies: bool, n_diag: int, fault_vec=None) -> dict:
         """Up to k <= n_diag steps; stops after a step that halts. Returns
         the window's host bundle (one read)."""
         w = self._window_for(with_energies, n_diag)
-        buf = w["buffers"]
+        buf = w.buffers
         buf.reset_counters()
         step0 = self._state.step
-        if self.fault_injector is not None:
-            buf.enter(step0, fault_vec)
+        buf.enter(step0, fault_vec, k)
         if self._health is not None:
             # the sentinel's references, from the state the window starts at
             fe, ke = _energies(self._state, self.config)
             buf.ref_charge.copy_(_total_charge(self._state))
             buf.ref_energy.copy_(fe + ke)
-        if w["graph"] is not None:
-            for _ in range(k):
-                w["graph"].replay()
-        else:
-            decider = HostDecider(self._read)
-            for _ in range(k):
-                w["step"](buf, decider=decider)
+        w.run(k, self._read)
         self.windows += 1
         # the window's one bundle read
         host = parse_bundle(self._read(buf.bundle(k)).numpy(), buf.names, k, step0)
-        if w["graph"] is not None:
-            kernels.add_launches(w["launches"], host["n_done"])
+        if w.graph is not None:
+            kernels.add_launches(w.launches, host["n_done"])
         self._state = buf.state(step0 + host["n_done"])
         return host
 
@@ -1280,13 +1381,7 @@ class Simulation:
         growth, a checkpoint restore. A timing runs on a slab at the state's
         mean occupancy, read here once (a set-up read, like the timing's
         own, outside `host_reads`)."""
-        if self.config.backend != "auto":
-            return
-        p = self.state.particles
-        fill = -(-int(torch.count_nonzero(p.alive)) // self.config.grid.n_cells)
-        dispatch.prewarm(dispatch.ops_for_modes(self.config.deposition, self.config.gather), device=self.device,
-                         order=self.config.order, grid_shape=self.config.grid.shape,
-                         capacity=self.config.capacity, dtype=p.pos.dtype, fill=fill)
+        prewarm_dispatch(self.config, self.state.particles)
 
     # -- capacity growth ----------------------------------------------------
 
@@ -1330,3 +1425,263 @@ class Simulation:
             "total_energy": em + kinetic,
             "n_alive": int(host[2]),
         }
+
+
+def prewarm_dispatch(config: PICConfig, particles: ParticleState, *, batch: int = 1) -> None:
+    """Resolve ``config``'s ``auto`` dispatch keys eagerly (timed and cached
+    on first sight), so that a captured step finds the winner in the memo;
+    at ``batch`` = the member count for an ensemble bucket's step, whose
+    ``particles`` carry the member axis. A timing runs on a slab at the
+    particles' mean occupancy, read here once (a set-up read)."""
+    if config.backend != "auto":
+        return
+    fill = -(-int(torch.count_nonzero(particles.alive)) // (batch * config.grid.n_cells))
+    dispatch.prewarm(dispatch.ops_for_modes(config.deposition, config.gather), device=particles.pos.device,
+                     order=config.order, grid_shape=config.grid.shape, capacity=config.capacity,
+                     dtype=particles.pos.dtype, fill=fill, batch=batch)
+
+
+# -- the functional faces -----------------------------------------------------------
+
+#: the per-step rows of a functional window's bundle, the reference's
+#: ``per_step`` keys
+PER_STEP_NAMES = ("active", "sorted", "reason", "n_moved", "n_alive", "field_energy", "kinetic_energy")
+
+
+def _shapes(trees: list) -> tuple:
+    return tuple((f.name, tuple(getattr(t, f.name).shape), getattr(t, f.name).dtype)
+                 for t in trees for f in dataclasses.fields(t))
+
+
+def _on_device(value) -> bool:
+    return isinstance(value, torch.Tensor) and value.device.type != "cpu"
+
+
+def enter_entry(buf, columns: dict) -> None:
+    """Write a functional window's entry vector: ``columns`` maps a column
+    (an index or a slice of ``buf.entry``'s last axis) to its value. Host
+    values (ints, numpy arrays, CPU tensors) go in one asynchronous copy;
+    CUDA tensors are copied on the device after it, so nothing is read
+    back."""
+    host = buf.entry.new_zeros(buf.entry.shape, device="cpu")
+    host[..., 1:4] = torch.tensor([FAULT_NONE, -1, 0])
+    later = []
+    for col, value in columns.items():
+        if value is None:
+            continue
+        if _on_device(value):
+            later.append((col, value))
+        else:
+            host[..., col] = torch.as_tensor(np.asarray(value), dtype=torch.int64)
+    buf._write_entry(host)
+    for col, value in later:
+        buf.entry[..., col].copy_(value)
+
+
+def window_bundle(buf: _WindowBuffers, n_steps: int, with_energies: bool, step_after: torch.Tensor) -> dict:
+    """A functional window's bundle, every leaf a fresh device tensor (a
+    member axis first on each, for a bucket): the reference's keys, its
+    halt code and halt step computed on the device. A halt without the
+    sentinel's code is an overflow; the per-step rows are zero past
+    ``n_done``."""
+    i32 = torch.int32
+    n_done = buf.n_done.to(i32)
+    code = torch.where(buf.halt_code != HALT_NONE, buf.halt_code, buf.halted.to(i32) * HALT_BIN_OVERFLOW)
+    active = torch.arange(n_steps, device=buf.device) < n_done[..., None]
+    table = torch.where(active[..., None, :], buf.diag, 0.0)
+
+    def row(name, dtype):
+        if name not in buf.names:
+            return torch.zeros(active.shape, dtype=dtype, device=buf.device)
+        return table[..., buf.names.index(name), :].to(dtype)
+
+    per_step = {"active": active}
+    for name, dtype in zip(PER_STEP_NAMES[1:], (torch.bool, i32, i32, i32, torch.float32, torch.float32)):
+        per_step[name] = row(name, dtype)
+    return {
+        "n_done": n_done,
+        "n_sorts": buf.sorts.to(i32),
+        "n_rebuilds": buf.rebuilds.to(i32),
+        "overflow_pending": code == HALT_BIN_OVERFLOW,
+        "halt_code": code,
+        "halt_step": torch.where(buf.halted, step_after, torch.full_like(step_after, -1)),
+        "halt_inv": buf.halt_inv.clone(),
+        "halt_measured": buf.halt_meas.clone(),
+        "halt_reference": buf.halt_ref.clone(),
+        "per_step": per_step,
+    }
+
+
+def bundle_to_host(bundle: dict, read=torch.Tensor.cpu) -> dict:
+    """A device bundle (a dict of tensors, nested one level) on the host as
+    numpy arrays of the same dtypes, in one read through ``read``."""
+    flat = [(k, v) for k, v in bundle.items() if k != "per_step"] + \
+        [(("per_step", k), v) for k, v in bundle.get("per_step", {}).items()]
+    packed = read(torch.cat([v.reshape(-1).to(torch.float64) for _, v in flat])).numpy()
+    out, at = {"per_step": {}}, 0
+    for k, v in flat:
+        part = packed[at:at + v.numel()].reshape(tuple(v.shape)).astype(str(v.dtype).removeprefix("torch."))
+        at += v.numel()
+        if isinstance(k, tuple):
+            out["per_step"][k[1]] = part
+        else:
+            out[k] = part
+    return out
+
+
+class WindowFn(WindowStore):
+    """A functional window: a callable with the signature of
+    `pic_run_window` (``members=False``) or `ensemble_run_window`
+    (``members=True``) and a store of captured windows of its own
+    (`WindowStore`), keyed by the static arguments (config, policy,
+    ``n_steps``, the per-step rows, the sentinel, whether a fault vector is
+    armed), the shapes of the state and its device.
+
+    On a CUDA device a window is one captured graph of the guarded step,
+    replayed ``n_steps`` times; on the CPU the same step runs eagerly,
+    deciding on the host. A call copies the caller's state into the
+    window's own buffers, runs, and hands the result back:
+
+    * with ``donate=False`` in fresh tensors, the caller's left as they
+      were;
+    * with ``donate=True`` in the caller's own tensors (the counterpart of
+      the reference's donated buffers), which come back.
+
+    Either way no later call writes a tensor it returned unless it is
+    passed back with ``donate=True``. The state's ``step`` (an int, a numpy
+    array a member, or a device tensor) and ``n_target`` may come from the
+    device: a call on a window already built makes no device-to-host read
+    and captures nothing. The launches of a window's kernels are counted
+    when the counts are next read (`kernels.add_launches_later`).
+
+    Where the state passed in is the window's own buffers (an ensemble
+    bucket's, which holds them as its state, as `Simulation` holds its
+    window's), nothing is copied in, and with ``donate=True`` nothing out:
+    the window runs on them in place, which is a donation, so it is meant
+    with ``donate=True`` only."""
+
+    def __init__(self, *, members: bool = False, donate: bool = True):
+        super().__init__()
+        self.members = members
+        self.donate = donate
+
+    def __call__(self, state: PICState, policy_state: SortPolicyState, config: PICConfig, n_steps: int, *,
+                 policy: SortPolicyConfig | None = None, with_energies: bool = True, donate: bool | None = None,
+                 n_target=None, health: HealthConfig | None = None, fault_vec=None):
+        policy = policy or SortPolicyConfig()
+        donate = self.donate if donate is None else donate
+        n_steps = int(n_steps)
+        if n_steps <= 0:
+            raise ValueError(f"n_steps must be positive, got {n_steps}")
+        members = int(state.particles.pos.shape[0]) if self.members else None
+        if self.members and (health is not None or fault_vec is not None):
+            raise ValueError("ensemble_run_window runs without the health sentinel and fault injection: "
+                             f"health={health!r}, fault_vec={fault_vec!r} (the reference's ensemble driver passes "
+                             "neither)")
+        trees = _trees(state, policy_state)
+        names = ("sorted", "reason", "n_moved", "n_alive") + (("field_energy", "kinetic_energy")
+                                                              if with_energies else ())
+        with_fault = fault_vec is not None
+        key = (config, policy, n_steps, names, health, with_fault, members, str(state.particles.pos.device),
+               _shapes(trees))
+
+        def build() -> Window:
+            prewarm_dispatch(config, state.particles, batch=members or 1)
+            buf = _WindowBuffers(state, policy_state, names, n_steps, members=members)
+            return Window(key, buf, functools.partial(_window_step, config=config, policy=policy,
+                                                      with_energies=with_energies, health=health,
+                                                      with_fault=with_fault))
+
+        w = self.window(key, build)
+        buf = w.buffers
+        for dst, src in zip(_trees(buf.state(), buf.pstate), trees):
+            _copy_tree(dst, src)  # (nothing where src is the buffers)
+        buf.reset_counters()
+        enter_entry(buf, {0: state.step, slice(1, 4): fault_vec, 4: n_steps if n_target is None else n_target})
+        if health is not None:
+            # the sentinel's references, from the state the window starts at
+            fe, ke = _energies(buf.state(), config)
+            buf.ref_charge.copy_(_total_charge(buf.state()))
+            buf.ref_energy.copy_(fe + ke)
+        w.run(n_steps)
+        step_after = (buf.step0 + buf.n_done).to(torch.int32)
+        bundle = window_bundle(buf, n_steps, with_energies, step_after)
+        if w.graph is not None:
+            # the step ran while some member was active: max_i n_done_i times
+            kernels.add_launches_later(w.launch_vector, buf.n_done if members is None else buf.n_done.max())
+        if donate:
+            for dst, src in zip(trees, _trees(buf.state(), buf.pstate)):
+                _copy_tree(dst, src)
+            return dataclasses.replace(state, step=step_after), policy_state, bundle
+        out = PICState(fields=_clone_tree(buf.fields), particles=_clone_tree(buf.particles),
+                       layout=_clone_tree(buf.layout), step=step_after,
+                       slab=None if buf.slab is None else _clone_tree(buf.slab))
+        return out, _clone_tree(buf.pstate), bundle
+
+
+class _SharedWindowFn(WindowFn):
+    """The store behind `pic_run_window` and `ensemble_run_window`: only
+    the window of the latest call, so that a window (its buffers a clone of
+    a whole state, its graph's pool) does not outlive the next call with
+    other shapes or statics. `clear_windows` frees it."""
+
+    SLOTS = 1
+
+
+_PIC_WINDOWS = _SharedWindowFn()
+_ENSEMBLE_WINDOWS = _SharedWindowFn(members=True)
+
+
+def pic_run_window(state: PICState, policy_state: SortPolicyState, config: PICConfig, n_steps: int, *,
+                   policy: SortPolicyConfig | None = None, with_energies: bool = True, donate: bool = True,
+                   n_target=None, health: HealthConfig | None = None, fault_vec=None):
+    """Run a window of ``n_steps`` steps on the device: the step, the sort
+    mode's decision, the sentinel and the per-step diagnostics, with no
+    host read (`WindowFn`). Counterpart of `repro.pic.simulation.
+    pic_run_window`.
+
+    ``n_steps`` sets the window's length (and its captured graph); steps
+    from ``n_target`` on (an int, a 0-d tensor, None for ``n_steps``), and
+    after a step that halts, do nothing. ``health`` runs the sentinel
+    against references taken at entry; ``fault_vec`` (kind, step,
+    component) arms the chaos harness's injection at the absolute step
+    ``state.step + i``. ``donate=False`` leaves the input tensors as they
+    were.
+
+    Returns ``(state, policy_state, bundle)``, all on the device: the
+    state's ``step`` a 0-d int32 tensor; the bundle with ``n_done``,
+    ``n_sorts``, ``n_rebuilds``, ``overflow_pending``, ``halt_code``,
+    ``halt_step``, ``halt_inv``, ``halt_measured``, ``halt_reference`` and
+    ``per_step``, (n_steps,) rows of `PER_STEP_NAMES` (the energies zero
+    without ``with_energies``). `bundle_to_host` reads it in one read. A
+    halt on an overflow asks the host to grow the capacity and re-enter."""
+    return _PIC_WINDOWS(state, policy_state, config, n_steps, policy=policy, with_energies=with_energies,
+                        donate=donate, n_target=n_target, health=health, fault_vec=fault_vec)
+
+
+def ensemble_run_window(state: PICState, policy_state: SortPolicyState, config: PICConfig, n_steps: int, *,
+                        policy: SortPolicyConfig | None = None, with_energies: bool = True, donate: bool = True,
+                        n_target=None, health: HealthConfig | None = None, fault_vec=None):
+    """`pic_run_window` for every member of a stacked ensemble state
+    (`pic.ensemble.stack_trees`): one step over the member axis, each
+    kernel launched once for every member, each member kept only while it
+    is active. ``n_target`` gives each member's step count (``[B]``; None
+    runs every member ``n_steps``); a member with target 0 comes back
+    bit-unchanged. Every bundle leaf carries the member axis: ``halt_code``
+    is ``[B]``, the ``per_step`` rows ``(B, n_steps)``. The dispatcher's
+    keys are resolved at ``batch`` = B before the first capture (the port's
+    `PICConfig` has no ``dispatch_batch``: B is the leading axis). The
+    sentinel and the fault hook are refused, as the reference's ensemble
+    driver passes neither. Counterpart of `repro.pic.simulation.
+    ensemble_run_window`."""
+    return _ENSEMBLE_WINDOWS(state, policy_state, config, n_steps, policy=policy, with_energies=with_energies,
+                             donate=donate, n_target=n_target, health=health, fault_vec=fault_vec)
+
+
+def clear_windows() -> None:
+    """Free the windows `pic_run_window` and `ensemble_run_window` keep
+    (each the latest call's): their buffers and captured graphs. Call it
+    between runs of different configurations, so that one run's memory
+    reading holds nothing of another's."""
+    _PIC_WINDOWS.clear()
+    _ENSEMBLE_WINDOWS.clear()

@@ -11,7 +11,11 @@ histories and counters, and the port runs the same inputs on the CPU.
 The subprocess also moves a 2x2 run across the packages: the reference
 saves a checkpoint at step 10 and runs 10 more steps, and continues for 10
 steps from a checkpoint the port wrote at its own step 10; the port does
-the same from the other side.
+the same from the other side. And it runs the reference's functional
+builders: 3 steps of `make_dist_step` on 2x2 from tests/dist_pic_check.py's
+set-up, one `make_dist_sort` of their result, and one `make_dist_window`
+window of 8 steps with ``n_target`` 5 on 4x2; the port's builders take the
+same numpy inputs.
 
 Tolerances: slots, particle slots, ``alive``, weights, slab validity, halt
 codes and steps, growths, sort decisions and reasons, and every per-step
@@ -46,6 +50,10 @@ CASES = {
 EXACT_ROWS = ("active", "sorted", "reason", "n_moved", "n_alive", "mig_send_overflow", "mig_recv_dropped",
               "n_unmigrated", "n_migrated", "mig_payload_bytes", "max_shard_alive", "discarded")
 STATE_KEYS = ("pos", "u", "w", "alive", "slots", "pslot", "slab_d", "slab_valid")
+# the functional builders' flat arguments (tests/dist_pic_check.py's order)
+BUILDER_KEYS = ("fields",) + STATE_KEYS
+SORT_KEYS = STATE_KEYS + ("overflow",)
+WINDOW_POLICY = dict(sort_interval=3, min_sort_interval=2, sort_trigger_perf_enable=False)
 CKPT_SPEC = dict(grid=(8, 8, 8), u_thermal=0.05, mesh=(2, 2), steps=20, window=WINDOW, diagnostics_every=10)
 REPO = Path(__file__).resolve().parents[1]
 
@@ -125,9 +133,70 @@ def _reference_main(out_dir: str) -> None:
     sim.run(10)
     arrays.update({f"ref_from_port/{k}": v for k, v in _ref_state(sim).items()})
     meta["ref_from_port"] = _ref_scalars(sim)
+    _reference_builders(arrays, meta)
     np.savez(os.path.join(out_dir, "ref.npz"), **arrays)
     with open(os.path.join(out_dir, "ref.json"), "w") as f:
         json.dump(meta, f)
+
+
+def _reference_builders(arrays: dict, meta: dict) -> None:
+    """The reference's functional builders: tests/dist_pic_check.py's
+    set-up, 3 steps of `make_dist_step` on 2x2 and one `make_dist_sort` of
+    their result; one `make_dist_window` window of 8 steps with ``n_target``
+    5 on 4x2. Inputs and outputs go to ``arrays`` under ``builders/``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np_
+
+    from repro.compat import set_mesh_compat
+    from repro.core import SortPolicyConfig, policy_init
+    from repro.distributed.fault import no_fault_vec
+    from repro.pic import GridSpec, uniform_plasma
+    from repro.pic.dist_simulation import make_dist_window, make_pic_mesh
+    from repro.pic.distributed import DistConfig, build_local_bins, make_dist_sort, make_dist_step, \
+        partition_particles
+
+    grid = GridSpec(shape=(8, 8, 8))
+    parts = uniform_plasma(jax.random.PRNGKey(0), grid, ppc_each_dim=(2, 2, 2), density=1.0, u_thermal=0.05)
+    put = lambda prefix, names, values: arrays.update({f"builders/{prefix}.{n}": np_.asarray(v)
+                                                       for n, v in zip(names, values)})
+    # make_dist_step and make_dist_sort on 2x2 (tests/dist_pic_check.py)
+    mesh = jax.sharding.Mesh(np_.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    local = GridSpec(shape=(4, 4, 8))
+    cfg = DistConfig(local_grid=local, dt=0.2, order=1, capacity=32, mig_cap=128)
+    pos, u, w, alive = partition_particles(parts, grid, 2, 2, n_local=2048)
+    slots, pslot, slab_d, slab_valid, _overflow = build_local_bins(pos, alive, local, capacity=32)
+    fields = tuple(jnp.zeros(grid.shape, jnp.float32) for _ in range(6))
+    state = (fields, pos, u, w, alive, slots, pslot, slab_d, slab_valid)
+    put("step_in", BUILDER_KEYS[1:], state[1:])
+    step = make_dist_step(mesh, cfg)
+    with set_mesh_compat(mesh):
+        for _ in range(3):
+            *state, stats = step(*state)
+        put("step_out", BUILDER_KEYS[1:], state[1:])
+        put("step_out", FIELDS, state[0])
+        put("step_stats", tuple(stats), tuple(stats.values()))
+        put("sort_out", SORT_KEYS, make_dist_sort(mesh, cfg)(*state[1:5]))
+    # make_dist_window on 4x2: the uniform order-2 case's set-up
+    _, order, dt, capacity, gshape, lshape = CASES["uniform2"]
+    mesh = make_pic_mesh(*MESH)
+    cfg = DistConfig(local_grid=GridSpec(shape=lshape), dt=dt, order=order, capacity=capacity, mig_cap=512)
+    pos, u, w, alive = partition_particles(parts, grid, *MESH, n_local=768)
+    slots, pslot, slab_d, slab_valid, _overflow = build_local_bins(pos, alive, cfg.local_grid, capacity=capacity)
+    state = (pos, u, w, alive, slots, pslot, slab_d, slab_valid, jnp.zeros_like(pos), jnp.zeros_like(u))
+    put("win_in", BUILDER_KEYS[1:] + ("mid_pos", "mid_u"), state)
+    fn = make_dist_window(mesh, cfg, SortPolicyConfig(**WINDOW_POLICY), 8)
+    with set_mesh_compat(mesh):
+        *out, bundle = fn(fields, *state, policy_init(), jnp.int32(5), jnp.int32(0), jnp.int32(0), jnp.int32(0),
+                          jnp.int32(1), no_fault_vec())
+    bundle = jax.device_get(bundle)
+    put("win_out", FIELDS, out[0])
+    put("win_out", BUILDER_KEYS[1:] + ("mid_pos", "mid_u"), out[1:11])
+    put("win_out.policy", ("steps_since_sort", "rebuilds_since_sort", "baseline_proxy", "proxy_ema"),
+        (out[11].steps_since_sort, out[11].rebuilds_since_sort, out[11].baseline_proxy, out[11].proxy_ema))
+    put("win_rows", tuple(bundle["per_step"]), tuple(bundle["per_step"].values()))
+    meta["builders_window"] = {k: (int(v) if np_.ndim(v) == 0 and k not in ("halt_measured", "halt_reference")
+                                   else float(v)) for k, v in bundle.items() if k != "per_step"}
 
 
 # -- the port -------------------------------------------------------------------------------
@@ -259,6 +328,82 @@ def test_port_checkpoint_continues_in_reference(ref):
     port = ref["port_cont"]
     _assert_scalars(port, ref["meta"]["ref_from_port"])
     _assert_state(_port_state(port), ref["arrays"], "ref_from_port")
+
+
+def _builder_arrays(a: dict, prefix: str, keys) -> list:
+    import torch
+
+    return [torch.from_numpy(a[f"builders/{prefix}.{k}"].copy()) for k in keys]
+
+
+def _assert_builder_state(got: dict, a: dict, prefix: str) -> None:
+    """A builder's outputs against the reference's: ints exact, floats at
+    the windowed drivers' tolerance."""
+    for k, v in got.items():
+        want = a[f"builders/{prefix}.{k}"]
+        if v.dtype.is_floating_point:
+            atol = 1e-6 if k in FIELDS else 2e-5
+            np.testing.assert_allclose(v.numpy(), want, rtol=2e-5, atol=atol, err_msg=k)
+        else:
+            np.testing.assert_array_equal(v.numpy(), want, err_msg=k)
+
+
+def test_dist_step_and_sort_builders_match_reference(ref):
+    """tests/dist_pic_check.py's set-up on 2x2: 3 steps of `make_dist_step`
+    (state and the last step's statistics), then `make_dist_sort` of the
+    reference's result."""
+    import torch
+
+    from repro_torch.pic import DistConfig, GridSpec
+    from repro_torch.pic.distributed import make_dist_sort, make_dist_step
+
+    a = ref["arrays"]
+    cfg = DistConfig(local_grid=GridSpec(shape=(4, 4, 8)), dt=0.2, order=1, capacity=32, mig_cap=128,
+                     backend="torch")
+    state = (tuple(torch.zeros(8, 8, 8) for _ in range(6)), *_builder_arrays(a, "step_in", STATE_KEYS))
+    step = make_dist_step((2, 2), cfg)
+    for _ in range(3):
+        *state, stats = step(*state)
+    _assert_builder_state({**dict(zip(FIELDS, state[0])), **dict(zip(STATE_KEYS, state[1:]))}, a, "step_out")
+    for k, v in stats.items():
+        assert int(v) == int(a[f"builders/step_stats.{k}"]), k
+    assert int(stats["n_alive"]) == 8 ** 3 * 8 and int(stats["mig_recv_dropped"]) == 0
+    sorted_ = make_dist_sort((2, 2), cfg)(*_builder_arrays(a, "step_out", STATE_KEYS[:4]))
+    _assert_builder_state(dict(zip(SORT_KEYS, sorted_)), a, "sort_out")
+
+
+def test_dist_window_builder_matches_reference(ref):
+    """One `make_dist_window` window of 8 steps with ``n_target`` 5 on 4x2
+    (the uniform order-2 case): the state, the policy state, the bundle's
+    counters and every per-step row against the reference's."""
+    import torch
+
+    from repro_torch.core import SortPolicyConfig, policy_init
+    from repro_torch.pic import DistConfig, GridSpec
+    from repro_torch.pic.dist_simulation import make_dist_window
+    from repro_torch.pic.simulation import bundle_to_host
+
+    a = ref["arrays"]
+    _, order, dt, capacity, _, lshape = CASES["uniform2"]
+    cfg = DistConfig(local_grid=GridSpec(shape=lshape), dt=dt, order=order, capacity=capacity, mig_cap=512,
+                     backend="torch")
+    keys = STATE_KEYS + ("mid_pos", "mid_u")
+    fn = make_dist_window(MESH, cfg, SortPolicyConfig(**WINDOW_POLICY), 8)
+    *out, bundle = fn(tuple(torch.zeros(8, 8, 8) for _ in range(6)), *_builder_arrays(a, "win_in", keys),
+                      policy_init(), 5, 0, 0, 0, 1, None)
+    _assert_builder_state({**dict(zip(FIELDS, out[0])), **dict(zip(keys, out[1:11]))}, a, "win_out")
+    for f in ("steps_since_sort", "rebuilds_since_sort", "baseline_proxy", "proxy_ema"):
+        np.testing.assert_array_equal(getattr(out[11], f).numpy(), a[f"builders/win_out.policy.{f}"], err_msg=f)
+    host = bundle_to_host(bundle)
+    want = ref["meta"]["builders_window"]
+    assert set(host) - {"per_step"} == set(want)
+    for k, v in want.items():
+        assert float(host[k]) == pytest.approx(v, rel=2e-5, abs=0), k
+    assert host["n_done"] == 5 and host["n_sorts"] >= 1
+    for k in EXACT_ROWS:
+        np.testing.assert_array_equal(host["per_step"][k], a[f"builders/win_rows.{k}"], err_msg=k)
+    for k in ("field_energy", "kinetic_energy"):
+        np.testing.assert_allclose(host["per_step"][k], a[f"builders/win_rows.{k}"], rtol=2e-5, err_msg=k)
 
 
 if __name__ == "__main__":

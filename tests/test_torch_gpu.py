@@ -31,7 +31,9 @@ an uninterrupted one, exact; the sentinel on against off, and a run that
 rolled back from an injected fault against the clean run, exact; an
 ensemble's members against their solo runs, exact (each kernel's launch
 over the bucket gives each member its solo bits), a mild sibling re-binned
-at a grown capacity included.
+at a grown capacity included; the functional windows (`pic_run_window`,
+`make_dist_window`) against the drivers' windows, exact, with no capture
+and no host read on a second call.
 
 Where a test holds an ``auto`` run's launch counts, it holds them to the
 backends the dispatcher's autotune resolved (into a cache file of the
@@ -263,6 +265,75 @@ def test_captured_window_matches_eager_window(cuda):
             assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f"{part}.{f.name}"
     for f in dataclasses.fields(g.policy_state):
         assert torch.equal(getattr(g.policy_state, f.name), getattr(e.policy_state, f.name)), f.name
+
+
+@pytest.mark.gpu
+def test_functional_windows_capture_once_and_read_nothing(cuda):
+    """`pic_run_window` and `make_dist_window` on the card: the first call
+    captures, a second with the same shapes captures nothing and reads
+    nothing back (the sync debug mode raises on a read), the inputs stay as
+    they were with ``donate=False``, and the result is bit-equal to the
+    drivers' windows; a device ``n_target`` stops the window there. The
+    launches counted on the device stay one pending tensor however many
+    calls there are."""
+    from repro_torch.pic import pic_run_window
+    from repro_torch.pic import simulation as tsim
+    from repro_torch.pic.dist_simulation import make_dist_window
+
+    policy = SortPolicyConfig(sort_interval=4, min_sort_interval=2)
+    spec = scenario("uniform", grid=(6, 6, 6), order=2, u_thermal=0.1, backend="cuda_reduced", policy=policy)
+    sim = make_simulation(spec)
+    state, pstate = sim.state, sim.policy_state
+    kept = [t.clone() for t in (state.particles.pos, state.fields.ex, state.layout.slots)]
+    captures = tsim._PIC_WINDOWS.captures
+    outs = []
+    for strict in (False, True, True):
+        target = torch.full((), 3 if len(outs) == 2 else 10, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if strict else 0)
+        try:
+            outs.append(pic_run_window(state, pstate, sim.config, 10, policy=sim.policy, donate=False,
+                                       n_target=target))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert tsim._PIC_WINDOWS.captures == captures + 1
+    for _ in range(20):
+        pic_run_window(state, pstate, sim.config, 10, policy=sim.policy, donate=False, n_target=target)
+    assert len(kernels._PENDING) == 1 and next(iter(kernels._PENDING.values())).numel() == len(kernels._NAMES)
+    assert all(torch.equal(a, b) for a, b in zip(kept, (state.particles.pos, state.fields.ex, state.layout.slots)))
+    assert [int(o[2]["n_done"]) for o in outs] == [10, 10, 3]
+    sim.run(10, window=10)
+    assert sim.sorts >= 1 and int(outs[1][2]["n_sorts"]) == sim.sorts
+    for part in ("fields", "particles", "layout", "slab"):
+        a, b = getattr(outs[1][0], part), getattr(sim.state, part)
+        for f in dataclasses.fields(a):
+            assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f"{part}.{f.name}"
+    tsim.clear_windows()
+
+    dspec = scenario("uniform", grid=(8, 8, 8), order=1, mesh="2x2", backend="cuda_reduced", policy=policy)
+    dsim = make_simulation(dspec)
+    keys = ("fields", "pos", "u", "w", "alive", "slots", "pslot", "slab_d", "slab_valid", "mid_pos", "mid_u")
+    st = dsim.state
+    win = make_dist_window((2, 2), dsim.config, dsim.policy, 8)
+    douts = []
+    for strict in (False, True):
+        # the window takes its inputs donated: each call is given copies
+        mine = [tuple(f.clone() for f in st[k]) if k == "fields" else st[k].clone() for k in keys]
+        pmine = tsim._clone_tree(dsim.policy_state)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if strict else 0)
+        try:
+            douts.append(win(*mine, pmine, 8, 0, 0, 0, 1, None))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert win.captures == 1 and win.builds == 1
+    dsim.run(8, window=8)
+    for k, a, b in zip(keys, douts[1][:11], douts[0][:11]):
+        want = dsim.state[k]
+        if k == "fields":
+            assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, want))
+        else:
+            assert torch.equal(a, want) and torch.equal(b, want), k
 
 
 @pytest.mark.gpu
