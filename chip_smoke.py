@@ -230,7 +230,23 @@ Phases, in order; any failure exits non-zero:
    steps, twice (the second under the sync debug mode, no capture),
    bit-equal to a `DistSimulation` window, and 4 steps of `make_dist_step`
    bit-equal to `DistSimulation.run(4, window=None)`. The card's name and
-   power limit are printed beside each time.
+   power limit are printed beside each time;
+24. the distributed driver over ranks, one process a rank: (a) an NCCL
+   group of one rank, joined through a ``FileStore`` under build/
+   (`make_pic_mesh` over it is the one-process stack), and a `RankGrid`
+   built on it, which runs every reduction as a real NCCL all-gather, in
+   the captured window's IF bodies too (the ring shifts stay local rolls,
+   one rank an axis): phase 19's main cell (4x2 at 128^3, order 3, 2^3 a
+   cell, phase 19's window of 16 and its 16 timed steps) through
+   `make_simulation(spec, mesh=...)`, the all-gathers counted as issued
+   eagerly and into the capture, bit-equal to phase 19's run (SHA-256 of
+   every state tensor of the global view, the policy state, the counters
+   and the history), its ms/step beside phase 19's, one capture, 1.00
+   host read a window, the resolved fused kernels launched once a shard a
+   step; (b) where two or
+   more cards are visible, ``min(count, 4)`` spawned ranks, one card each,
+   on the same cell, bit-equal to (a), with ms/step and the peak GB of
+   each card; with one card a line says that (b) did not run.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -1190,10 +1206,11 @@ def exchange_times(torch, sim, gen) -> str:
                         for name in ("halo", "fold", "maxwell")))
 
 
-def dist_phase(torch, np, kernels, dispatch, dev, main_final=None) -> None:
+def dist_phase(torch, np, kernels, dispatch, dev, main_final=None) -> dict:
     """Phase 19: the distributed driver on the card (see the module
     docstring). ``main_final``: phase 4's final state, which this phase's
-    single-device run must repeat bit for bit."""
+    single-device run must repeat bit for bit. Returns the main cell's
+    digests (`dist_digests`) and ms/step, for phase 24."""
     import dataclasses
     import shutil
 
@@ -1212,19 +1229,12 @@ def dist_phase(torch, np, kernels, dispatch, dev, main_final=None) -> None:
     # (a) the main cell on a 4x2 mesh: 8 shards of 32x64x128 on the card
     t0 = time.perf_counter()
     sx, sy = DIST_MESH
-    nx_loc, ny_loc = MAIN["grid"][0] // sx, MAIN["grid"][1] // sy
-    probe = scenario("uniform", **MAIN)
-    # the migration buffer from the face flux: a face's cells, ppc particles
-    # a cell, a step moving at most 4 (u_thermal + seed amplitude) dt of a cell
-    flux = probe.plasma.ppc * max(nx_loc, ny_loc) * MAIN["grid"][2] * min(
-        1.0, 4 * (probe.plasma.u_thermal + probe.plasma.perturb.amplitude) * probe.dt)
-    mig_cap = 1 << math.ceil(math.log2(max(flux, 256)))
     kernels.reset_launch_counts()
     dispatch.counters["plain_on_card"] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sim = make_simulation(scenario("uniform", **MAIN, mesh=f"{sx}x{sy}", mig_cap=mig_cap,
-                                   diagnostics_every=MAIN["window"]))
+    sim = make_simulation(dist_cell_spec(scenario, sx, sy))
+    mig_cap = sim.config.mig_cap
     if not isinstance(sim, DistSimulation):
         fail("make_simulation of a meshed spec did not build the distributed driver")
     chosen = dist_resolved(sim)
@@ -1264,6 +1274,7 @@ def dist_phase(torch, np, kernels, dispatch, dev, main_final=None) -> None:
     say(f"  {exchange_times(torch, sim, torch.Generator(device=dev).manual_seed(19))}")
     dist_history = list(sim.history)
     dist_fields = sim.fields_global().all()
+    p19 = {"digests": dist_digests(sim), "ms_step": ms_step}  # phase 24 holds the rank path to these
     del sim
     torch.cuda.empty_cache()
     single = make_simulation(scenario("uniform", **MAIN, diagnostics_every=MAIN["window"]))
@@ -1428,6 +1439,177 @@ def dist_phase(torch, np, kernels, dispatch, dev, main_final=None) -> None:
     torch.cuda.empty_cache()
     no_plain(dispatch, "dist chaos and checkpoints")
     say(f"phase 19f: {time.perf_counter() - t0:.1f} s")
+    return p19
+
+
+def dist_cell_spec(scenario, sx: int, sy: int):
+    """Phase 19's main cell on an ``sx x sy`` mesh: the migration buffer
+    from the face flux (a face's cells, ppc particles a cell, a step moving
+    at most 4 (u_thermal + seed amplitude) dt of a cell)."""
+    nx_loc, ny_loc = MAIN["grid"][0] // sx, MAIN["grid"][1] // sy
+    probe = scenario("uniform", **MAIN)
+    flux = probe.plasma.ppc * max(nx_loc, ny_loc) * MAIN["grid"][2] * min(
+        1.0, 4 * (probe.plasma.u_thermal + probe.plasma.perturb.amplitude) * probe.dt)
+    mig_cap = 1 << math.ceil(math.log2(max(flux, 256)))
+    return scenario("uniform", **MAIN, mesh=f"{sx}x{sy}", mig_cap=mig_cap, diagnostics_every=MAIN["window"])
+
+
+def dist_digests(sim) -> dict:
+    """SHA-256 of every tensor of a distributed driver's global view (over
+    ranks a collective), of its policy state, and its counters and history
+    as JSON: what two runs must share to be bit-equal."""
+    import dataclasses
+    import hashlib
+
+    sha = lambda t: hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+    st = sim.global_state()
+    out = {k: sha(v) for k, v in st.items() if k != "fields"}
+    out.update({f"fields[{i}]": sha(f) for i, f in enumerate(st["fields"])})
+    out.update({f"policy.{f.name}": sha(getattr(sim.policy_state, f.name))
+                for f in dataclasses.fields(sim.policy_state)})
+    out["counters"] = json.dumps([sim.sorts, sim.rebuilds, sim.growths, sim.history, sim.n_local,
+                                  sim.config.capacity, sim.config.mig_cap])
+    return out
+
+
+def run_dist_cell(torch, sim) -> dict:
+    """Phase 19's schedule: the first window (the capture and its warm-up
+    step), then the timed rest. Returns ms/step, captures and host reads a
+    window of the timed part."""
+    sim.run(MAIN["window"])
+    torch.cuda.synchronize()
+    reads0, windows0 = sim.host_reads, sim.windows
+    t0 = time.perf_counter()
+    sim.run(MAIN["steps"] - MAIN["window"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"ms_step": 1e3 * dt / (MAIN["steps"] - MAIN["window"]), "captures": sim.graph_captures,
+            "reads_w": (sim.host_reads - reads0) / max(sim.windows - windows0, 1)}
+
+
+def rank_cell(rank: int, world: int, store: str, out: str) -> None:
+    """Phase 24(b)'s rank: join the NCCL group of ``world`` ranks, one card
+    each, run the main cell on this rank's block, and write (rank 0) the
+    digests, the timings and every card's peak memory to ``out``."""
+    import torch
+
+    from repro_torch.api import make_simulation, scenario
+    from repro_torch.distributed.ranks import close_ranks, init_ranks
+    from repro_torch.pic.distributed import make_pic_mesh
+
+    import torch.distributed as dist
+
+    dev = init_ranks(rank, world, store)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = make_pic_mesh(*DIST_MESH, dist.group.WORLD)
+        sim = make_simulation(dist_cell_spec(scenario, *DIST_MESH), mesh=mesh)
+        res = run_dist_cell(torch, sim)
+        digests = dist_digests(sim)
+        peaks = mesh.ranks.values(torch.tensor(torch.cuda.max_memory_allocated(dev) / 1e9, device=dev))
+        if rank == 0:
+            res.update(digests=digests, peak_gb=[float(v) for v in peaks.cpu()], grid=[mesh.ranks.px, mesh.ranks.py])
+            Path(out).write_text(json.dumps(res))
+    finally:
+        close_ranks()
+
+
+def ranks_phase(torch, kernels, dispatch, dev, smi: str, p19: dict) -> None:
+    """Phase 24: the distributed driver over ranks (see the module
+    docstring). ``p19``: phase 19's digests and ms/step."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.api import make_simulation, scenario
+    from repro_torch.distributed.ranks import RankGrid, close_ranks, init_ranks
+    from repro_torch.pic.distributed import PicMesh, make_pic_mesh
+
+    # (a) one rank: an NCCL group of one, its collectives run for real
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_ranks_", dir=ROOT / "build")
+    gathers = {"eager": 0, "captured": 0}
+    all_gather = dist.all_gather_into_tensor
+
+    def counted(*args, **kw):
+        gathers["captured" if torch.cuda.is_current_stream_capturing() else "eager"] += 1
+        return all_gather(*args, **kw)
+
+    try:
+        init_ranks(0, 1, store)
+        if make_pic_mesh(*DIST_MESH, dist.group.WORLD).ranks is not None:
+            fail("ranks (a): make_pic_mesh over a group of one is not the one-process stack")
+        # a rank grid built on the group of one takes no short-cut: every
+        # reduction is an NCCL all-gather, inside the captured window's IF
+        # bodies too; the ring shifts stay local rolls (one rank an axis)
+        mesh = PicMesh(*DIST_MESH, RankGrid.of_group(*DIST_MESH, dist.group.WORLD))
+        spec = dist_cell_spec(scenario, *DIST_MESH)
+        kernels.reset_launch_counts()
+        dispatch.counters["plain_on_card"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.all_gather_into_tensor = counted
+        try:
+            sim = make_simulation(spec, mesh=mesh)
+            c = sim.config
+            chosen = dispatch.prewarm(dispatch.ops_for_modes(c.deposition, c.gather), device=sim.device,
+                                      order=c.order, grid_shape=c.local_grid.shape, capacity=c.capacity,
+                                      dtype=sim.shard_state.pos.dtype, requested=c.backend)
+            res = run_dist_cell(torch, sim)
+        finally:
+            dist.all_gather_into_tensor = all_gather
+        counts = {k: v for k, v in kernels.launch_counts().items() if v and k in FUSED}
+        sx, sy = DIST_MESH
+        want = {KERNEL_OF[kv]: sx * sy * (MAIN["steps"] + sim.graph_captures) for kv in chosen.items()
+                if kv in KERNEL_OF}
+        same = dist_digests(sim) == p19["digests"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        say(f"ranks (a) [{smi}]: NCCL group of 1 rank over a FileStore, a rank grid {mesh.ranks.px}x{mesh.ranks.py} "
+            f"built on it, main cell {MAIN['grid']} on {sx}x{sy}: {res['ms_step']:.2f} ms/step (phase 19, no rank "
+            f"grid: {p19['ms_step']:.2f}), NCCL all-gathers issued {gathers['eager']} eager and "
+            f"{gathers['captured']} into the captured window, captures {res['captures']}, host reads "
+            f"{res['reads_w']:.2f} a window, peak {peak_gb:.2f} GB, launches {counts} (want {want}), bit-equal to "
+            f"phase 19: {same}")
+        if not same or res["captures"] != 1 or res["reads_w"] != 1.0 or not gathers["captured"]:
+            fail(f"ranks (a): bit-equal {same}, {res['captures']} captures, {res['reads_w']} reads a window, "
+                 f"all-gathers {gathers}")
+        if len(chosen) != 2 or any(kv not in KERNEL_OF for kv in chosen.items()) or counts != want:
+            fail(f"ranks (a) did not launch the resolved kernels once a shard a step: {counts}, want {want}")
+        no_plain(dispatch, "ranks (a)")
+        want_digests = dist_digests(sim)
+        del sim
+        torch.cuda.empty_cache()
+    finally:
+        close_ranks()
+        shutil.rmtree(store, ignore_errors=True)
+    say(f"phase 24a: {time.perf_counter() - t0:.1f} s")
+
+    # (b) one card a rank
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        say(f"ranks (b): needs two or more cards, {n_cards} visible: did not run")
+        return
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    world = min(n_cards, 4)
+    store = tempfile.mkdtemp(prefix="chip_smoke_ranks_", dir=ROOT / "build")
+    out = Path(store) / "rank0.json"
+    try:
+        mp.start_processes(rank_cell, args=(world, store, str(out)), nprocs=world, start_method="spawn")
+        got = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    same = got["digests"] == want_digests
+    say(f"ranks (b) [{smi}]: {world} ranks, one card each (grid {got['grid'][0]}x{got['grid'][1]}, NCCL): "
+        f"{got['ms_step']:.2f} ms/step (a: {res['ms_step']:.2f}), captures {got['captures']} a rank, host reads "
+        f"{got['reads_w']:.2f} a window, peak GB per card {[round(v, 2) for v in got['peak_gb']]}, bit-equal to "
+        f"(a): {same}")
+    if not same or got["reads_w"] != 1.0:
+        fail(f"ranks (b): bit-equal {same}, {got['reads_w']} reads a window")
+    say(f"phase 24b: {time.perf_counter() - t0:.1f} s")
 
 
 def tree_equal(torch, a, b) -> bool:
@@ -3143,7 +3325,7 @@ def main() -> None:
 
     # -- 19. the distributed driver on the card ----------------------------------------------
     t0 = time.perf_counter()
-    dist_phase(torch, np, kernels, dispatch, dev, main_final)
+    p19 = dist_phase(torch, np, kernels, dispatch, dev, main_final)
     del main_final
     say(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
@@ -3168,6 +3350,11 @@ def main() -> None:
     functional_phase(torch, np, kernels, dispatch, dev, main, smi)
     no_plain(dispatch, "the functional faces")
     say(f"phase 23: {time.perf_counter() - t0:.1f} s")
+
+    # -- 24. the distributed driver over ranks --------------------------------------------------
+    t0 = time.perf_counter()
+    ranks_phase(torch, kernels, dispatch, dev, smi, p19)
+    say(f"phase 24: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

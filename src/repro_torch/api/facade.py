@@ -169,21 +169,48 @@ def dist_config(spec: SimSpec):
     )
 
 
+def _check_mesh(spec: SimSpec, mesh, device: torch.device) -> None:
+    """Refuse, by name, a mesh over ranks that ``spec`` cannot run: a spec
+    with no mesh or another one, more ranks than visible cards (one card a
+    rank; the reference's refusal of a mesh larger than its device count),
+    a rank grid that does not divide the spec's mesh."""
+    from repro_torch.distributed.ranks import check_rank_grid, check_rank_request
+
+    if spec.mesh.shape is None:
+        raise ValueError(f"spec {spec.name!r} names no mesh; ranks run the distributed driver (--mesh SXxSY)")
+    if tuple(mesh.shape) != tuple(spec.mesh.shape):
+        raise ValueError(f"the {mesh.sx}x{mesh.sy} mesh is not the spec's {spec.mesh.shape[0]}x{spec.mesh.shape[1]}")
+    if mesh.ranks is not None:
+        n_cards = torch.cuda.device_count() if device.type == "cuda" else None
+        check_rank_request(mesh.ranks.world, spec.mesh.shape, n_cards=n_cards)
+        check_rank_grid((mesh.ranks.px, mesh.ranks.py), *spec.mesh.shape)
+
+
 def make_simulation(spec: SimSpec, *, fields: FieldState | None = None,
-                    particles: ParticleState | None = None, device=None):
+                    particles: ParticleState | None = None, device=None, mesh=None):
     """Build the driver a spec describes, on ``device`` (default ``cuda``):
     `Simulation` for ``MeshSpec(None)``, `DistSimulation` (every shard on
-    that one device) for ``MeshSpec("SXxSY")``. ``fields``/``particles``
-    replace the spec-built initial conditions and move to the device."""
+    that one device) for ``MeshSpec("SXxSY")``; with ``mesh``, a `PicMesh`
+    of `repro_torch.pic.distributed.make_pic_mesh` over a process group,
+    each rank holds its block on its own device (`_check_mesh` refuses what
+    cannot run). ``fields``/``particles`` replace the spec-built initial
+    conditions and move to the device."""
     from repro_torch.pic.dist_simulation import DistSimulation
     from repro_torch.pic.simulation import Simulation
 
+    ranks = None if mesh is None else mesh.ranks
+    if ranks is not None:
+        if device is not None and torch.device(device).type != ranks.device.type:
+            raise ValueError(f"device {device} is not the ranks' ({ranks.device.type})")
+        device = ranks.device
     device = resolve_device(device)
+    if mesh is not None:
+        _check_mesh(spec, mesh, device)
     fields = build_fields(spec, device=device) if fields is None else FieldState(*(f.to(device) for f in fields.all()))
     particles = build_particles(spec, device=device) if particles is None else particles.to(device)
     if spec.mesh.shape is None:
         return Simulation(fields, particles, pic_config(spec), policy=spec.sort.policy, spec=spec)
-    return DistSimulation(fields, particles, dist_config(spec), mesh_shape=spec.mesh.shape,
+    return DistSimulation(fields, particles, dist_config(spec), mesh=mesh or spec.mesh.shape,
                           n_local=spec.mesh.n_local or None, policy=spec.sort.policy, spec=spec)
 
 

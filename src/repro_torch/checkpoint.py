@@ -23,6 +23,12 @@ It is written to a temporary directory and renamed into place, so a crash
 leaves the old checkpoint or the new one. A run moves between the two
 packages in mid-flight: a checkpoint that one writes, the other loads.
 
+A distributed driver over ranks saves collectively: every rank's block is
+gathered, rank 0 writes the global view in the format above (the one
+process's checkpoint of the same run, array for array), and every rank
+waits for the write. Every rank restores from the same directory and keeps
+its block.
+
 `SimCheckpointer` keeps a rolling set of step-stamped checkpoints for the
 supervisor's autosave (`Simulation.run(autosave_every=N)`), and
 `clean_stale_tmp` sweeps what killed writers left behind.
@@ -155,8 +161,9 @@ def _read_dir(path: str) -> tuple[dict, dict]:
 
 def _flatten_dist(sim) -> list[tuple[str, torch.Tensor]]:
     """(name, leaf) pairs of a `DistSimulation`, in the reference's order:
-    its state dict's keys sorted, the fields as six global grids."""
-    state = sim.state
+    its state dict's keys sorted, the fields as six global grids; over
+    ranks, the whole mesh's (a collective)."""
+    state = sim.global_state()
     out = [(_leaf(("policy_state", f.name)), getattr(sim.policy_state, f.name))
            for f in dataclasses.fields(SortPolicyState)]
     for key in sorted(state):
@@ -209,7 +216,16 @@ def save_simulation(sim, path: str) -> None:
         )
     meta = {"driver": "dist" if distributed else "single", "spec": None if sim.spec is None else sim.spec.to_dict(),
             "scalars": scalars}
-    _write_dir(path, [n for n, _ in pairs], [_host(leaf) for _, leaf in pairs], meta)
+    if _writes(sim):
+        _write_dir(path, [n for n, _ in pairs], [_host(leaf) for _, leaf in pairs], meta)
+    if distributed and sim.ranks is not None:
+        sim.ranks.barrier()  # no rank reads the directory before it is in place
+
+
+def _writes(sim) -> bool:
+    """Whether this process writes the driver's checkpoints (rank 0 of a
+    driver over ranks, any other driver)."""
+    return getattr(sim, "is_writer", True)
 
 
 def _shape_ok(name: str, saved: tuple, tmpl: tuple, distributed: bool = False) -> bool:
@@ -277,7 +293,7 @@ def _restore_dist(sim, arrays: dict, scal: dict) -> None:
     dtypes = {"alive": torch.bool, "slab_valid": torch.bool, "slots": torch.int32, "pslot": torch.int32}
     tree = {key: t(f"['state']/['{key}']", dtypes.get(key, torch.float32)) for key in sim.state if key != "fields"}
     tree["fields"] = [t(f"['state']/['fields']/[{i}]", torch.float32) for i in range(6)]
-    sim.state = tree
+    sim.set_global_state(tree)
     pt = lambda name, dtype: torch.as_tensor(np.array(arrays[_leaf(("policy_state", name))]), dtype=dtype, device=dev)
     sim.policy_state = SortPolicyState(
         steps_since_sort=pt("steps_since_sort", torch.int32), rebuilds_since_sort=pt("rebuilds_since_sort", torch.int32),
@@ -319,9 +335,10 @@ def restore_simulation(sim, path: str) -> None:
     sim._prewarm_dispatch()
 
 
-def load_simulation(path: str, device=None):
+def load_simulation(path: str, device=None, *, mesh=None):
     """Rebuild the driver a checkpoint describes from its embedded spec, on
-    ``device`` (default ``cuda``, as `make_simulation`), and restore it."""
+    ``device`` (default ``cuda``, as `make_simulation`; over the ranks of
+    ``mesh``, a `PicMesh`, on each rank's), and restore it."""
     from repro_torch.api.facade import make_simulation
     from repro_torch.api.spec import SimSpec
 
@@ -329,7 +346,7 @@ def load_simulation(path: str, device=None):
     if meta.get("spec") is None:
         raise ValueError("checkpoint has no embedded SimSpec; build the driver yourself and call "
                          "restore_simulation(sim, path)")
-    sim = make_simulation(SimSpec.from_dict(meta["spec"]), device=device)
+    sim = make_simulation(SimSpec.from_dict(meta["spec"]), device=device, mesh=mesh)
     restore_simulation(sim, path)
     return sim
 
@@ -511,8 +528,9 @@ class SimCheckpointer:
             return False
         save_simulation(self.sim, self._path(step))
         self._last = step
-        for old in self._steps()[: -self.keep]:
-            shutil.rmtree(self._path(old), ignore_errors=True)
+        if _writes(self.sim):
+            for old in self._steps()[: -self.keep]:
+                shutil.rmtree(self._path(old), ignore_errors=True)
         return True
 
 

@@ -11,6 +11,12 @@ into the step's input on the device), a forced receive-side migration drop
 a health halt rolls the window back to its entry snapshot and retries under
 an escalating remedy ladder; an exception restores the latest autosave.
 
+Over ranks (a `DistSimulation` spread over a process group) every rank
+runs the same supervisor: each reads the same bundle, so each takes the
+same rollback, remedy or growth; the rollback snapshot is each rank's own
+block, copied on its device; an autosave is written by rank 0 from the
+gathered global view, and a crash restores every rank from it.
+
 The training loop's pieces of the reference's module are here too:
 `FailureInjector` (raises `SimulatedFailure` at chosen steps),
 `StragglerMonitor` (a step-time EMA that flags slow steps) and

@@ -75,13 +75,14 @@ def valid_mesh_splits(n_devices: int, global_shape, order: int) -> list[tuple[in
     return out
 
 
-def plan_balanced_split(n_devices: int, global_shape, order: int, pos, alive):
+def plan_balanced_split(n_devices: int, global_shape, order: int, pos, alive, *, admits=None):
     """The (sx, sy) split with the fewest live particles on its densest
     shard: ``pos`` (N, 3) global positions, ``alive`` (N,), host arrays.
     Ties go to fewer shard columns along x (less x-migration), then to the
-    squarer split. Returns ``(sx, sy, peak)``; raises if no split is
-    valid."""
-    splits = valid_mesh_splits(n_devices, global_shape, order)
+    squarer split. ``admits(sx, sy)``, if given, keeps only the splits it
+    accepts (a rank grid must divide the split). Returns ``(sx, sy,
+    peak)``; raises if no split is valid."""
+    splits = [s for s in valid_mesh_splits(n_devices, global_shape, order) if admits is None or admits(*s)]
     if not splits:
         raise ValueError(f"no valid (sx, sy) split of {n_devices} devices for grid {tuple(global_shape)} at "
                          f"order {order}")

@@ -45,7 +45,10 @@ assert is 0.
 Timing happens only when eager. Under a CUDA graph capture ``resolve``
 answers in priority order and keeps nothing, so the drivers ``prewarm``
 their keys before every capture (set-up, growth, restore, demotion) and the
-captured step finds the timed winner in the memo.
+captured step finds the timed winner in the memo. A mesh spread over ranks
+makes one choice for all of them: rank 0 resolves at the whole mesh's
+occupancy and every rank `remember`s its backends, so no two ranks run
+different kernels and only rank 0 writes the cache file.
 """
 
 from __future__ import annotations
@@ -306,6 +309,14 @@ def prewarm(ops_: tuple[str, ...] | list[str], *, device, order: int, grid_shape
     return {op: resolve(op, requested, device=device, order=order, grid_shape=grid_shape, capacity=capacity,
                         n_bins=n_bins, dtype=dtype, fill=fill, batch=batch)
             for op in ops_}
+
+
+def remember(op: str, backend: str, *, device, order: int, grid_shape, capacity: int, dtype) -> None:
+    """Keep ``backend`` as ``auto``'s choice for ``op`` at this key in the
+    in-process memo, untimed and outside the cache file: a choice made in
+    another process (a mesh over ranks takes rank 0's)."""
+    key = make_key(op, device=device, order=order, grid_shape=grid_shape, capacity=capacity, dtype=dtype)
+    _MEMO[(key, "auto")] = canonical(backend)
 
 
 def demote(current: str, *, device, order: int, grid_shape=None, capacity: int = 0, n_bins: int | None = None,

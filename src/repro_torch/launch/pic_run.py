@@ -12,6 +12,8 @@
     PYTHONPATH=src python -m repro_torch.launch.pic_run --sentinel --fault crash:20 --autosave-every 8
     PYTHONPATH=src python -m repro_torch.launch.pic_run --scenario two_stream --sweep drift=0.1,0.2,0.3 --ensemble 4
     PYTHONPATH=src python -m repro_torch.launch.pic_run --mesh 4x2 --grid 128 128 128 --order 3
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --mesh 4x2 --grid 128 128 128 --order 3 --ranks 4
+    PYTHONPATH=src python -m repro_torch.launch.pic_run --ranks 2 --device cpu --mesh 2x2 --grid 8 8 8
 
 Runs on the CUDA device unless ``--device`` names another. One warm-up
 window (kernel build, the step's CUDA graph capture) runs first, then the
@@ -31,7 +33,16 @@ overrides; ``--dump-spec`` writes the resolved spec and exits.
 SX x SY shards on the one device (a ``--spec`` file's mesh is honoured the
 same way); the lines then name the mesh and give the growths and the
 communication totals (``comm_stats``: migrated particles, migration
-payload bytes, the largest shard imbalance).
+payload bytes, the largest shard imbalance). ``--overlap-halo``,
+``--compress-migration``, ``--rebalance`` and ``--imbalance-ratio`` set the
+spec's communication options, as the reference's flags do. ``--ranks N``
+spreads the mesh over N processes, one a rank (`torch.multiprocessing`,
+a ``FileStore`` in a temporary directory): each holds its block of the
+shards on its own card (NCCL), or on the CPU with ``--device cpu``
+(gloo); rank 0 prints the lines. More ranks than visible cards, or a rank
+count whose grid does not divide the mesh, raises before any process
+starts; a group that cannot form raises too, and nothing runs fewer
+ranks in its place.
 ``--ensemble N`` runs N seed-staggered replicas of the spec as one batched
 ensemble, ``--sweep PARAM=V1,V2,...`` (repeatable) a cartesian sweep over
 flat overrides, N replicas a point (`repro_torch.api.EnsembleSpec`): the
@@ -51,6 +62,8 @@ idle share of each window's wall time.
 from __future__ import annotations
 
 import argparse
+import functools
+import os
 import time
 from collections import defaultdict
 
@@ -158,6 +171,17 @@ def build_spec(args):
         overrides["fault"] = parse_fault(args.fault)
     if args.mesh is not None:
         overrides["mesh"] = MeshSpec(args.mesh).shape
+    comm = {}
+    if args.overlap_halo:
+        comm["overlap_halo"] = True
+    if args.compress_migration:
+        comm["compress_migration"] = True
+    if args.rebalance:
+        comm["rebalance_enable"] = True
+    if args.imbalance_ratio is not None:
+        comm["imbalance_ratio"] = args.imbalance_ratio
+    if comm:
+        overrides["comm"] = comm
     if args.spec is not None:
         with open(args.spec) as f:
             return apply_overrides(SimSpec.from_json(f.read()), **overrides)
@@ -245,7 +269,11 @@ def main(argv=None) -> None:
                          "global sort every step, or none (for the scatter paths)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--mesh", default=None, metavar="SXxSY",
-                    help="run the distributed driver on an SXxSY shard mesh (every shard on the one device)")
+                    help="run the distributed driver on an SXxSY shard mesh (every shard on the one device, or "
+                         "spread over --ranks processes)")
+    ap.add_argument("--ranks", type=int, default=None, metavar="N",
+                    help="spread the mesh over N processes, one a rank, each on its own card (NCCL), or on the "
+                         "CPU with --device cpu (gloo); rank 0 prints")
     ap.add_argument("--profile", action="store_true",
                     help="profile two more windows, captured and eager, and print their breakdowns")
     ft = ap.add_argument_group("fault tolerance")
@@ -259,6 +287,17 @@ def main(argv=None) -> None:
                     help="autosave directory (default: checkpoints/<scenario>)")
     ft.add_argument("--fault", default=None, metavar="KIND:STEP[:COMP[:COUNT]]",
                     help="inject a deterministic fault: nan_field:20:ez, nan_momentum:20, charge_scale:20, crash:20")
+    cm = ap.add_argument_group("distributed communication")
+    cm.add_argument("--overlap-halo", action="store_true",
+                    help="slice every first-hop halo slab from the raw block, so no exchange waits on another "
+                         "(bit-equal to the serialized exchange)")
+    cm.add_argument("--compress-migration", action="store_true",
+                    help="migrate uint16 fixed-point positions and bfloat16 momenta (weights exact)")
+    cm.add_argument("--rebalance", action="store_true",
+                    help="halt the window when the densest shard holds more than --imbalance-ratio times the mean, "
+                         "and re-split the mesh")
+    cm.add_argument("--imbalance-ratio", type=float, default=None, metavar="R",
+                    help="the rebalance trigger's ratio (default 4.0)")
     en = ap.add_argument_group("ensembles")
     en.add_argument("--ensemble", type=int, default=None, metavar="N",
                     help="run N seed-staggered replicas of the spec as one batched ensemble (with --sweep: N "
@@ -291,20 +330,86 @@ def main(argv=None) -> None:
     if ensemble is not None:
         if args.profile:
             ap.error("--profile profiles one simulation; it does not run ensembles")
+        if args.ranks is not None:
+            ap.error("--ranks spreads one mesh over processes; it does not run ensembles")
         run_ensemble(ensemble, device=args.device)
+        return
+    if args.ranks is not None:
+        if spec.mesh.shape is None:
+            ap.error("--ranks spreads a mesh over processes: name one with --mesh SXxSY")
+        if args.profile:
+            ap.error("--profile profiles one process; it does not run --ranks")
+        run_ranks(spec, args.ranks, device=args.device)
         return
 
     sim = make_simulation(spec, device=args.device)
-    dev = sim.device
-    if args.profile and dev.type != "cuda":
+    if args.profile and sim.device.type != "cuda":
         ap.error("--profile measures the CUDA device; it does not run on the CPU")
-    n_steps, window = spec.run.steps, spec.run.window or None
-    if args.profile and window is None:
+    if args.profile and not spec.run.window:
         ap.error("--profile profiles windows; it does not run the host-driven loop (--window 0)")
+    run_simulation(sim, spec)
+    if args.profile:
+        profile_window(sim, spec.run.window, graphs=True)
+        profile_window(sim, spec.run.window, graphs=False)
+
+
+def run_ranks(spec: SimSpec, n_ranks: int, device=None) -> None:
+    """Run ``spec`` over ``n_ranks`` processes, one a rank, each holding its
+    block of the mesh on its card (or on the CPU when ``device`` names it);
+    rank 0 prints. The request is checked first (`check_rank_request`); a
+    rank that fails makes this raise."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.distributed.ranks import check_rank_request
+
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    n_cards = None if on_cpu else (torch.cuda.device_count() if torch.cuda.is_available() else 0)
+    check_rank_request(n_ranks, spec.mesh.shape, n_cards=n_cards)
+    store = tempfile.mkdtemp(prefix="pic_run_ranks_")
+    try:
+        mp.start_processes(_rank_main, args=(n_ranks, store, spec.to_json(), "cpu" if on_cpu else None),
+                           nprocs=n_ranks, start_method="spawn")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _rank_main(rank: int, world: int, store: str, spec_json: str, device) -> None:
+    """One rank of `run_ranks`: join the group, build the driver on this
+    rank's block, run it; rank 0 prints."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.ranks import close_ranks, init_ranks
+    from repro_torch.pic.distributed import make_pic_mesh
+
+    dev = init_ranks(rank, world, store, device=device)
+    if dev.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        spec = SimSpec.from_json(spec_json)
+        sim = make_simulation(spec, mesh=make_pic_mesh(*spec.mesh.shape, dist.group.WORLD), device=dev)
+        run_simulation(sim, spec, out=functools.partial(print, flush=True) if rank == 0 else (lambda *a, **k: None))
+    finally:
+        close_ranks()
+
+
+def run_simulation(sim, spec: SimSpec, out=print) -> None:
+    """A warm-up window, then the timed run of ``spec``'s steps; ``out``
+    prints the header, the timed line, the energies and, on a card, the
+    peak memory (over ranks, rank 0's card)."""
+    dev = sim.device
+    n_steps, window = spec.run.steps, spec.run.window or None
     n_parts = sim.diagnostics()["n_alive"]
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     mesh = f", mesh {spec.mesh.shape[0]}x{spec.mesh.shape[1]}" if spec.mesh.shape else ""
-    print(
+    ranks = getattr(sim, "ranks", None)
+    if ranks is not None:
+        mesh += f" over {ranks.world} ranks ({ranks.px}x{ranks.py})"
+    out(
         f"{spec.name}: grid {spec.grid.shape}, {n_parts} particles, order {spec.deposition.order}, "
         f"deposition {spec.deposition.mode}, gather {spec.deposition.resolved_gather}, sort {spec.sort.mode}, "
         f"backend {spec.deposition.backend}, {f'window {window}' if window else 'host-driven loop'}{mesh}, "
@@ -325,18 +430,15 @@ def main(argv=None) -> None:
         f"host reads/step={reads / n_steps:.2f}"
     growths = sim.growths if spec.mesh.shape else sim.growths["capacity"]
     comm = f" mesh {sim.sx}x{sim.sy} comm_stats={sim.comm_stats}" if spec.mesh.shape else ""
-    print(
+    out(
         f"{n_steps} steps in {dt:.3f}s ({1e3 * dt / n_steps:.3f} ms/step, "
         f"{d['n_alive'] * n_steps / dt:.3e} particle-steps/s); "
         f"sorts={sim.sorts} rebuilds={sim.rebuilds} growths={growths} {per} "
         f"halts={sim.halts} retries={sim.retries} restarts={sim.restarts}{comm}"
     )
-    print(f"energies: field={d['field_energy']:.4e} kinetic={d['kinetic_energy']:.4e} total={d['total_energy']:.4e}")
+    out(f"energies: field={d['field_energy']:.4e} kinetic={d['kinetic_energy']:.4e} total={d['total_energy']:.4e}")
     if dev.type == "cuda":
-        print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    if args.profile:
-        profile_window(sim, window, graphs=True)
-        profile_window(sim, window, graphs=False)
+        out(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """PIC substrate on PyTorch: Yee fields, Boris pusher, plasma init, the
 single-device simulation loop (windowed and host-driven), the batched
 ensemble engine and the distributed driver (a 2-D shard mesh on one
-device). Counterpart of `repro.pic`."""
+device, or spread over the ranks of a process group). Counterpart of
+`repro.pic`."""
 
 from repro_torch.pic.grid import B_STAGGER, E_STAGGER, FieldState, GridSpec  # noqa: F401
 from repro_torch.pic.laser import LaserSpec, inject_laser  # noqa: F401
@@ -38,5 +39,5 @@ from repro_torch.pic.ensemble import (  # noqa: F401,E402
     stack_trees,
     unstack_tree,
 )
-from repro_torch.pic.distributed import DistConfig, DistState  # noqa: F401,E402
+from repro_torch.pic.distributed import DistConfig, DistState, PicMesh, make_pic_mesh  # noqa: F401,E402
 from repro_torch.pic.dist_simulation import DistSimulation  # noqa: F401,E402

@@ -46,6 +46,16 @@ The host ends a window early only for these halts (the reference's):
 A growth changes the buffers' shapes and so captures the step anew.
 `DistSimulation.run(n, window=None)` is the host-driven loop: one eager
 step at a time, its counters read on the host, the host policy deciding.
+
+Over a process group (a `PicMesh` of `make_pic_mesh` with a group, one
+process a rank) each rank holds its block of the stack and runs the same
+window on it: the halos and the migration cross ranks in the step's ring
+shifts, and every counter, energy and sentinel measure the bundle holds is
+a reduction over the whole mesh, so every rank reads the same bundle and
+takes the same branch (grow, replay, re-split or halt). The growths and the
+re-split see the global state by ``all_gather`` and re-partition it the
+same way on every rank; a checkpoint is written by rank 0 from the global
+view, in the one-process format.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -89,19 +100,23 @@ from repro_torch.distributed.fault import (
     injected_recv_drop,
     run_supervised_windows,
 )
+from repro_torch.distributed.ranks import choose_rank_grid
 from repro_torch.distributed.sharding import plan_balanced_split
 from repro_torch.kernels import dispatch
 from repro_torch.pic.distributed import (
     STAT_KEYS,
     DistConfig,
     DistState,
+    PicMesh,
+    as_pic_mesh,
     blocks_from_global,
     build_local_bins,
     dist_global_sort_device,
     dist_pic_step,
+    gather_shards,
     global_from_blocks,
     in_domain,
-    mesh_pair,
+    n_mesh_shards,
     partition_particles,
     validate_shard_guard,
 )
@@ -109,6 +124,7 @@ from repro_torch.pic.grid import FieldState, GridSpec
 from repro_torch.pic.plasma import ParticleState
 from repro_torch.pic.pusher import lorentz_gamma
 from repro_torch.pic.simulation import (
+    DEPRECATION_MSG,
     UNSET,
     Window,
     WindowStore,
@@ -133,17 +149,23 @@ DIAG_NAMES = ("active", "sorted", "reason", "n_moved", "n_alive", "mig_send_over
 def _energies(state: DistState, cfg: DistConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """(field, kinetic) energy, float32 device scalars: each shard's sums,
     then their sum over the mesh (the reference's per-shard sums and
-    psum)."""
+    psum; over ranks the per-shard sums gathered first)."""
     f = state.fields.to(torch.float32)
     per_comp = 0.5 * torch.sum(f * f, dim=(-3, -2, -1))  # [6, SX, SY]
     field_e = sum(per_comp[k] for k in range(6)) * cfg.local_grid.cell_volume
     gamma = lorentz_gamma(state.u).to(torch.float32)
     kinetic = torch.sum(state.w.to(torch.float32) * state.alive.to(torch.float32) * cfg.mass * (gamma - 1.0), dim=-1)
-    return field_e.sum(), kinetic.sum()
+    return gather_shards(field_e, cfg.ranks).sum(), gather_shards(kinetic, cfg.ranks).sum()
 
 
-def _total_charge(state: DistState) -> torch.Tensor:
-    return torch.sum(state.w.to(torch.float32) * state.alive.to(torch.float32), dim=-1).sum()
+def _total_charge(state: DistState, cfg: DistConfig) -> torch.Tensor:
+    per_shard = torch.sum(state.w.to(torch.float32) * state.alive.to(torch.float32), dim=-1)
+    return gather_shards(per_shard, cfg.ranks).sum()
+
+
+def _mesh_count(x: torch.Tensor, ranks) -> torch.Tensor:
+    """A rank's 0-d count summed over the ranks, in its dtype."""
+    return x if ranks is None else ranks.values(x).sum(dtype=x.dtype)
 
 
 class _DistWindowBuffers(_WindowHead):
@@ -229,7 +251,7 @@ def _dist_window_step(buf: _DistWindowBuffers, config: DistConfig, policy: SortP
     row for the step is written at ``n_done`` (a discarded step's row holds
     only its drop count)."""
     sx, sy = buf.st.pos.shape[:2]
-    n_shards = sx * sy
+    n_shards = n_mesh_shards(sx * sy, config.ranks)
     n_slots = n_shards * config.local_grid.n_cells * config.capacity
     dev = buf.device
 
@@ -278,10 +300,10 @@ def _dist_window_step(buf: _DistWindowBuffers, config: DistConfig, policy: SortP
             with record_function("pic.sentinel"):
                 ff = mf = torch.zeros((), dtype=torch.int32, device=dev)
                 if health.check_nonfinite:
-                    ff = nonfinite_count(list(cand.fields.unbind(0)))
-                    mf = nonfinite_count([cand.u, cand.pos], mask=cand.alive)
+                    ff = _mesh_count(nonfinite_count(list(cand.fields.unbind(0))), config.ranks)
+                    mf = _mesh_count(nonfinite_count([cand.u, cand.pos], mask=cand.alive), config.ranks)
                 h_code, h_inv, h_meas, h_ref = classify_health(
-                    health, fields_nonfinite=ff, momenta_nonfinite=mf, charge=_total_charge(cand),
+                    health, fields_nonfinite=ff, momenta_nonfinite=mf, charge=_total_charge(cand, config),
                     charge_ref=buf.ref_charge, energy=field_e + kinetic, energy_ref=buf.ref_energy)
         halt_imb = torch.zeros((), dtype=torch.bool, device=dev)
         if config.comm.rebalance_enable and n_shards > 1:
@@ -344,22 +366,34 @@ def _dist_window_entry(buf: _DistWindowBuffers, config: DistConfig, health: Heal
     decider.run_if(buf.presort != 0, lambda: _sort_shards(buf.st, config))
     if health is not None:
         fe, ke = _energies(buf.st, config)
-        buf.ref_charge.copy_(_total_charge(buf.st))
+        buf.ref_charge.copy_(_total_charge(buf.st, config))
         buf.ref_energy.copy_(fe + ke)
 
 
 def _prewarm_local(config: DistConfig, pos: torch.Tensor, alive: torch.Tensor) -> None:
     """Resolve ``config``'s ``auto`` dispatch keys eagerly at the local
     grid shape, the shape each shard's kernels run at, a timing at the
-    shards' mean occupancy (``pos`` and ``alive`` the shard stacks; a
-    set-up read)."""
+    mesh's mean occupancy (``pos`` and ``alive`` the shard stacks; a set-up
+    read). Over ranks the choice is the mesh's: rank 0 resolves and every
+    rank keeps rank 0's backends (`RankGrid.agree`), so the ranks of one
+    mesh run the same kernels."""
     if config.backend != "auto":
         return
-    local = config.local_grid
-    fill = -(-int(torch.count_nonzero(alive)) // (alive.shape[0] * alive.shape[1] * local.n_cells))
-    dispatch.prewarm(dispatch.ops_for_modes(config.deposition, config.gather), device=alive.device,
-                     order=config.order, grid_shape=local.shape, capacity=config.capacity, dtype=pos.dtype,
-                     fill=fill)
+    local, ranks = config.local_grid, config.ranks
+    n_alive = torch.count_nonzero(alive)
+    if ranks is not None:
+        n_alive = ranks.values(n_alive).sum()
+    fill = -(-int(n_alive) // (n_mesh_shards(alive.shape[0] * alive.shape[1], ranks) * local.n_cells))
+    ops = dispatch.ops_for_modes(config.deposition, config.gather)
+    key = dict(device=alive.device, order=config.order, grid_shape=local.shape, capacity=config.capacity,
+               dtype=pos.dtype)
+    if ranks is None:
+        dispatch.prewarm(ops, fill=fill, **key)
+        return
+    names = sorted(dispatch.BACKEND_PRIORITY)
+    chosen = dispatch.prewarm(ops, fill=fill, **key) if ranks.rank == 0 else {}
+    for op in ops:
+        dispatch.remember(op, names[ranks.agree(names.index(chosen.get(op, names[0])))], **key)
 
 
 def _pad(t: torch.Tensor, dim: int, add: int, fill) -> torch.Tensor:
@@ -371,10 +405,13 @@ def _pad(t: torch.Tensor, dim: int, add: int, fill) -> torch.Tensor:
 
 class DistSimulation:
     """The distributed driver: the single-device driver's surface on a 2-D
-    shard mesh held on one device.
+    shard mesh held on one device, or spread over the ranks of a process
+    group (``mesh``, a `PicMesh` with a rank grid), each rank holding its
+    block of the stack.
 
     It takes global fields and particles, as `Simulation` does, and splits
-    them over an ``(sx, sy)`` mesh once, here (`partition_particles`).
+    them over an ``(sx, sy)`` mesh once, here (`partition_particles`); a
+    rank keeps its block.
     ``run(n, window=K)`` runs windows of K steps under the fault supervisor
     (`distributed.fault.run_supervised_windows`); on a CUDA device each
     window replays one captured CUDA graph of the step (``use_graphs``) and
@@ -382,16 +419,27 @@ class DistSimulation:
     (one read of the step's counters a step and the host policy). Pick one
     driver per simulation: they keep their own policy counters.
 
-    Build it with `repro_torch.api.make_simulation` on a spec with a mesh.
-    ``host_reads`` counts the device-to-host reads of a run: one a window,
-    one more a capacity growth; about one a step in the host-driven loop.
+    Build it with `repro_torch.api.make_simulation` on a spec with a mesh
+    (built directly, with no spec, it warns `DeprecationWarning`, as the
+    reference's). ``host_reads`` counts the device-to-host reads of a run:
+    one a window, one more a capacity growth; about one a step in the
+    host-driven loop. Over ranks every rank makes the same calls: each
+    reduction, growth, re-split, view of the global frame and checkpoint
+    is collective.
     """
 
-    def __init__(self, fields: FieldState, particles: ParticleState, config: DistConfig, *, mesh_shape,
-                 n_local: int | None = None, policy: SortPolicyConfig | None = None, spec=None):
+    def __init__(self, fields: FieldState, particles: ParticleState, config: DistConfig, *, mesh=None,
+                 mesh_shape=None, n_local: int | None = None, policy: SortPolicyConfig | None = None, spec=None):
+        if spec is None:
+            warnings.warn(DEPRECATION_MSG.format(cls="DistSimulation"), DeprecationWarning, stacklevel=2)
+        if mesh is None:
+            if mesh_shape is None:
+                raise ValueError("pass either a mesh or mesh_shape=(sx, sy)")
+            mesh = mesh_shape
+        self.mesh = as_pic_mesh(mesh)
         self.spec = spec
-        self.config = config
-        self.sx, self.sy = (int(v) for v in mesh_shape)
+        self.config = dataclasses.replace(config, ranks=self.ranks)
+        self.sx, self.sy = self.mesh.shape
         local = config.local_grid
         self.global_grid = GridSpec(shape=(local.shape[0] * self.sx, local.shape[1] * self.sy, local.shape[2]),
                                     dx=local.dx)
@@ -400,18 +448,23 @@ class DistSimulation:
             raise ValueError(f"field arrays have shape {fshape} but mesh {self.sx}x{self.sy} of local blocks "
                              f"{local.shape} implies a global grid {self.global_grid.shape}")
         self.device = particles.pos.device
+        if self.ranks is not None and self.ranks.device != self.device:
+            raise ValueError(f"the particles are on {self.device} but this rank's tensors live on "
+                             f"{self.ranks.device}")
         self.n_local = n_local or self._default_n_local(particles)
-        pos, u, w, alive = partition_particles(particles, self.global_grid, self.sx, self.sy, self.n_local)
+        pos, u, w, alive = partition_particles(particles, self.global_grid, self.sx, self.sy, self.n_local,
+                                               ranks=self.ranks)
         while True:  # grow up front if the initial density overflows
-            slots, pslot, slab_d, slab_valid, overflow = build_local_bins(pos, alive, local, self.config.capacity)
+            slots, pslot, slab_d, slab_valid, overflow = build_local_bins(pos, alive, local, self.config.capacity,
+                                                                          self.ranks)
             if not overflow:
                 break
             self.config = dataclasses.replace(self.config, capacity=self.config.capacity * 2)
         self.policy = policy or SortPolicyConfig()
         self.host_policy = ResortPolicy(self.policy)
-        self.shard_state = DistState(fields=blocks_from_global(fields.all(), self.sx, self.sy), pos=pos, u=u, w=w,
-                               alive=alive, slots=slots, pslot=pslot, slab_d=slab_d, slab_valid=slab_valid,
-                               mid_pos=torch.zeros_like(pos), mid_u=torch.zeros_like(u))
+        self.shard_state = DistState(fields=blocks_from_global(fields.all(), self.sx, self.sy, self.ranks), pos=pos,
+                                     u=u, w=w, alive=alive, slots=slots, pslot=pslot, slab_d=slab_d,
+                                     slab_valid=slab_valid, mid_pos=torch.zeros_like(pos), mid_u=torch.zeros_like(u))
         self.policy_state = policy_init(self.device)
         self.use_graphs = self.device.type == "cuda"
         self.sorts = 0
@@ -451,12 +504,24 @@ class DistSimulation:
         peak = int(counts.max()) if counts.size else 0
         return max(8, -(-int(peak * 1.5) // 8) * 8)
 
+    @property
+    def ranks(self):
+        """The rank grid (`repro_torch.distributed.ranks.RankGrid`), or None
+        in one process."""
+        return self.mesh.ranks
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes what the run writes (rank 0)."""
+        return self.ranks is None or self.ranks.rank == 0
+
     # -- state: assigning it drops the window's buffers and graph -------------
 
     @property
     def shard_state(self) -> DistState:
         """The state on the shard stack, the driver's own tensors (the
-        window's buffers once a window has run)."""
+        window's buffers once a window has run); over ranks, this rank's
+        block of it."""
         return self._state
 
     @shard_state.setter
@@ -469,7 +534,9 @@ class DistSimulation:
         """The reference's state dict: ``fields``, the six components on the
         global (NX, NY, NZ) grid (copies), and the shard-stacked ``pos``,
         ``u``, ``w``, ``alive``, ``slots``, ``pslot``, ``slab_d``,
-        ``slab_valid``, ``mid_pos`` and ``mid_u`` (the driver's own)."""
+        ``slab_valid``, ``mid_pos`` and ``mid_u`` (the driver's own). Over
+        ranks, this rank's block: its shards' stacks and the part of the
+        grid they cover (`global_state` is the whole mesh's)."""
         st = self._state
         out = {f.name: getattr(st, f.name) for f in dataclasses.fields(DistState) if f.name != "fields"}
         out["fields"] = tuple(global_from_blocks(st.fields).unbind(0))
@@ -477,15 +544,37 @@ class DistSimulation:
 
     @state.setter
     def state(self, tree: dict) -> None:
-        """Install a state dict of the reference's layout, of this mesh; a
-        tree without the replay snapshot gets zeros (no replay is pending
-        at a checkpoint)."""
+        """Install a state dict of the reference's layout, of this mesh (over
+        ranks, of this rank's block); a tree without the replay snapshot
+        gets zeros (no replay is pending at a checkpoint)."""
+        bx, by = self.mesh.block
         pos, u = tree["pos"], tree["u"]
         self.shard_state = DistState(
-            fields=blocks_from_global(tree["fields"], self.sx, self.sy), pos=pos, u=u, w=tree["w"],
+            fields=blocks_from_global(tree["fields"], bx, by), pos=pos, u=u, w=tree["w"],
             alive=tree["alive"], slots=tree["slots"], pslot=tree["pslot"], slab_d=tree["slab_d"],
             slab_valid=tree["slab_valid"], mid_pos=tree.get("mid_pos", torch.zeros_like(pos)),
             mid_u=tree.get("mid_u", torch.zeros_like(u)))
+
+    def global_state(self) -> dict:
+        """`state` of the whole mesh: over ranks every rank's block gathered
+        (a collective; the same dict on every rank)."""
+        if self.ranks is None:
+            return self.state
+        st = self._state
+        out = {f.name: self.ranks.gather(getattr(st, f.name)) for f in dataclasses.fields(DistState)
+               if f.name != "fields"}
+        out["fields"] = tuple(global_from_blocks(st.fields, self.ranks).unbind(0))
+        return out
+
+    def set_global_state(self, tree: dict) -> None:
+        """Install a state dict of the whole mesh: over ranks, every rank
+        keeps its block."""
+        if self.ranks is None:
+            self.state = tree
+            return
+        local = {k: self.ranks.block(v).contiguous() for k, v in tree.items() if k != "fields"}
+        local["fields"] = global_from_blocks(blocks_from_global(tree["fields"], self.sx, self.sy, self.ranks)).unbind(0)
+        self.state = local
 
     @property
     def policy_state(self) -> SortPolicyState:
@@ -586,7 +675,7 @@ class DistSimulation:
         if self._health is not None:
             # the sentinel's references, from the state the window starts at
             fe, ke = _energies(buf.st, self.config)
-            buf.ref_charge.copy_(_total_charge(buf.st))
+            buf.ref_charge.copy_(_total_charge(buf.st, self.config))
             buf.ref_energy.copy_(fe + ke)
         w.run(k, self._read)
         self.windows += 1
@@ -669,7 +758,7 @@ class DistSimulation:
         """Resolve the config's ``auto`` dispatch keys eagerly at the local
         grid shape, the shape each shard's kernels run at, so that the
         captured step finds them in the memo; again after a growth, a
-        re-split and a restore. A timing runs at the shards' mean
+        re-split and a restore. A timing runs at the mesh's mean
         occupancy (a set-up read, outside `host_reads`)."""
         _prewarm_local(self.config, self._state.pos, self._state.alive)
 
@@ -707,6 +796,8 @@ class DistSimulation:
                 dt = time.perf_counter() - t0
                 self.host_policy.record_step(rebuilt=False, perf=float(stats["n_alive"]) / max(dt, 1e-9))
                 do, _reason = self.host_policy.should_sort(empty_ratio=stats["n_empty"] / max(n_slots, 1))
+                if self.ranks is not None:  # the wall clock differs between ranks: rank 0 decides
+                    do = bool(self.ranks.agree(do))
                 if do:
                     self._dist_sort()
                     self.sorts += 1
@@ -739,12 +830,14 @@ class DistSimulation:
         one read; stragglers occupy no bin."""
         local = self.config.local_grid
         st = self._state
+        bx, by = st.pos.shape[:2]
         ok = st.alive & in_domain(st.pos, local.shape)
         cells = cell_index(st.pos, local.shape)
-        shard = torch.arange(self.sx * self.sy, device=self.device).reshape(self.sx, self.sy, 1)
-        counts = torch.zeros(self.sx * self.sy * local.n_cells, dtype=torch.int64, device=self.device)
+        shard = torch.arange(bx * by, device=self.device).reshape(bx, by, 1)
+        counts = torch.zeros(bx * by * local.n_cells, dtype=torch.int64, device=self.device)
         counts.index_add_(0, (shard * local.n_cells + cells).reshape(-1), ok.reshape(-1).to(torch.int64))
-        return int(self._read(counts.max()))
+        peak = counts.max() if self.ranks is None else self.ranks.values(counts.max()).amax()
+        return int(self._read(peak))
 
     def _grow_capacity(self) -> None:
         """After ``HALT_BIN_OVERFLOW``: grow the capacity once to fit the
@@ -798,26 +891,33 @@ class DistSimulation:
         ix = np.clip((pos[alive, 0] // nx_loc).astype(int), 0, self.sx - 1)
         iy = np.clip((pos[alive, 1] // ny_loc).astype(int), 0, self.sy - 1)
         cur_peak = int(np.bincount(ix * self.sy + iy, minlength=self.sx * self.sy).max()) if alive.any() else 0
-        sx, sy, peak = plan_balanced_split(self.sx * self.sy, self.global_grid.shape, self.config.order, pos, alive)
+        world = 1 if self.ranks is None else self.ranks.world
+        # over ranks only the splits that admit a rank grid of the group
+        admits = lambda sx, sy: choose_rank_grid(world, sx, sy) is not None
+        sx, sy, peak = plan_balanced_split(self.sx * self.sy, self.global_grid.shape, self.config.order, pos, alive,
+                                           admits=admits)
         if (sx, sy) == (self.sx, self.sy) or peak >= cur_peak:
             self._rebalance_armed = False
             return
         gshape = self.global_grid.shape
         local = GridSpec(shape=(gshape[0] // sx, gshape[1] // sy, gshape[2]), dx=self.config.local_grid.dx)
+        ranks = None if self.ranks is None else self.ranks.regrid(*choose_rank_grid(world, sx, sy))
+        self.mesh = PicMesh(sx, sy, ranks)
         self.sx, self.sy = sx, sy
-        self.config = dataclasses.replace(self.config, local_grid=local)
+        self.config = dataclasses.replace(self.config, local_grid=local, ranks=ranks)
         self.n_local = max(8, -(-int(peak * 1.5) // 8) * 8)
-        pos, u, w, alive = partition_particles(parts, self.global_grid, sx, sy, self.n_local)
+        pos, u, w, alive = partition_particles(parts, self.global_grid, sx, sy, self.n_local, ranks=ranks)
         while True:
-            slots, pslot, slab_d, slab_valid, overflow = build_local_bins(pos, alive, local, self.config.capacity)
+            slots, pslot, slab_d, slab_valid, overflow = build_local_bins(pos, alive, local, self.config.capacity,
+                                                                          ranks)
             if not overflow:
                 break
             self.config = dataclasses.replace(self.config, capacity=self.config.capacity * 2)
             self.growths["capacity"] += 1
         # a re-split follows a kept step: no replay is pending
-        self.shard_state = DistState(fields=blocks_from_global(fields.all(), sx, sy), pos=pos, u=u, w=w, alive=alive,
-                               slots=slots, pslot=pslot, slab_d=slab_d, slab_valid=slab_valid,
-                               mid_pos=torch.zeros_like(pos), mid_u=torch.zeros_like(u))
+        self.shard_state = DistState(fields=blocks_from_global(fields.all(), sx, sy, ranks), pos=pos, u=u, w=w,
+                                     alive=alive, slots=slots, pslot=pslot, slab_d=slab_d, slab_valid=slab_valid,
+                                     mid_pos=torch.zeros_like(pos), mid_u=torch.zeros_like(u))
         self._pending_presort = self._pending_resume = False
         self._rebalance_armed = True
         self.growths["rebalance"] += 1
@@ -830,22 +930,25 @@ class DistSimulation:
     # -- views on the global frame ------------------------------------------------------
 
     def fields_global(self) -> FieldState:
-        """The fields on the global (NX, NY, NZ) grid (copies)."""
-        return FieldState(*global_from_blocks(self._state.fields).unbind(0))
+        """The fields on the global (NX, NY, NZ) grid (copies; over ranks
+        gathered, a collective)."""
+        return FieldState(*global_from_blocks(self._state.fields, self.ranks).unbind(0))
 
     def particles_global(self) -> ParticleState:
         """Every particle slot, flattened, positions in the global frame
         (dead padding stays dead; a straggler keeps its out-of-range local
-        position, shifted by its current shard's origin)."""
+        position, shifted by its current shard's origin). Over ranks every
+        block is gathered (a collective), in the one process's order."""
         st = self._state
+        full = lambda t: gather_shards(t, self.ranks)
         nx_loc, ny_loc = self.config.local_grid.shape[:2]
-        pos = st.pos.clone()
+        pos = full(st.pos).clone()
         for a in range(self.sx):
             pos[a, :, :, 0] += a * nx_loc
         for b in range(self.sy):
             pos[:, b, :, 1] += b * ny_loc
-        return ParticleState(pos=pos.reshape(-1, 3), u=st.u.reshape(-1, 3), w=st.w.reshape(-1),
-                             alive=st.alive.reshape(-1))
+        return ParticleState(pos=pos.reshape(-1, 3), u=full(st.u).reshape(-1, 3), w=full(st.w).reshape(-1),
+                             alive=full(st.alive).reshape(-1))
 
     def diagnostics(self) -> dict:
         return self._diagnostics(torch.Tensor.cpu)
@@ -854,8 +957,8 @@ class DistSimulation:
         """Step, energies and live particles of the current state, in one
         read through ``read``."""
         fe, ke = _energies(self._state, self.config)
-        host = read(torch.stack([fe.to(torch.float64), ke.to(torch.float64),
-                                 torch.sum(self._state.alive).to(torch.float64)]))
+        n_alive = gather_shards(torch.sum(self._state.alive, dim=-1), self.ranks).sum()
+        host = read(torch.stack([fe.to(torch.float64), ke.to(torch.float64), n_alive.to(torch.float64)]))
         em, kinetic = float(host[0]), float(host[1])
         return {"step": self._host_step, "field_energy": em, "kinetic_energy": kinetic,
                 "total_energy": em + kinetic, "n_alive": int(host[2])}
@@ -905,13 +1008,16 @@ class DistWindowFn(WindowStore):
     back; ``n_target``, ``presort``, ``resume``,
     ``step0``, ``rebalance_armed`` and ``fault_vec`` may be host values or
     device tensors, and a call on a window already built reads nothing back
-    and captures nothing."""
+    and captures nothing. Over ranks (a `PicMesh` with a rank grid) the
+    arguments are this rank's block: its shards' stacks and the part of the
+    grid they cover, and every rank calls the window together."""
 
-    def __init__(self, sx: int, sy: int, config: DistConfig, policy: SortPolicyConfig, n_steps: int, *,
+    def __init__(self, mesh: PicMesh, config: DistConfig, policy: SortPolicyConfig, n_steps: int, *,
                  with_energies: bool, health: HealthConfig | None, with_fault: bool):
         super().__init__()
-        self.sx, self.sy = sx, sy
-        self.config, self.policy, self.n_steps = config, policy, int(n_steps)
+        self.sx, self.sy = mesh.block
+        self.config = dataclasses.replace(config, ranks=mesh.ranks)
+        self.policy, self.n_steps = policy, int(n_steps)
         self.with_energies, self.health, self.with_fault = with_energies, health, with_fault
 
     def __call__(self, fields, pos, u, w, alive, slots, pslot, slab_d, slab_valid, mid_pos, mid_u, policy_state,
@@ -965,7 +1071,8 @@ def make_dist_window(mesh, cfg: DistConfig, policy: SortPolicyConfig, n_steps: i
             mid_pos, mid_u, policy_state, bundle)
 
     ``fields6`` are the six global (NX, NY, NZ) components, the particle
-    arrays ``[SX, SY, ...]`` shard stacks. ``presort`` sorts every shard
+    arrays ``[SX, SY, ...]`` shard stacks (over ranks, a `PicMesh` with a
+    rank grid, this rank's block of each). ``presort`` sorts every shard
     before the first step (a capacity growth's re-entry); ``resume``
     replays the carried mid-step snapshot in the first step (after a
     receive-side drop); ``rebalance_armed`` arms the imbalance halt;
@@ -974,6 +1081,5 @@ def make_dist_window(mesh, cfg: DistConfig, policy: SortPolicyConfig, n_steps: i
     donated, as the reference's are: the result is written into the input
     tensors, which come back."""
     validate_shard_guard(cfg.local_grid, cfg.order)
-    sx, sy = mesh_pair(mesh)
-    return DistWindowFn(sx, sy, cfg, policy, n_steps, with_energies=with_energies, health=health,
+    return DistWindowFn(as_pic_mesh(mesh), cfg, policy, n_steps, with_energies=with_energies, health=health,
                         with_fault=with_fault)

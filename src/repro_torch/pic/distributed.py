@@ -52,6 +52,13 @@ Kernel backends resolve through the port's dispatcher at the local grid
 shape, as the single-device step resolves at its own (the reference
 resolves every shard-body backend to ``xla``, having no Pallas inside
 `shard_map`).
+
+Over several processes (`repro_torch.distributed.ranks`) each rank holds a
+contiguous block ``[BX, BY, ...]`` of the stack, and ``DistConfig.ranks``
+(a `RankGrid`) carries the rank grid: `ring_shift` swaps the block's edge
+slab with the neighbour rank, `psum_all` / `pmax_all` reduce the gathered
+``[SX, SY]`` values as the stack does, and the shard body is unchanged; it
+runs once a local shard. ``ranks=None`` is the one-process stack.
 """
 
 from __future__ import annotations
@@ -104,8 +111,10 @@ __all__ = [
     "halo_reduce_overlapped",
     "halo_reduce_periodic_local",
     "in_domain",
+    "make_pic_mesh",
     "migrate_axis",
     "partition_particles",
+    "PicMesh",
     "pmax_all",
     "psum_all",
     "ring_shift",
@@ -119,23 +128,40 @@ SHARD_X, SHARD_Y = 0, 1
 # -- collectives on the shard stack ----------------------------------------------
 
 
-def ring_shift(t: torch.Tensor, axis: int, shift: int) -> torch.Tensor:
+def ring_shift(t: torch.Tensor, axis: int, shift: int, ranks=None) -> torch.Tensor:
     """``lax.ppermute(t, axis_name, _ring(axis_name, shift))`` on a stack:
     with ``shift=+1`` shard j receives shard j - 1's block (periodic), with
-    ``-1`` shard j + 1's. uint16 blocks travel as their int16 bits."""
+    ``-1`` shard j + 1's. uint16 blocks travel as their int16 bits. With a
+    rank grid ``t`` is this rank's block, and the slab that crosses a
+    block's edge comes from the neighbour rank."""
     if t.dtype == torch.uint16:
-        return torch.roll(t.view(torch.int16), shifts=shift, dims=axis).view(torch.uint16)
-    return torch.roll(t, shifts=shift, dims=axis)
+        return ring_shift(t.view(torch.int16), axis, shift, ranks).view(torch.uint16)
+    if ranks is None:
+        return torch.roll(t, shifts=shift, dims=axis)
+    return ranks.ring_shift(t, axis, shift)
 
 
-def psum_all(per_shard: torch.Tensor) -> torch.Tensor:
-    """Sum of a per-shard value ``[SX, SY]`` over the mesh."""
-    return per_shard.sum(dim=(SHARD_X, SHARD_Y))
+def gather_shards(per_shard: torch.Tensor, ranks=None) -> torch.Tensor:
+    """A per-shard value ``[BX, BY, ...]`` of this rank's block as the whole
+    mesh's ``[SX, SY, ...]`` (the block itself without a rank grid)."""
+    return per_shard if ranks is None else ranks.gather(per_shard)
 
 
-def pmax_all(per_shard: torch.Tensor) -> torch.Tensor:
+def psum_all(per_shard: torch.Tensor, ranks=None) -> torch.Tensor:
+    """Sum of a per-shard value ``[SX, SY]`` over the mesh (the gathered
+    values summed as the stack sums them, so a float total is the one
+    process's bit for bit)."""
+    return gather_shards(per_shard, ranks).sum(dim=(SHARD_X, SHARD_Y))
+
+
+def pmax_all(per_shard: torch.Tensor, ranks=None) -> torch.Tensor:
     """Max of a per-shard value ``[SX, SY]`` over the mesh."""
-    return per_shard.amax(dim=(SHARD_X, SHARD_Y))
+    return gather_shards(per_shard, ranks).amax(dim=(SHARD_X, SHARD_Y))
+
+
+def n_mesh_shards(local_shards: int, ranks=None) -> int:
+    """The mesh's shard count, from this rank's."""
+    return local_shards * (1 if ranks is None else ranks.world)
 
 
 # -- halos -------------------------------------------------------------------------
@@ -148,13 +174,13 @@ def _dim(axis: int) -> int:
     return axis - 3
 
 
-def halo_extend(f, g: int, axis: int, shard_axis: int):
+def halo_extend(f, g: int, axis: int, shard_axis: int, ranks=None):
     """Extend each shard's block by g cells on both sides of ``axis`` with
     its neighbours' slabs along ``shard_axis``."""
     d = _dim(axis)
     n = f.shape[d]
     lo, hi = f.narrow(d, 0, g), f.narrow(d, n - g, g)
-    return torch.cat([ring_shift(hi, shard_axis, +1), f, ring_shift(lo, shard_axis, -1)], dim=d)
+    return torch.cat([ring_shift(hi, shard_axis, +1, ranks), f, ring_shift(lo, shard_axis, -1, ranks)], dim=d)
 
 
 def halo_extend_periodic_local(f, g: int, axis: int):
@@ -174,7 +200,7 @@ def _fold(core, g: int, d: int, from_lo, from_hi):
     return core
 
 
-def halo_reduce(fpad, g: int, axis: int, shard_axis: int):
+def halo_reduce(fpad, g: int, axis: int, shard_axis: int, ranks=None):
     """Fold each shard's guard contributions along ``axis`` onto its
     neighbours' cores (the reverse of `halo_extend`): the result is 2g
     cells narrower there."""
@@ -182,7 +208,7 @@ def halo_reduce(fpad, g: int, axis: int, shard_axis: int):
     n = fpad.shape[d] - 2 * g
     lo_guard, hi_guard = fpad.narrow(d, 0, g), fpad.narrow(d, g + n, g)
     core = fpad.narrow(d, g, n).clone()
-    return _fold(core, g, d, ring_shift(hi_guard, shard_axis, +1), ring_shift(lo_guard, shard_axis, -1))
+    return _fold(core, g, d, ring_shift(hi_guard, shard_axis, +1, ranks), ring_shift(lo_guard, shard_axis, -1, ranks))
 
 
 def halo_reduce_periodic_local(fpad, g: int, axis: int):
@@ -199,36 +225,35 @@ def halo_reduce_periodic_local(fpad, g: int, axis: int):
 # serialized exchange.
 
 
-def _hop_x(t, shift):
-    return ring_shift(t, SHARD_X, shift)
+def _hops(ranks):
+    """The ring shifts along shard x and y, one slab ``t`` by ``shift``."""
+    return (lambda t, shift: ring_shift(t, SHARD_X, shift, ranks),
+            lambda t, shift: ring_shift(t, SHARD_Y, shift, ranks))
 
 
-def _hop_y(t, shift):
-    return ring_shift(t, SHARD_Y, shift)
-
-
-def halo_extend_overlapped(f, g: int):
+def halo_extend_overlapped(f, g: int, ranks=None):
     """Extend by g cells along x and y in one round: edge slabs from the raw
     block; the four g x g corners as two hops, x then y, of the corner block
     (the serialized path ships them inside its y slabs: same values, same
     route). The caller applies the z extension last, as the serialized
     x -> y -> z order does."""
     nx, ny = f.shape[-3], f.shape[-2]
-    row_top = _hop_x(f[..., nx - g:, :, :], +1)
-    row_bot = _hop_x(f[..., :g, :, :], -1)
-    col_left = _hop_y(f[..., :, ny - g:, :], +1)
-    col_right = _hop_y(f[..., :, :g, :], -1)
-    c_tl = _hop_y(_hop_x(f[..., nx - g:, ny - g:, :], +1), +1)
-    c_tr = _hop_y(_hop_x(f[..., nx - g:, :g, :], +1), -1)
-    c_bl = _hop_y(_hop_x(f[..., :g, ny - g:, :], -1), +1)
-    c_br = _hop_y(_hop_x(f[..., :g, :g, :], -1), -1)
+    hx, hy = _hops(ranks)
+    row_top = hx(f[..., nx - g:, :, :], +1)
+    row_bot = hx(f[..., :g, :, :], -1)
+    col_left = hy(f[..., :, ny - g:, :], +1)
+    col_right = hy(f[..., :, :g, :], -1)
+    c_tl = hy(hx(f[..., nx - g:, ny - g:, :], +1), +1)
+    c_tr = hy(hx(f[..., nx - g:, :g, :], +1), -1)
+    c_bl = hy(hx(f[..., :g, ny - g:, :], -1), +1)
+    c_br = hy(hx(f[..., :g, :g, :], -1), -1)
     top = torch.cat([c_tl, row_top, c_tr], dim=-2)
     mid = torch.cat([col_left, f, col_right], dim=-2)
     bot = torch.cat([c_bl, row_bot, c_br], dim=-2)
     return torch.cat([top, mid, bot], dim=-3)
 
 
-def halo_reduce_overlapped(zf, g: int):
+def halo_reduce_overlapped(zf, g: int, ranks=None):
     """Fold the x and y guard contributions onto the neighbours' cores in
     one round. ``zf`` is the padded deposition grid after the local z fold,
     (..., nx + 2g, ny + 2g, nz); returns the (..., nx, ny, nz) core.
@@ -240,16 +265,17 @@ def halo_reduce_overlapped(zf, g: int):
     ``(zf + recv_y) + recv_x``. Needs nx, ny >= 2g; `_reduce_all` takes the
     serialized fold below that."""
     nx, ny = zf.shape[-3] - 2 * g, zf.shape[-2] - 2 * g
-    recv_y_hi = _hop_y(zf[..., :, ny + g:, :], +1)
-    recv_y_lo = _hop_y(zf[..., :, :g, :], -1)
-    recv_x_hi_mid = _hop_x(zf[..., nx + g:, 2 * g:ny, :], +1)
-    recv_x_lo_mid = _hop_x(zf[..., :g, 2 * g:ny, :], -1)
+    hx, hy = _hops(ranks)
+    recv_y_hi = hy(zf[..., :, ny + g:, :], +1)
+    recv_y_lo = hy(zf[..., :, :g, :], -1)
+    recv_x_hi_mid = hx(zf[..., nx + g:, 2 * g:ny, :], +1)
+    recv_x_lo_mid = hx(zf[..., :g, 2 * g:ny, :], -1)
     hi_l = zf[..., nx + g:, g:2 * g, :] + recv_y_hi[..., nx + g:, :, :]
     hi_r = zf[..., nx + g:, ny:ny + g, :] + recv_y_lo[..., nx + g:, :, :]
     lo_l = zf[..., :g, g:2 * g, :] + recv_y_hi[..., :g, :, :]
     lo_r = zf[..., :g, ny:ny + g, :] + recv_y_lo[..., :g, :, :]
-    recv_x_hi = torch.cat([_hop_x(hi_l, +1), recv_x_hi_mid, _hop_x(hi_r, +1)], dim=-2)
-    recv_x_lo = torch.cat([_hop_x(lo_l, -1), recv_x_lo_mid, _hop_x(lo_r, -1)], dim=-2)
+    recv_x_hi = torch.cat([hx(hi_l, +1), recv_x_hi_mid, hx(hi_r, +1)], dim=-2)
+    recv_x_lo = torch.cat([hx(lo_l, -1), recv_x_lo_mid, hx(lo_r, -1)], dim=-2)
     # the destination adds in the serialized order: interior, +y, +x
     out = zf[..., g:nx + g, g:ny + g, :].clone()
     out[..., :, :g, :] += recv_y_hi[..., g:nx + g, :, :]
@@ -347,7 +373,7 @@ def _into_range(pos, coord: int, extent: int):
 
 
 def migrate_axis(pos, u, w, alive, *, coord: int, extent: int, shard_axis: int, mig_cap: int, local_shape=None,
-                 compress: bool = False):
+                 compress: bool = False, ranks=None):
     """Exchange the particles out of range along one decomposed axis with
     the neighbouring shards along ``shard_axis``.
 
@@ -364,7 +390,9 @@ def migrate_axis(pos, u, w, alive, *, coord: int, extent: int, shard_axis: int, 
     never inserted.
 
     Arrivals are clipped into the receiver's range along ``coord``
-    (`_into_range`); the reference leaves a rounded one out of range."""
+    (`_into_range`); the reference leaves a rounded one out of range. With
+    a rank grid (``ranks``) the buffers of a block's edge shards cross to
+    the neighbour rank."""
     x = pos[..., coord]
     go_hi = alive & (x >= extent)
     go_lo = alive & (x < 0)
@@ -382,10 +410,10 @@ def migrate_axis(pos, u, w, alive, *, coord: int, extent: int, shard_axis: int, 
             return [pack_positions(b[0], local_shape), pack_momenta(b[1]), b[2]]
         bufs_hi, bufs_lo = pack(bufs_hi), pack(bufs_lo)
 
-    recv_prev = [ring_shift(b, shard_axis, +1) for b in bufs_hi]
-    recv_valid_prev = ring_shift(valid_hi, shard_axis, +1)
-    recv_next = [ring_shift(b, shard_axis, -1) for b in bufs_lo]
-    recv_valid_next = ring_shift(valid_lo, shard_axis, -1)
+    recv_prev = [ring_shift(b, shard_axis, +1, ranks) for b in bufs_hi]
+    recv_valid_prev = ring_shift(valid_hi, shard_axis, +1, ranks)
+    recv_next = [ring_shift(b, shard_axis, -1, ranks) for b in bufs_lo]
+    recv_valid_next = ring_shift(valid_lo, shard_axis, -1, ranks)
 
     if compress:
         def unpack(b):
@@ -407,7 +435,10 @@ class DistConfig:
     """The shard step's configuration (the reference's fields).
     ``local_grid`` is one shard's block; ``x_axes`` / ``y_axes`` name the
     mesh axes splitting grid x and y, one each: the port's mesh is two shard
-    axes, and a chain of several mesh axes on one grid axis is refused."""
+    axes, and a chain of several mesh axes on one grid axis is refused.
+    ``ranks`` (a `repro_torch.distributed.ranks.RankGrid`) is the rank grid
+    when the stack is spread over processes, each holding its block; None
+    is the one-process stack."""
 
     local_grid: GridSpec
     dt: float
@@ -422,6 +453,7 @@ class DistConfig:
     x_axes: tuple = ("data",)
     y_axes: tuple = ("model",)
     comm: CommSpec = CommSpec()
+    ranks: object = None
 
     def __post_init__(self):
         validate_shard_guard(self.local_grid, self.order)
@@ -464,9 +496,9 @@ def validate_shard_guard(local_grid: GridSpec, order: int) -> None:
 
 def _extend_all(f, g: int, cfg: DistConfig):
     if cfg.comm.overlap_halo:
-        f = halo_extend_overlapped(f, g)
+        f = halo_extend_overlapped(f, g, cfg.ranks)
     else:
-        f = halo_extend(halo_extend(f, g, 0, SHARD_X), g, 1, SHARD_Y)
+        f = halo_extend(halo_extend(f, g, 0, SHARD_X, cfg.ranks), g, 1, SHARD_Y, cfg.ranks)
     return halo_extend_periodic_local(f, g, 2)
 
 
@@ -474,8 +506,8 @@ def _reduce_all(fpad, g: int, cfg: DistConfig):
     fpad = halo_reduce_periodic_local(fpad, g, 2)
     nx, ny = cfg.local_grid.shape[0], cfg.local_grid.shape[1]
     if cfg.comm.overlap_halo and nx >= 2 * g and ny >= 2 * g:
-        return halo_reduce_overlapped(fpad, g)
-    return halo_reduce(halo_reduce(fpad, g, 1, SHARD_Y), g, 0, SHARD_X)
+        return halo_reduce_overlapped(fpad, g, cfg.ranks)
+    return halo_reduce(halo_reduce(fpad, g, 1, SHARD_Y, cfg.ranks), g, 0, SHARD_X, cfg.ranks)
 
 
 def in_domain(pos, shape):
@@ -588,7 +620,7 @@ def dist_pic_step(state: DistState, cfg: DistConfig, *, use_mid=None):
         with record_function("pic.migrate"):
             pos_new, u_new, w, alive, of, dr, ins = migrate_axis(
                 pos_new, u_new, w, alive, coord=coord, extent=shape[coord], shard_axis=shard_axis,
-                mig_cap=cfg.mig_cap, local_shape=shape, compress=cfg.comm.compress_migration)
+                mig_cap=cfg.mig_cap, local_shape=shape, compress=cfg.comm.compress_migration, ranks=cfg.ranks)
             send_overflow = send_overflow + of
             recv_dropped = recv_dropped + dr
             arrived = arrived | ins
@@ -662,20 +694,23 @@ def dist_pic_step(state: DistState, cfg: DistConfig, *, use_mid=None):
     # 2 directions x mig_cap rows whatever their occupancy
     row_bytes = MIG_ROW_BYTES_COMPRESSED if cfg.comm.compress_migration else MIG_ROW_BYTES_EXACT
     per_shard = lambda vals: _stack(vals, sx, sy)
-    alive_per_shard = torch.sum(alive, dim=-1)
-    stats = {
-        "n_moved": psum_all(per_shard([s.n_moved for s in gstats]) + invisible),
-        "n_overflow": psum_all(per_shard([s.n_overflow for s in gstats])),
-        "n_empty": psum_all(per_shard([s.n_empty for s in gstats])),
-        "mig_send_overflow": psum_all(send_overflow),
-        "mig_recv_dropped": psum_all(recv_dropped),
-        "n_unmigrated": torch.sum(alive & ~in_domain(pos_new, shape)),
-        "n_alive": psum_all(alive_per_shard),
-        "n_migrated": torch.sum(arrived),
-        "mig_payload_bytes": torch.full((), 2 * cfg.mig_cap * row_bytes * 2 * sx * sy, dtype=torch.int64,
-                                        device=pos.device),
-        "max_shard_alive": pmax_all(alive_per_shard),
+    # the per-shard counters in one [SX, SY, 8] gather (one collective over
+    # ranks); integer totals, exact in any order
+    counters = {
+        "n_moved": per_shard([s.n_moved for s in gstats]) + invisible,
+        "n_overflow": per_shard([s.n_overflow for s in gstats]),
+        "n_empty": per_shard([s.n_empty for s in gstats]),
+        "mig_send_overflow": send_overflow,
+        "mig_recv_dropped": recv_dropped,
+        "n_unmigrated": torch.sum(alive & ~in_domain(pos_new, shape), dim=-1),
+        "n_alive": torch.sum(alive, dim=-1),
+        "n_migrated": torch.sum(arrived, dim=-1),
     }
+    mesh = gather_shards(torch.stack([v.to(torch.int64) for v in counters.values()], dim=-1), cfg.ranks)
+    stats = dict(zip(counters, psum_all(mesh).unbind(-1)))
+    stats["mig_payload_bytes"] = torch.full((), 2 * cfg.mig_cap * row_bytes * 2 * n_mesh_shards(sx * sy, cfg.ranks),
+                                            dtype=torch.int64, device=pos.device)
+    stats["max_shard_alive"] = pmax_all(mesh[..., list(counters).index("n_alive")])
     new = DistState(fields=fields, pos=pos_new, u=u_new, w=w, alive=alive, slots=slots, pslot=pslot,
                     slab_d=_stack(slab_rows, sx, sy), slab_valid=_stack(valid_rows, sx, sy), mid_pos=mid_pos,
                     mid_u=mid_u)
@@ -701,21 +736,70 @@ def dist_global_sort_device(pos, u, w, alive, cfg: DistConfig):
         slab = build_bin_slab(pos_s, layout, grid_shape=shape)
         outs.append((pos_s, u_s, w_s, alive_s, layout.slots, layout.particle_slot, slab.d, slab.valid, overflow))
     cols = list(zip(*outs))
-    return (*(_stack(list(c), sx, sy) for c in cols[:8]), torch.stack(list(cols[8])).sum())
+    overflow = psum_all(_stack([o.to(torch.int64) for o in cols[8]], sx, sy), cfg.ranks)
+    return (*(_stack(list(c), sx, sy) for c in cols[:8]), overflow)
 
 
 # -- the reference's functional builders --------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class PicMesh:
+    """The port's mesh (the reference's ``jax.sharding.Mesh`` of
+    `make_pic_mesh`): ``sx x sy`` shards along grid x and y, and the rank
+    grid when they are spread over processes (None: every shard in this
+    process). ``block`` is the ``(bx, by)`` shards this process holds."""
+
+    sx: int
+    sy: int
+    ranks: object = None
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.sx, self.sy
+
+    @property
+    def block(self) -> tuple[int, int]:
+        if self.ranks is None:
+            return self.sx, self.sy
+        return self.sx // self.ranks.px, self.sy // self.ranks.py
+
+
+def make_pic_mesh(sx: int, sy: int, group=None) -> PicMesh:
+    """The ``sx x sy`` mesh: its shards all in this process (``group``
+    None, or a group of one rank), or spread over the ranks of a
+    `torch.distributed` process group, each rank a contiguous block on the
+    group's device, the rank grid the x-first choice
+    (`repro_torch.distributed.ranks`). A rank count with no grid that
+    divides the mesh is refused by name. Counterpart of
+    `repro.pic.dist_simulation.make_pic_mesh`."""
+    import torch.distributed as dist
+
+    sx, sy = mesh_pair((sx, sy))
+    if group is None or dist.get_world_size(group) == 1:
+        return PicMesh(sx, sy)
+    from repro_torch.distributed.ranks import RankGrid
+
+    return PicMesh(sx, sy, RankGrid.of_group(sx, sy, group))
+
+
 def mesh_pair(mesh) -> tuple[int, int]:
-    """A mesh of the port: the pair ``(sx, sy)`` of shard counts along grid
-    x and y (the reference's ``jax.sharding.Mesh``, whose devices the port
-    stacks on one device). Anything else is refused."""
+    """A mesh of the port: a `PicMesh`, or the pair ``(sx, sy)`` of shard
+    counts along grid x and y (the reference's ``jax.sharding.Mesh``, whose
+    devices the port stacks on one device or spreads over ranks). Anything
+    else is refused."""
+    if isinstance(mesh, PicMesh):
+        return mesh.shape
     if (isinstance(mesh, (tuple, list)) and len(mesh) == 2
             and all(isinstance(v, (int, np.integer)) and not isinstance(v, bool) and v > 0 for v in mesh)):
         return int(mesh[0]), int(mesh[1])
-    raise TypeError(f"a mesh in the port is the pair (sx, sy) of shard counts, got {mesh!r}: the port stacks "
-                    "the shards on one device and takes no jax.sharding.Mesh")
+    raise TypeError(f"a mesh in the port is a PicMesh or the pair (sx, sy) of shard counts, got {mesh!r}: the "
+                    "port takes no jax.sharding.Mesh")
+
+
+def as_pic_mesh(mesh) -> PicMesh:
+    """A `PicMesh`, or a pair ``(sx, sy)`` as the one-process mesh."""
+    return mesh if isinstance(mesh, PicMesh) else PicMesh(*mesh_pair(mesh))
 
 
 def _check_stack(t: torch.Tensor, sx: int, sy: int, name: str) -> None:
@@ -748,10 +832,15 @@ def make_dist_step(mesh, cfg: DistConfig):
     w, alive, slots, pslot, slab_d, slab_valid)`` returning the same nine,
     and the `STAT_KEYS` dict of 0-d tensors (mesh totals). ``fields6`` are
     the six global (NX, NY, NZ) components, the particle arrays ``[SX, SY,
-    ...]`` shard stacks; ``mesh`` is the pair ``(sx, sy)``. The step writes
-    none of its inputs. The guard check runs first, as the reference's."""
+    ...]`` shard stacks; ``mesh`` is the pair ``(sx, sy)`` or a `PicMesh`.
+    Over ranks every argument is the rank's block (its shards' stacks, and
+    the part of the grid they cover) and the totals are the mesh's. The
+    step writes none of its inputs. The guard check runs first, as the
+    reference's."""
     validate_shard_guard(cfg.local_grid, cfg.order)
-    sx, sy = mesh_pair(mesh)
+    mesh = as_pic_mesh(mesh)
+    sx, sy = mesh.block
+    cfg = dataclasses.replace(cfg, ranks=mesh.ranks)
 
     def step(fields, pos, u, w, alive, slots, pslot, slab_d, slab_valid):
         _check_stack(pos, sx, sy, "pos")
@@ -764,11 +853,13 @@ def make_dist_step(mesh, cfg: DistConfig):
 
 def make_dist_sort(mesh, cfg: DistConfig):
     """The reference's sort builder: a function of ``(pos, u, w, alive)``,
-    shard stacks of ``mesh`` = ``(sx, sy)``, returning every shard's global
-    sort at ``cfg.capacity`` (`dist_global_sort_device`): ``(pos, u, w,
-    alive, slots, pslot, slab_d, slab_valid, overflow)``, the overflow
-    summed over the shards."""
-    sx, sy = mesh_pair(mesh)
+    shard stacks of ``mesh`` = ``(sx, sy)`` (or of a `PicMesh`'s block on
+    this rank), returning every shard's global sort at ``cfg.capacity``
+    (`dist_global_sort_device`): ``(pos, u, w, alive, slots, pslot, slab_d,
+    slab_valid, overflow)``, the overflow summed over the mesh."""
+    mesh = as_pic_mesh(mesh)
+    sx, sy = mesh.block
+    cfg = dataclasses.replace(cfg, ranks=mesh.ranks)
 
     def sort(pos, u, w, alive):
         _check_stack(pos, sx, sy, "pos")
@@ -781,12 +872,13 @@ def make_dist_sort(mesh, cfg: DistConfig):
 
 
 def partition_particles(parts: ParticleState, global_grid: GridSpec, sx: int, sy: int, n_local: int, *,
-                        device=None):
+                        device=None, ranks=None):
     """A global `ParticleState` split into ``[sx, sy, n_local, ...]`` shard
     tensors with local-frame positions, on ``device`` (default: the
-    particles'). Each shard keeps its particles in their global order; the
-    split is the reference's, in numpy on the host. Fails if a shard would
-    hold more than ``n_local``."""
+    particles'); with a rank grid, only this rank's block of them. Each
+    shard keeps its particles in their global order; the split is the
+    reference's, in numpy on the host. Fails if a shard would hold more
+    than ``n_local``."""
     device = parts.pos.device if device is None else device
     nx_loc = global_grid.shape[0] // sx
     ny_loc = global_grid.shape[1] // sy
@@ -814,33 +906,45 @@ def partition_particles(parts: ParticleState, global_grid: GridSpec, sx: int, sy
             out_u[a, b, :k] = u[m]
             out_w[a, b, :k] = w[m]
             out_alive[a, b, :k] = True
-    return tuple(torch.from_numpy(t).to(device) for t in (out_pos, out_u, out_w, out_alive))
+    out = tuple(torch.from_numpy(t) for t in (out_pos, out_u, out_w, out_alive))
+    if ranks is not None:
+        out = tuple(ranks.block(t) for t in out)
+    return tuple(t.to(device) for t in out)
 
 
-def build_local_bins(pos, alive, local_grid: GridSpec, capacity: int):
+def build_local_bins(pos, alive, local_grid: GridSpec, capacity: int, ranks=None):
     """Each shard's initial bins and slab (the first step's gather consumes
     the slab). Returns ``(slots, pslot, slab_d, slab_valid, overflow)``,
-    the overflow summed over the shards, read on the host."""
+    the overflow summed over the mesh (over every rank's block with a rank
+    grid), read on the host."""
     sx, sy = pos.shape[:2]
-    outs, overflow = [], 0
+    outs, overflows = [], []
     for pos_s, alive_s in zip(_shards(pos), _shards(alive)):
         layout, of = build_bins(cell_index(pos_s, local_grid.shape), alive_s, n_cells=local_grid.n_cells,
                                 capacity=capacity)
         slab = build_bin_slab(pos_s, layout, grid_shape=local_grid.shape)
         outs.append((layout.slots, layout.particle_slot, slab.d, slab.valid))
-        overflow += int(of)
+        overflows.append(of.to(torch.int64))
+    overflow = int(psum_all(_stack(overflows, sx, sy), ranks))
     return (*(_stack(list(c), sx, sy) for c in zip(*outs)), overflow)
 
 
-def blocks_from_global(fields, sx: int, sy: int) -> torch.Tensor:
+def blocks_from_global(fields, sx: int, sy: int, ranks=None) -> torch.Tensor:
     """Six global (NX, NY, NZ) components -> the ``[6, SX, SY, nx, ny, nz]``
-    shard blocks."""
+    shard blocks; with a rank grid, this rank's ``[6, BX, BY, ...]`` of
+    them."""
     f = torch.stack(list(fields))
     _, nxg, nyg, nz = f.shape
-    return f.reshape(6, sx, nxg // sx, sy, nyg // sy, nz).permute(0, 1, 3, 2, 4, 5).contiguous()
+    blocks = f.reshape(6, sx, nxg // sx, sy, nyg // sy, nz).permute(0, 1, 3, 2, 4, 5)
+    if ranks is not None:
+        blocks = ranks.block(blocks, first=1)
+    return blocks.contiguous()
 
 
-def global_from_blocks(blocks: torch.Tensor) -> torch.Tensor:
-    """``[6, SX, SY, nx, ny, nz]`` shard blocks -> (6, NX, NY, NZ)."""
+def global_from_blocks(blocks: torch.Tensor, ranks=None) -> torch.Tensor:
+    """``[6, SX, SY, nx, ny, nz]`` shard blocks -> (6, NX, NY, NZ); with a
+    rank grid, every rank's ``[6, BX, BY, ...]`` gathered first."""
+    if ranks is not None:
+        blocks = ranks.gather(blocks, first=1)
     k, sx, sy, nx, ny, nz = blocks.shape
     return blocks.permute(0, 1, 3, 2, 4, 5).reshape(k, sx * nx, sy * ny, nz)

@@ -69,6 +69,7 @@ import dataclasses
 import functools
 import os
 import time
+import warnings
 from collections import OrderedDict
 
 import numpy as np
@@ -1052,6 +1053,15 @@ def consume_window_bundle(host: dict, host_step: int, diagnostics_every: int, hi
 
 UNSET = object()
 
+#: the warning a driver built directly, without a spec, gives (the
+#: reference's message, with the port's names)
+DEPRECATION_MSG = (
+    "{cls}(fields, particles, config) is deprecated: describe the run as a repro_torch.api.SimSpec (scenario "
+    "registry: repro_torch.api.scenario) and build the driver with repro_torch.api.make_simulation(spec). The "
+    "direct constructor builds the same driver and keeps working, but a spec-built driver also carries run "
+    "defaults, provenance and the metadata a checkpoint rebuilds it from."
+)
+
 
 def resolve_run_args(spec, n_steps, diagnostics_every, window, autosave_every=None, autosave_path=None):
     """`Simulation.run`'s arguments against the driver's spec (None or
@@ -1096,8 +1106,9 @@ class Simulation:
     policy's word, capacity growth on a persistent overflow, and the fault
     supervisor's rollback, remedy ladder and autosave.
 
-    Build it with `repro_torch.api.make_simulation(spec)`; the state's
-    tensors decide the device. ``run(n, window=K)`` runs windows: on a CUDA
+    Build it with `repro_torch.api.make_simulation(spec)` (built directly,
+    with no spec, it warns `DeprecationWarning`, as the reference's); the
+    state's tensors decide the device. ``run(n, window=K)`` runs windows: on a CUDA
     device each window replays one captured CUDA graph of the step, with
     the sort decision and the window's halt as IF nodes (``use_graphs``,
     default on for CUDA); the state's tensors are then the graph's, updated
@@ -1109,6 +1120,8 @@ class Simulation:
 
     def __init__(self, fields: FieldState, particles: ParticleState, config: PICConfig,
                  policy: SortPolicyConfig | None = None, *, spec=None):
+        if spec is None:
+            warnings.warn(DEPRECATION_MSG.format(cls="Simulation"), DeprecationWarning, stacklevel=2)
         self.spec = spec
         self.config = config
         state, overflow = init_state(fields, particles, config)

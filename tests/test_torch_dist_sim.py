@@ -205,7 +205,7 @@ def test_facade_spec_and_refusals(tmp_path, monkeypatch):
         single.restore(str(tmp_path / "a"))
 
 
-def test_pic_run_mesh_and_spec(tmp_path):
+def test_pic_run_mesh_and_spec(tmp_path, capfd):
     buf = io.StringIO()
     with redirect_stdout(buf):
         pic_run.main(["--mesh", "2x2", "--device", "cpu", "--grid", "8", "8", "8", "--steps", "4", "--window", "2"])
@@ -221,6 +221,23 @@ def test_pic_run_mesh_and_spec(tmp_path):
     assert "mesh 4x2" in buf.getvalue()
     with pytest.raises(SystemExit):
         pic_run.main(["--mesh", "4x", "--device", "cpu"])
+
+    # the reference's communication flags set spec.comm as its launcher does
+    comm = ["--overlap-halo", "--compress-migration", "--rebalance", "--imbalance-ratio", "3.0"]
+    with redirect_stdout(io.StringIO()):
+        pic_run.main(["--mesh", "2x2", "--grid", "8", "8", "8", "--dump-spec", str(path), *comm])
+    want = rapi.scenario("uniform", grid=(8, 8, 8), mesh="2x2", comm={"overlap_halo": True, "compress_migration": True,
+                                                                       "rebalance_enable": True, "imbalance_ratio": 3.0})
+    assert path.read_text() == want.to_json()
+    # two ranks on the CPU (spawned processes: rank 0 prints to the inherited stdout)
+    capfd.readouterr()
+    pic_run.main(["--ranks", "2", "--device", "cpu", "--mesh", "2x2", "--grid", "8", "8", "8", "--steps", "4",
+                  "--window", "2", *comm])
+    out = capfd.readouterr().out
+    assert out.count("mesh 2x2 over 2 ranks (2x1), device cpu") == 1, out
+    assert "host reads/window=1.0" in out and "comm_stats" in out and "energies:" in out, out
+    with pytest.raises(SystemExit):
+        pic_run.main(["--ranks", "2", "--device", "cpu", "--grid", "8", "8", "8"])  # no mesh
 
 
 # -- chaos paths (tests/dist_chaos_check.py) -------------------------------------------------
