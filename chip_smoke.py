@@ -246,7 +246,27 @@ Phases, in order; any failure exits non-zero:
    step; (b) where two or
    more cards are visible, ``min(count, 4)`` spawned ranks, one card each,
    on the same cell, bit-equal to (a), with ms/step and the peak GB of
-   each card; with one card a line says that (b) did not run.
+   each card; with one card a line says that (b) did not run;
+25. the LM stack's data and pipe axes over ranks, one process a rank (plain
+   PyTorch ops and NCCL, no kernel of the port's): (a) an NCCL group of one
+   rank, joined through a ``FileStore`` under build/, whose collectives are
+   real and counted (`AxisRanks.counts` and the `torch.distributed` calls):
+   21(d)'s phi3-mini-3.8b at full width, its first 3 steps through the
+   data-parallel step (`make_train_step(..., ranks=...)`, the gradients
+   all-gathered a 64 MiB chunk at a time and summed in rank order) and the
+   `Supervisor` over the rank (a failure flag agreed a step), the losses
+   bit-equal to 21(d)'s, ms a step beside 21(d)'s, peak memory, the
+   reduction's ms a step and bytes; 22(c)'s compressed reduction of one
+   phi3 period over 8 shards as the one rank's block, bit-equal to the
+   stacked call (mean, residuals, exact mean), both timed in turns; 22(b)'s
+   GPipe of phi3 as 4 stages as the one rank's block, bit-equal to the
+   stacked run, both timed in three rounds of turns, with one call's host
+   enqueue against its wall time; (b) where two or more cards are visible, 4 ranks (2 with 2
+   or 3 cards), one card each: phi3 at one sequence a rank bit-equal to
+   the one-process step at ``microbatches`` = the rank count (losses and
+   the parameters' SHA-256), and the reduction and GPipe over the ranks
+   bit-equal to their stacked runs; with one card a line says that (b) did
+   not run.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -319,6 +339,12 @@ LM_TRAIN_SMOKE_STEPS = 3
 # GPipe stages of 8 over 8 microbatches of 1 x 512 hidden states; the
 # compressed all-reduce over 8 stacked data shards
 LM_DIST = dict(steps=3, data=2, model=2, stages=4, micro=8, mb_seq=512, shards=8)
+# phase 25: the data and pipe axes over ranks: 21(d)'s first steps through
+# the data-parallel step, 22(c)'s reduction and 22(b)'s GPipe as one rank's
+# block; with two or more cards (b) runs them over 4 ranks (2 with 2 or 3
+# cards: 8 shards and 4 stages split evenly), one card each, phi3 at a
+# global batch of one sequence a rank
+LM_RANKS = dict(steps=3)
 
 
 # the kernel that a dispatcher op's backend launches once a step
@@ -349,6 +375,28 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_turns(torch, a, b, reps: int) -> tuple[list[float], list[float]]:
+    """`time_ms` of ``a`` and ``b`` in turns, a, b, b, a: two readings of
+    each, so that a drift of the card's clocks falls on both."""
+    a1, b1, b2, a2 = (time_ms(torch, fn, reps) for fn in (a, b, b, a))
+    return [a1, a2], [b1, b2]
+
+
+def host_enqueue(torch, fn) -> tuple[float, float]:
+    """One call of ``fn`` from an idle card: (ms until the host returns,
+    ms until the card is done). Near-equal when the host sets the pace."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host * 1e3, (time.perf_counter() - t0) * 1e3
+
+
+def fmt_ms(values, digits: int) -> str:
+    return ", ".join(f"{v:.{digits}f}" for v in values)
 
 
 def max_err(torch, got, want) -> float:
@@ -1612,6 +1660,275 @@ def ranks_phase(torch, kernels, dispatch, dev, smi: str, p19: dict) -> None:
     say(f"phase 24b: {time.perf_counter() - t0:.1f} s")
 
 
+class CollectiveCount:
+    """Counts the calls of `torch.distributed`'s collectives the rank path
+    issues, while entered (phase 25, as phase 24(a) counts its
+    all-gathers)."""
+
+    NAMES = ("all_gather_into_tensor", "all_reduce", "broadcast", "batch_isend_irecv", "barrier")
+
+    def __init__(self, dist):
+        self.dist, self.calls, self.saved = dist, {}, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(self.dist, name)
+
+            def counted(*args, _fn=fn, _name=name, **kw):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _fn(*args, **kw)
+
+            setattr(self.dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1):
+    """Phase 21(d)'s phi3-mini-3.8b (bf16, float32 moments, seed 0) at a
+    global batch of ``batch`` x 4096, ``LM_RANKS["steps"]`` steps through
+    the `Supervisor`: over ``data_ranks`` (one shard a rank) the
+    data-parallel step, else the one-process step at ``microbatches``.
+    Returns the losses, ms a step (the median after the first), peak GB,
+    the reduction's ms a step and bytes a rank, and the state."""
+    import statistics
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import DataConfig, shard_batch_at
+    from repro_torch.distributed.fault import Supervisor
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import StepClock, TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config(LM_TRAIN_FULL["arch"])
+    n = LM_RANKS["steps"]
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3),
+                       schedule=ScheduleConfig(warmup_steps=10, total_steps=LM_TRAIN_FULL["steps"]),
+                       microbatches=microbatches)
+    data = DataConfig(vocab_size=cfg.vocab_size, global_batch=batch, seq_len=LM_TRAIN_FULL["seq"], seed=0)
+    torch.cuda.synchronize(dev)       # the card's context exists before its memory stats are reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    clock = StepClock(dev)
+    step = make_train_step(cfg, tcfg, data_ranks)
+    timed = clock.wrap(step)
+    r, w = (0, 1) if data_ranks is None else (data_ranks.rank, data_ranks.world)
+    sup = Supervisor(lambda st, i: timed(st, shard_batch_at(i, data, r, w, device=dev)), _NoCheckpoint(),
+                     async_save=True, ranks=data_ranks)
+    state, _ = sup.run(state, n)
+    step_ms = clock.ms()
+    out = {"losses": [float(m["loss"]) for m in sup.metrics_log], "ms": statistics.median(step_ms[1:]),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "state": state}
+    if data_ranks is not None:
+        red = step.reduction.ms()
+        out.update(reduce_ms=statistics.median(red[1:]), reduce_bytes=step.reduce_bytes)
+    return out
+
+
+def lm_rank_cell(rank: int, world: int, store: str, out: str, want: dict) -> None:
+    """Phase 25(b)'s rank: join the NCCL group of ``world`` ranks, one card
+    each; phi3's data-parallel steps (one sequence a rank), 22(c)'s
+    reduction and 22(b)'s GPipe over the ranks, each held bit for bit to
+    ``want`` (the stacked runs' SHA-256 digests, taken on one card: the
+    parameters after the steps, the reduction's outputs, the pipeline's);
+    rank 0 writes the results to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.compression import compressed_psum_grads, exact_pmean_grads
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.ranks import AxisRanks, close_ranks, init_ranks
+    from repro_torch.tree import tree_map
+
+    dev = init_ranks(rank, world, store)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        group = dist.group.WORLD
+        cfg = get_config(LM_TRAIN_FULL["arch"])
+        got = phi3_ranks_run(torch, dev, AxisRanks.of_group("data", world, group), world)
+        res = {k: got[k] for k in ("losses", "ms", "peak_gb", "reduce_ms", "reduce_bytes")}
+        res["params"] = tensor_digest(torch, got.pop("state")["params"])
+        del got
+        torch.cuda.empty_cache()
+        data = AxisRanks.of_group("data", LM_DIST["shards"], group)
+        g, r = phi3_period_grads(torch, cfg, dev)
+        mean, new_r = compressed_psum_grads([data.block(t) for t in g], [data.block(t) for t in r], data)
+        exact = exact_pmean_grads([data.block(t) for t in g], data)
+        res["reduction"] = tensor_digest(torch, [mean, [data.gather(t) for t in new_r], exact])
+        del g, r, mean, new_r, exact
+        torch.cuda.empty_cache()
+        pipe = AxisRanks.of_group("pipe", LM_DIST["stages"], group)
+        params, stages, stage_fn, hidden = phi3_gpipe(torch, cfg, dev)
+        with torch.no_grad():
+            y = pipeline_forward(tree_map(pipe.block, stages), hidden, stage_fn, mesh={"pipe": LM_DIST["stages"]},
+                                 ranks=pipe)
+        res["gpipe"] = tensor_digest(torch, y)
+        res["peak_gb_all"] = [float(v) for v in
+                              data.values(torch.tensor(torch.cuda.max_memory_allocated(dev) / 1e9, device=dev)).cpu()]
+        res["same"] = {k: res[k] == want[k] for k in ("params", "reduction", "gpipe")}
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+    finally:
+        close_ranks()
+
+
+def tensor_digest(torch, tree) -> str:
+    """SHA-256 of the bytes of every leaf of ``tree`` in order."""
+    import hashlib
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def lm_ranks_phase(torch, dispatch, dev, smi: str, full_losses: list[float], full_ms: float) -> None:
+    """Phase 25: the LM stack's data and pipe axes over ranks (see the
+    module docstring). ``full_losses``, ``full_ms``: phase 21(d)'s."""
+    import statistics
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.compression import compressed_psum_grads, exact_pmean_grads
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.ranks import AxisRanks, close_ranks, init_ranks
+
+    torch.set_float32_matmul_precision("highest")
+    cfg = get_config(LM_TRAIN_FULL["arch"])
+    n = LM_RANKS["steps"]
+
+    # (a) one rank: an NCCL group of one, its collectives run for real
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_lm_ranks_", dir=ROOT / "build")
+    try:
+        init_ranks(0, 1, store)
+        group = dist.group.WORLD
+        data1 = AxisRanks.of_group("data", 1, group)
+        with CollectiveCount(dist) as cc:
+            got = phi3_ranks_run(torch, dev, data1, LM_TRAIN_FULL["batch"])
+        del got["state"]
+        torch.cuda.empty_cache()
+        want = full_losses[:n]
+        say(f"lm ranks (a) [{smi}]: NCCL group of 1 rank over a FileStore; {cfg.name} at full width (bf16, "
+            f"{cfg.n_layers} layers, float32 moments), batch {LM_TRAIN_FULL['batch']} x {LM_TRAIN_FULL['seq']} on the "
+            f"data axis of 1 rank, {n} steps through the data-parallel step and the Supervisor over the rank: losses "
+            + " ".join(f"{x:.4f}" for x in got["losses"]) + f", bit-equal to phase 21(d)'s first {n}: "
+            f"{got['losses'] == want}; {got['ms']:.1f} ms/step (median of steps 2-{n}; 21(d): {full_ms:.1f}), peak "
+            f"{got['peak_gb']:.2f} GB; gradient reduction {got['reduce_ms']:.2f} ms/step (median of steps 2-{n}), "
+            f"{got['reduce_bytes'] / 1e9:.3f} GB a rank; collectives {dict(data1.counts)}, torch.distributed calls "
+            f"{cc.calls}")
+        if got["losses"] != want:
+            fail(f"lm ranks (a): losses {got['losses']!r}, phase 21(d)'s {want!r} (bit-equal)")
+        if not cc.calls.get("all_gather_into_tensor") or not data1.counts["reduce_gather"]:
+            fail(f"lm ranks (a): the reduction issued no NCCL all-gather ({cc.calls})")
+
+        # 22(c)'s reduction: the 8 shards as the one rank's block
+        data8 = AxisRanks.of_group("data", LM_DIST["shards"], group)
+        g, r = phi3_period_grads(torch, cfg, dev)
+        with CollectiveCount(dist) as cc:
+            m_rank, r_rank = compressed_psum_grads(g, r, data8)
+            e_rank = exact_pmean_grads(g, data8)
+        m_one, r_one = compressed_psum_grads(g, r)
+        e_one = exact_pmean_grads(g)
+        same = all(torch.equal(a, b) for a, b in zip(m_rank + r_rank + e_rank, m_one + r_one + e_one))
+        ms_rank, ms_one = in_turns(torch, lambda: compressed_psum_grads(g, r, data8),
+                                   lambda: compressed_psum_grads(g, r), 3)
+        say(f"  phase 22(c)'s compressed reduction of one {cfg.name} period ({len(g)} leaves, bf16) over "
+            f"{LM_DIST['shards']} shards as one rank's block: mean, residuals and exact mean bit-equal to the stacked "
+            f"call: {same}; {fmt_ms(ms_rank, 2)} ms against the stacked {fmt_ms(ms_one, 2)} ms (in turns: rank, "
+            f"stacked, stacked, rank); torch.distributed calls {cc.calls} "
+            f"(a max gathered and an int32 all-reduce a leaf, a gather a leaf for the exact mean) [{smi}]")
+        if not same:
+            fail("lm ranks (a): the compressed reduction over the rank is not bit-equal to phase 22(c)'s stacked call")
+        del g, r, m_rank, r_rank, e_rank, m_one, r_one, e_one
+        torch.cuda.empty_cache()
+
+        # 22(b)'s GPipe: the 4 stages as the one rank's block
+        pipe4 = AxisRanks.of_group("pipe", LM_DIST["stages"], group)
+        params, stages, stage_fn, hidden = phi3_gpipe(torch, cfg, dev)
+        mesh = {"pipe": LM_DIST["stages"]}
+        with torch.no_grad():
+            with CollectiveCount(dist) as cc:
+                y_rank = pipeline_forward(stages, hidden, stage_fn, mesh=mesh, ranks=pipe4)
+            y_one = pipeline_forward(stages, hidden, stage_fn, mesh=mesh)
+            same = torch.equal(y_rank, y_one)
+            # 1 x 512 tokens a stage call: the host's enqueue sets the pace,
+            # so three rounds in turns, and one call's enqueue against its
+            # wall time for each
+            piped = {"rank": lambda: pipeline_forward(stages, hidden, stage_fn, mesh=mesh, ranks=pipe4),
+                     "stacked": lambda: pipeline_forward(stages, hidden, stage_fn, mesh=mesh)}
+            ms = {"rank": [], "stacked": []}
+            for _ in range(3):
+                a, b = in_turns(torch, piped["rank"], piped["stacked"], 2)
+                ms["rank"] += a
+                ms["stacked"] += b
+            enqueue = {name: host_enqueue(torch, fn) for name, fn in piped.items()}
+        say(f"  phase 22(b)'s GPipe of {cfg.name} as {LM_DIST['stages']} stages, one rank's block, "
+            f"{LM_DIST['micro']} microbatches of 1 x {LM_DIST['mb_seq']}: bit-equal to the stacked run: {same}; "
+            f"three rounds in turns, rank {fmt_ms(ms['rank'], 1)} ms (median {statistics.median(ms['rank']):.1f}), "
+            f"stacked {fmt_ms(ms['stacked'], 1)} ms (median {statistics.median(ms['stacked']):.1f}); one call's host "
+            f"enqueue against its wall time: " + ", ".join(f"{k} {h:.1f} of {w:.1f} ms" for k, (h, w) in enqueue.items())
+            + f"; torch.distributed calls {cc.calls} (the exchanges have no partner on one rank; the outputs' "
+            f"broadcast is real) [{smi}]")
+        if not same or not cc.calls.get("broadcast"):
+            fail(f"lm ranks (a): GPipe over the rank bit-equal {same}, calls {cc.calls}")
+        del params, stages, hidden, y_rank, y_one
+        torch.cuda.empty_cache()
+    finally:
+        close_ranks()
+        shutil.rmtree(store, ignore_errors=True)
+    no_plain(dispatch, "lm ranks (a)")
+    say(f"phase 25a: {time.perf_counter() - t0:.1f} s")
+
+    # (b) one card a rank
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        say(f"lm ranks (b): needs two or more cards, {n_cards} visible: did not run")
+        return
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    world = 4 if n_cards >= 4 else 2
+    # the stacked runs on this card first: the one-process step at
+    # microbatches = world, the reduction and GPipe
+    one = phi3_ranks_run(torch, dev, None, world, microbatches=world)
+    want = {"params": tensor_digest(torch, one.pop("state")["params"])}
+    torch.cuda.empty_cache()
+    g, r = phi3_period_grads(torch, cfg, dev)
+    m, new_r = compressed_psum_grads(g, r)
+    want["reduction"] = tensor_digest(torch, [m, new_r, exact_pmean_grads(g)])
+    del g, r, m, new_r
+    params, stages, stage_fn, hidden = phi3_gpipe(torch, cfg, dev)
+    with torch.no_grad():
+        want["gpipe"] = tensor_digest(torch, pipeline_forward(stages, hidden, stage_fn,
+                                                              mesh={"pipe": LM_DIST["stages"]}))
+    del params, stages, hidden
+    torch.cuda.empty_cache()
+    store = tempfile.mkdtemp(prefix="chip_smoke_lm_ranks_", dir=ROOT / "build")
+    out = Path(store) / "rank0.json"
+    try:
+        mp.start_processes(lm_rank_cell, args=(world, store, str(out), want), nprocs=world, start_method="spawn")
+        got = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    say(f"lm ranks (b) [{smi}]: {world} ranks, one card each (NCCL): {cfg.name} data-parallel at one sequence a rank, "
+        f"losses " + " ".join(f"{x:.4f}" for x in got["losses"]) + f" (one process at microbatches={world}: "
+        + " ".join(f"{x:.4f}" for x in one["losses"]) + f"), {got['ms']:.1f} ms/step against the one process's "
+        f"{one['ms']:.1f}, reduction {got['reduce_ms']:.2f} ms/step and {got['reduce_bytes'] / 1e9:.3f} GB a rank, "
+        f"peak GB per card {[round(v, 2) for v in got['peak_gb_all']]}; bit-equal to the one-card runs: {got['same']}")
+    if not all(got["same"].values()) or got["losses"] != one["losses"]:
+        fail(f"lm ranks (b): bit-equal {got['same']}, losses {got['losses']} against {one['losses']}")
+    say(f"phase 25b: {time.perf_counter() - t0:.1f} s")
+
+
 def tree_equal(torch, a, b) -> bool:
     """Two dataclass trees of tensors (or None) bit for bit."""
     import dataclasses
@@ -1962,9 +2279,9 @@ class _NoCheckpoint:
         return None
 
 
-def train_phase(torch, np, dispatch, dev, smi: str) -> list[float]:
+def train_phase(torch, np, dispatch, dev, smi: str) -> tuple[list[float], float]:
     """Phase 21: LM training on the card (see the module docstring).
-    Returns (d)'s losses."""
+    Returns (d)'s losses and its ms a step."""
     import dataclasses
     import statistics
 
@@ -2198,7 +2515,51 @@ def train_phase(torch, np, dispatch, dev, smi: str) -> list[float]:
     torch.cuda.empty_cache()
     say(f"phase 21d: {time.perf_counter() - t0:.1f} s")
     no_plain(dispatch, "LM training")
-    return losses
+    return losses, ms
+
+
+def phi3_gpipe(torch, cfg, dev):
+    """Phases 22(b) and 25: phi3's parameters from seed 0, its periods as
+    ``LM_DIST["stages"]`` stacked stages (views of the layer stack), the
+    stage function (the model's own block over the stage's periods) and
+    the microbatches of hidden states from seed 22."""
+    from repro_torch.models.transformer import _block_apply, init_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    n_st, n_mb, mb_seq = LM_DIST["stages"], LM_DIST["micro"], LM_DIST["mb_seq"]
+    per = cfg.n_periods // n_st
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    layers = params["layers"][0]            # phi3's pattern is one block: a period is a layer
+    stages = tree_map(lambda a: a.view(n_st, per, *a.shape[1:]), layers)
+    if any(a.data_ptr() != b.data_ptr() for a, b in zip(tree_leaves(stages), tree_leaves(layers))):
+        fail("the GPipe stages are not views of the layer stack")
+    spec = cfg.pattern[0]
+    pos = torch.arange(mb_seq, dtype=torch.int32, device=dev)
+
+    def stage_fn(p, x):
+        for i in range(per):
+            x, _, _ = _block_apply(tree_map(lambda a: a[i], p), x, spec, cfg, positions=pos, cache=None,
+                                   cache_index=None, causal=True, enc_out=None)
+        return x
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    hidden = torch.randn((n_mb, 1, mb_seq, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    return params, stages, stage_fn, hidden
+
+
+def phi3_period_grads(torch, cfg, dev):
+    """Phases 22(c) and 25: one phi3 period's gradient leaves in bf16 over
+    ``LM_DIST["shards"]`` stacked shards and float32 residuals, from seed
+    23."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_leaves
+
+    shards = LM_DIST["shards"]
+    shapes = [a.shape[1:] for a in tree_leaves(init_params(None, cfg, device="meta")["layers"])]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    g = [(torch.randn((shards, *sh), generator=gen, device=dev) * 1e-3).to(cfg.dtype) for sh in shapes]
+    r = [torch.randn((shards, *sh), generator=gen, device=dev) * 1e-6 for sh in shapes]
+    return g, r
 
 
 def lm_dist_phase(torch, np, dispatch, dev, smi: str, full_losses: list[float]) -> None:
@@ -2215,10 +2576,9 @@ def lm_dist_phase(torch, np, dispatch, dev, smi: str, full_losses: list[float]) 
     from repro_torch.distributed.sharding import rules_for
     from repro_torch.launch.train import StepClock
     from repro_torch.models.common import embed_lookup
-    from repro_torch.models.transformer import _block_apply, init_params
     from repro_torch.optim import AdamWConfig, ScheduleConfig
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
 
     torch.set_float32_matmul_precision("highest")
     spec_ex = importlib.util.spec_from_file_location("torch_dist_lm", ROOT / "examples" / "torch_dist_lm.py")
@@ -2297,22 +2657,7 @@ def lm_dist_phase(torch, np, dispatch, dev, smi: str, full_losses: list[float]) 
     t0 = time.perf_counter()
     n_st, n_mb, mb_seq = LM_DIST["stages"], LM_DIST["micro"], LM_DIST["mb_seq"]
     per = cfg.n_periods // n_st
-    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
-    layers = params["layers"][0]            # phi3's pattern is one block: a period is a layer
-    stages = tree_map(lambda a: a.view(n_st, per, *a.shape[1:]), layers)
-    if any(a.data_ptr() != b.data_ptr() for a, b in zip(tree_leaves(stages), tree_leaves(layers))):
-        fail("the GPipe stages are not views of the layer stack")
-    spec = cfg.pattern[0]
-    pos = torch.arange(mb_seq, dtype=torch.int32, device=dev)
-
-    def stage_fn(p, x):
-        for i in range(per):
-            x, _, _ = _block_apply(tree_map(lambda a: a[i], p), x, spec, cfg, positions=pos, cache=None,
-                                   cache_index=None, causal=True, enc_out=None)
-        return x
-
-    gen = torch.Generator(device=dev).manual_seed(22)
-    hidden = torch.randn((n_mb, 1, mb_seq, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    params, stages, stage_fn, hidden = phi3_gpipe(torch, cfg, dev)
 
     def piped():
         return pipeline_forward(stages, hidden, stage_fn, mesh={"pipe": n_st})
@@ -2340,7 +2685,7 @@ def lm_dist_phase(torch, np, dispatch, dev, smi: str, full_losses: list[float]) 
         f"{n_mb} microbatches of 1 x {mb_seq} hidden states, bf16, no grad: bit-equal to the sequential composition; "
         f"{ms_pipe:.1f} ms against {ms_seq:.1f} ms, ratio {ms_pipe / ms_seq:.3f} (the schedule's "
         f"{calls}/{n_st * n_mb * per} = {calls / (n_st * n_mb * per):.3f} layer calls) [{smi}]")
-    del params, layers, stages, hidden, got, ref
+    del params, stages, hidden, got, ref
     torch.cuda.empty_cache()
     w, x = (torch.from_numpy(a).to(dev) for a in ex.pipeline_inputs())
     got, ref = ex.pipeline_check(w, x)
@@ -2386,10 +2731,7 @@ def lm_dist_phase(torch, np, dispatch, dev, smi: str, full_losses: list[float]) 
 
     # one phi3 period's gradient leaves in bf16 over 8 shards, float32 residuals
     shards = LM_DIST["shards"]
-    shapes = [a.shape[1:] for a in tree_leaves(init_params(None, cfg, device="meta")["layers"])]
-    gen = torch.Generator(device=dev).manual_seed(23)
-    g = [(torch.randn((shards, *sh), generator=gen, device=dev) * 1e-3).to(cfg.dtype) for sh in shapes]
-    r = [torch.randn((shards, *sh), generator=gen, device=dev) * 1e-6 for sh in shapes]
+    g, r = phi3_period_grads(torch, cfg, dev)
     numel = sum(t[0].numel() for t in g)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3336,7 +3678,7 @@ def main() -> None:
 
     # -- 21. language-model training on the card ---------------------------------------------
     t0 = time.perf_counter()
-    full_losses = train_phase(torch, np, dispatch, dev, smi)
+    full_losses, full_ms = train_phase(torch, np, dispatch, dev, smi)
     say(f"phase 21: {time.perf_counter() - t0:.1f} s")
 
     # -- 22. the LM's distributed pieces on the card --------------------------------------------
@@ -3355,6 +3697,11 @@ def main() -> None:
     t0 = time.perf_counter()
     ranks_phase(torch, kernels, dispatch, dev, smi, p19)
     say(f"phase 24: {time.perf_counter() - t0:.1f} s")
+
+    # -- 25. the LM stack's data and pipe axes over ranks ----------------------------------------
+    t0 = time.perf_counter()
+    lm_ranks_phase(torch, dispatch, dev, smi, full_losses, full_ms)
+    say(f"phase 25: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

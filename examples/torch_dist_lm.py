@@ -1,17 +1,26 @@
-"""The language-model stack's distributed pieces on one device, every mesh
-axis stacked: GPipe over 4 stacked stages against the sequential
-composition of the stages, and data-parallel training of a linear model
-over 8 stacked data shards, the int8 error-feedback all-reduce against the
-exact mean. Counterpart of checks B and C of tests/dist_lm_check.py, on
-inputs made with numpy from a seed.
+"""The language-model stack's distributed pieces: GPipe over 4 stages
+against the sequential composition of the stages, and data-parallel
+training of a linear model over 8 data shards, the int8 error-feedback
+all-reduce against the exact mean. Counterpart of checks B and C of
+tests/dist_lm_check.py, on inputs made with numpy from a seed.
 
     PYTHONPATH=src python examples/torch_dist_lm.py --device cpu
+    PYTHONPATH=src python examples/torch_dist_lm.py --ranks 4 --device cpu
 
-Runs on the CUDA device unless ``--device cpu``.
+Runs on the CUDA device unless ``--device cpu``. Without ``--ranks`` every
+mesh axis is stacked on the one device. With ``--ranks N`` (N dividing 4)
+it spawns N processes, one a rank (NCCL with one card a rank, gloo with
+``--device cpu``), joined through a ``FileStore`` in a temporary
+directory: each holds a block of the stages and of the data shards, and
+rank 0 also runs the stacked checks and holds the ranks' results to them
+bit for bit.
 """
 
 import argparse
+import os
+import shutil
 import sys
+import tempfile
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
@@ -45,9 +54,12 @@ def tanh_stage(wi, x):
     return torch.tanh(x @ wi)
 
 
-def pipeline_check(w, x):
-    """(the pipelined output, the sequential composition of the stages)."""
-    got = pipeline_forward(w, x, tanh_stage, mesh={"pipe": w.shape[0]})
+def pipeline_check(w, x, ranks=None):
+    """(the pipelined output, the sequential composition of the stages).
+    Over ``ranks`` (the pipe axis) this rank runs its block of ``w``'s
+    stages; the output is on every rank."""
+    stages = w if ranks is None else ranks.block(w)
+    got = pipeline_forward(stages, x, tanh_stage, mesh={"pipe": w.shape[0]}, ranks=ranks)
     ref = x
     for i in range(w.shape[0]):
         ref = tanh_stage(w[i], ref)
@@ -68,39 +80,50 @@ def loss(w, x, w_true):
     return torch.mean((x @ w - x @ w_true) ** 2)
 
 
-def local_grads(w, x, w_true):
-    """Each data shard's gradient of its own loss, stacked: (SHARDS, D, D)."""
+def local_grads(w, x, w_true, ranks=None):
+    """Each data shard's gradient of its own loss, stacked: (SHARDS, D, D),
+    or over ``ranks`` (the data axis) this rank's block of the shards."""
     xs = x.reshape(SHARDS, -1, D)
-    w_rep = w.detach().expand(SHARDS, D, D).clone().requires_grad_(True)
+    if ranks is not None:
+        xs = ranks.block(xs)
+    w_rep = w.detach().expand(xs.shape[0], D, D).clone().requires_grad_(True)
     total = ((xs @ w_rep - xs @ w_true) ** 2).mean(dim=(1, 2)).sum()
     return torch.autograd.grad(total, w_rep)[0]
 
 
-def dp_update_(w, opt, res, g_local, compress: bool):
-    """Reduce the stacked local gradients and take one AdamW step into ``w``
-    and ``opt``. Returns the reduced gradient and the new residuals."""
+def dp_update_(w, opt, res, g_local, compress: bool, ranks=None):
+    """Reduce the stacked local gradients (over ``ranks``, this rank's
+    block) and take one AdamW step into ``w`` and ``opt``. Returns the
+    reduced gradient and the new residuals."""
     if compress:
-        g, res = compressed_psum_grads(g_local, res)
+        g, res = compressed_psum_grads(g_local, res, ranks)
     else:
-        g = exact_pmean_grads(g_local)
+        g = exact_pmean_grads(g_local, ranks)
     adamw_update_(g, opt, w, DP_OPT)
     return g, res
 
 
 def dp_run(compress: bool, device, seed: int = 2) -> list[float]:
+    """STEPS data-parallel steps, stacked; the loss on each step's batch
+    after its update."""
+    return dp_train(compress, device, seed)[0]
+
+
+def dp_train(compress: bool, device, seed: int = 2, ranks=None):
     """STEPS data-parallel steps; the loss on each step's batch after its
-    update."""
+    update, and the final weights and residuals (over ``ranks``, this
+    rank's block of them)."""
     w0, w_true, xs = dp_inputs(seed)
     w = torch.from_numpy(w0).to(device)
     w_true = torch.from_numpy(w_true).to(device)
     opt = adamw_init(w)
-    res = zeros_like_residual(w.expand(SHARDS, D, D))
+    res = zeros_like_residual(w.expand(SHARDS if ranks is None else ranks.n_local, D, D))
     losses = []
     for i in range(STEPS):
         x = torch.from_numpy(xs[i]).to(device)
-        _, res = dp_update_(w, opt, res, local_grads(w, x, w_true), compress)
+        _, res = dp_update_(w, opt, res, local_grads(w, x, w_true, ranks), compress, ranks)
         losses.append(float(loss(w, x, w_true)))
-    return losses
+    return losses, w, res
 
 
 def dp_criteria(exact: list[float], comp: list[float]) -> bool:
@@ -109,22 +132,84 @@ def dp_criteria(exact: list[float], comp: list[float]) -> bool:
     return comp[-1] < comp[0] * 0.2 and comp[-1] < exact[-1] * 1.5 + 1e-3
 
 
+def checks(device, pipe=None, data=None) -> bool:
+    """Checks B and C (over ``pipe`` and ``data``, a rank's `AxisRanks`, or
+    stacked); prints on rank 0, and there, over ranks, holds the ranks'
+    results to the stacked runs bit for bit. True if every check held."""
+    say = print if pipe is None or pipe.rank == 0 else (lambda *a, **k: None)
+    w, x = (torch.from_numpy(a).to(device) for a in pipeline_inputs())
+    got, ref = pipeline_check(w, x, pipe)
+    err = float((got - ref).abs().max())
+    say(f"B pipeline: {STAGES} stages, {MICRO} microbatches of {MB} x {D}: max |pipelined - sequential| {err:.2e}")
+    runs = {c: dp_train(c, device, ranks=data) for c in (False, True)}
+    exact, comp = runs[False][0], runs[True][0]
+    ok = err <= 1e-5 and dp_criteria(exact, comp)
+    say(f"C compressed DP over {SHARDS} shards, {STEPS} steps: loss {comp[0]:.4f} -> {comp[-1]:.4f} "
+        f"(exact mean: {exact[0]:.4f} -> {exact[-1]:.4f}) {'OK' if ok else 'FAILED'}")
+    if pipe is None:
+        return ok
+    res = {c: data.gather(runs[c][2]) for c in (False, True)}
+    if pipe.rank == 0:
+        stacked = {c: dp_train(c, device) for c in (False, True)}
+        same = (torch.equal(got, pipeline_check(w, x)[0])
+                and all(runs[c][0] == stacked[c][0] and torch.equal(runs[c][1], stacked[c][1])
+                        and torch.equal(res[c], stacked[c][2]) for c in (False, True)))
+        say(f"over {pipe.world} ranks ({pipe.n_local} of the {STAGES} stages and {data.n_local} of the {SHARDS} data "
+            f"shards a rank): the pipeline, both runs' losses, weights and residuals bit-equal to the stacked runs: "
+            f"{same}")
+        ok = ok and same
+    return bool(pipe.agree(int(ok)))
+
+
+def _rank_main(rank: int, world: int, store: str, device) -> None:
+    """One rank of ``--ranks``: join the group, run the checks on this
+    rank's blocks; a failed check raises."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.ranks import AxisRanks, close_ranks, init_ranks
+
+    dev = init_ranks(rank, world, store, device=device)
+    if dev.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        ok = checks(dev, AxisRanks.of_group("pipe", STAGES, dist.group.WORLD),
+                    AxisRanks.of_group("data", SHARDS, dist.group.WORLD))
+    finally:
+        close_ranks()
+    if not ok:
+        raise SystemExit(1)
+
+
+def run_ranks(n_ranks: int, device=None) -> None:
+    """Checks B and C over ``n_ranks`` spawned processes; refuses, by name,
+    more ranks than visible cards and a count that does not divide the
+    stages or the shards."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.distributed.ranks import check_axis_request
+
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    n_cards = None if on_cpu else (torch.cuda.device_count() if torch.cuda.is_available() else 0)
+    check_axis_request(n_ranks, STAGES, n_cards=n_cards, axis="pipe")
+    check_axis_request(n_ranks, SHARDS, axis="data")
+    store = tempfile.mkdtemp(prefix="torch_dist_lm_")
+    try:
+        mp.start_processes(_rank_main, args=(n_ranks, store, "cpu" if on_cpu else None), nprocs=n_ranks,
+                           start_method="spawn")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--ranks", type=int, default=None, metavar="N",
+                    help="spread the stages and the data shards over N processes, one a rank")
     args = ap.parse_args()
-    device = resolve_device(args.device)
-
-    w, x = (torch.from_numpy(a).to(device) for a in pipeline_inputs())
-    got, ref = pipeline_check(w, x)
-    err = float((got - ref).abs().max())
-    print(f"B pipeline: {STAGES} stages, {MICRO} microbatches of {MB} x {D}: max |pipelined - sequential| {err:.2e}")
-
-    exact, comp = dp_run(False, device), dp_run(True, device)
-    ok = dp_criteria(exact, comp)
-    print(f"C compressed DP over {SHARDS} shards, {STEPS} steps: loss {comp[0]:.4f} -> {comp[-1]:.4f} "
-          f"(exact mean: {exact[0]:.4f} -> {exact[-1]:.4f}) {'OK' if ok else 'FAILED'}")
-    if err > 1e-5 or not ok:
+    if args.ranks is not None:
+        run_ranks(args.ranks, args.device)
+        return
+    if not checks(resolve_device(args.device)):
         raise SystemExit(1)
 
 

@@ -582,13 +582,23 @@ class CheckpointManager:
     place as soon as ``save`` returns. ``restore`` copies the stored leaves
     into the caller's tensors, so a full-width state is never held twice on
     the device. bfloat16 leaves are stored as their bit
-    patterns, with ``bfloat16`` in the manifest, and restored bit for bit."""
+    patterns, with ``bfloat16`` in the manifest, and restored bit for bit.
 
-    def __init__(self, directory: str, *, keep: int = 3):
+    Over ``ranks`` (a `distributed.ranks.AxisRanks` or `RankGrid` whose
+    ranks hold the same state) rank 0 alone writes, sweeps and collects;
+    the other ranks' ``save`` does nothing. ``latest_step`` is rank 0's on
+    every rank (`agree`), and ``restore`` waits for rank 0's write, then
+    for every rank (a barrier), before any rank reads. Both are
+    collective: every rank calls them."""
+
+    def __init__(self, directory: str, *, keep: int = 3, ranks=None):
         self.directory = directory
         self.keep = keep
-        os.makedirs(directory, exist_ok=True)
-        clean_stale_tmp(directory)
+        self.ranks = ranks
+        self.writer = ranks is None or ranks.rank == 0
+        if self.writer:
+            os.makedirs(directory, exist_ok=True)
+            clean_stale_tmp(directory)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
@@ -596,7 +606,9 @@ class CheckpointManager:
         """Write ``tree`` as ``step_<step:09d>`` (atomically), point
         ``LATEST`` at it, and drop all but the newest ``keep``. With
         ``blocking=False`` the write runs on a background thread; the host
-        copies are made before this returns."""
+        copies are made before this returns. Over ranks only rank 0 writes."""
+        if not self.writer:
+            return
         pairs = _flatten_with_names(tree)
         names = [n for n, _ in pairs]
         host = [_host_bits(x, own=not blocking) for _, x in pairs]
@@ -654,6 +666,14 @@ class CheckpointManager:
                       if name.startswith("step_") and ".tmp" not in name and ".old" not in name)
 
     def latest_step(self) -> int | None:
+        """The newest step written (rank 0's, on every rank), or None."""
+        if self.ranks is None:
+            return self._latest_on_disk()
+        mine = self._latest_on_disk() if self.writer else None
+        step = self.ranks.agree(-1 if mine is None else mine)
+        return None if step < 0 else step
+
+    def _latest_on_disk(self) -> int | None:
         path = os.path.join(self.directory, "LATEST")
         if not os.path.exists(path):
             steps = self.all_steps()
@@ -664,10 +684,14 @@ class CheckpointManager:
     def restore(self, tree, step: int | None = None):
         """Copy checkpoint ``step`` (the latest by default) into the tensors
         of ``tree``, which keep their dtype and device. Returns ``(tree,
-        step)``."""
+        step)``. Over ranks every rank reads once rank 0's write has
+        landed."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found under {self.directory}")
+        if self.ranks is not None:
+            self.wait()
+            self.ranks.barrier()
         d = os.path.join(self.directory, f"step_{step:09d}")
         try:
             with open(os.path.join(d, "manifest.json")) as f:

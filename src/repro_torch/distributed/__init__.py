@@ -1,6 +1,7 @@
 """The distributed pieces, every mesh axis held on one device (a
 ``ppermute`` is a roll along a stacked shard axis, a ``psum`` a sum over
-it). Counterpart of `repro.distributed`: fault tolerance (the chaos
+it), or an axis spread over processes, one a rank, each holding a block of
+the stack (`ranks`). Counterpart of `repro.distributed`: fault tolerance (the chaos
 harness and the windowed-run supervisor of the PIC drivers, and the
 training loop's `FailureInjector`, `StragglerMonitor` and `Supervisor`,
 `fault`), the communication options (`comm.CommSpec`), quantized payloads

@@ -18,6 +18,16 @@ core here (`quantize_fixed`, `dequantize_fixed`).
    claims to be replicated while each device keeps its own; here they are
    held openly per shard.
 
+   Over ranks (``ranks``, a `distributed.ranks.AxisRanks` on the data
+   axis) a rank's leaves are its block ``[n_local, ...]`` of the ``n``
+   shards, and both reductions stay bit-equal to the stacked call: the max
+   over every shard is the max of the ranks' gathered maxima (a max is
+   exact in any order), the int32 sum an ``all_reduce`` of the block's
+   partial sums (integers add exactly in any order: the reference's
+   ``psum`` of int32), and the exact mean adds the gathered shards one
+   after another, as one process does. ``n`` in ``scale / n`` is the
+   global shard count.
+
 2. **Compressed migration payloads** of the PIC driver. Positions are
    shard-relative after the migration's coordinate shift, so they quantize
    to uint16 fixed point over the local block's extent plus a band of
@@ -81,24 +91,31 @@ def zeros_like_residual(grads):
     return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
 
 
-def _compress_one(g, r):
+def _compress_one(g, r, ranks=None):
     # the divisors are 0-d tensors on g's device: ATen divides a CUDA tensor
     # by a Python scalar as a multiply by its rounded reciprocal
     div = lambda v: torch.full((), float(v), dtype=torch.float32, device=g.device)  # noqa: E731
     g32 = g.float() + r
     amax = g32.abs().amax()
+    if ranks is not None:
+        amax = ranks.values(amax).amax()
     scale = torch.clamp_min(amax, 1e-12) / div(127.0)
     q = quantize_fixed(g32, scale, qmin=-127, qmax=127, dtype=torch.int8)
     new_r = g32 - dequantize_fixed(q, scale)
-    summed = q.to(torch.int32).sum(0).float() * scale / div(g.shape[0])
+    isum = q.to(torch.int32).sum(0)
+    if ranks is not None:
+        ranks.sum_exact(isum)
+    summed = isum.float() * scale / div(g.shape[0] if ranks is None else ranks.n)
     return summed.to(g.dtype), new_r
 
 
-def compressed_psum_grads(grads, residuals):
+def compressed_psum_grads(grads, residuals, ranks=None):
     """Gradients ``[n, ...]`` (one row a data shard) and float32 residuals
     of the same shapes -> (the compressed mean over the shards, without the
-    shard dim, in the gradients' dtype; the new residuals ``[n, ...]``)."""
-    pairs = tree_map(_compress_one, grads, residuals)
+    shard dim, in the gradients' dtype; the new residuals ``[n, ...]``).
+    Over ``ranks`` both are this rank's block ``[n_local, ...]``; the mean,
+    over every rank's shards, is the same on every rank."""
+    pairs = tree_map(lambda g, r: _compress_one(g, r, ranks), grads, residuals)
     return tree_map(lambda _, p: p[0], grads, pairs), tree_map(lambda _, p: p[1], grads, pairs)
 
 
@@ -111,9 +128,11 @@ def _mean_one(g):
     return acc / torch.full((), float(g.shape[0]), dtype=g.dtype, device=g.device)
 
 
-def exact_pmean_grads(grads):
-    """The mean of stacked gradients ``[n, ...]`` over their shard dim."""
-    return tree_map(_mean_one, grads)
+def exact_pmean_grads(grads, ranks=None):
+    """The mean of stacked gradients ``[n, ...]`` over their shard dim;
+    over ``ranks`` of this rank's block ``[n_local, ...]`` and every other
+    rank's, gathered and added in the stacked order."""
+    return tree_map(lambda g: _mean_one(g if ranks is None else ranks.gather(g)), grads)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,10 @@ The training loop's pieces of the reference's module are here too:
 restore copies the checkpoint into the state it holds (the train step
 updates that state in place), and it keeps the reference's quirk: a failure
 before the first checkpoint replays from ``start_step`` on the state it
-holds, advanced as it is.
+holds, advanced as it is. Over ranks (data-parallel training, one replica a
+rank) the failure check at a step's start is agreed before the step's
+collectives: any rank's injected failure makes every rank restore and
+replay together.
 """
 
 from __future__ import annotations
@@ -94,7 +97,17 @@ class Supervisor:
     ``step_fn(state, step_idx) -> (state, metrics)``; the state is a tree
     of tensors that ``checkpoint_manager`` (a `checkpoint.CheckpointManager`)
     can save. Restores on any exception, up to ``max_restarts`` times, by
-    copying the latest checkpoint into the state held."""
+    copying the latest checkpoint into the state held.
+
+    Over ``ranks`` (an `AxisRanks` whose ranks each hold the replicated
+    state, and a checkpoint manager over the same ranks) every rank runs
+    the same loop. At each step's start each rank's injector sets a flag
+    in place of raising, and the flags are gathered (one small collective a
+    step, which reads the host): if any rank's fired, every rank restores
+    and replays. An exception raised inside ``step_fn`` on one rank alone
+    is not recovered: the ranks' collectives are then out of step, so it
+    is raised, and the other ranks end with the group's error (its
+    timeout, or a closed connection once the failing rank leaves)."""
 
     def __init__(
         self,
@@ -106,8 +119,10 @@ class Supervisor:
         injector: FailureInjector | None = None,
         straggler: StragglerMonitor | None = None,
         async_save: bool = True,
+        ranks=None,
     ):
         self.step_fn = step_fn
+        self.ranks = ranks
         self.ckpt = checkpoint_manager
         self.save_every = save_every
         self.max_restarts = max_restarts
@@ -121,7 +136,9 @@ class Supervisor:
         step = start_step
         while step < n_steps:
             try:
-                if self.injector is not None:
+                if self.ranks is not None:
+                    self._agree_failure(step)
+                elif self.injector is not None:
                     self.injector.maybe_fail(step)
                 t0 = time.perf_counter()
                 state, metrics = self.step_fn(state, step)
@@ -132,6 +149,8 @@ class Supervisor:
                 if step % self.save_every == 0 or step == n_steps:
                     self.ckpt.save(step, state, blocking=not self.async_save)
             except Exception as exc:  # noqa: BLE001 — any failure = node loss
+                if self.ranks is not None and not isinstance(exc, SimulatedFailure):
+                    raise
                 self.restarts += 1
                 if self.restarts > self.max_restarts:
                     raise
@@ -145,6 +164,20 @@ class Supervisor:
                 state, step = self.ckpt.restore(state)
         self.ckpt.wait()
         return state, step
+
+    def _agree_failure(self, step: int) -> None:
+        """Raise `SimulatedFailure` on every rank if any rank's injector
+        fires at ``step``."""
+        failed = 0
+        if self.injector is not None:
+            try:
+                self.injector.maybe_fail(step)
+            except SimulatedFailure:
+                failed = 1
+        flags = self.ranks.values(torch.tensor(failed, dtype=torch.int64, device=self.ranks.device))
+        if int(flags.amax()):
+            raise SimulatedFailure(f"injected failure at step {step} on rank(s) "
+                                   f"{[r for r, f in enumerate(flags.tolist()) if f]}")
 
 
 # -- the simulation drivers' chaos harness -------------------------------------------------

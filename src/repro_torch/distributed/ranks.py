@@ -1,4 +1,6 @@
-"""The distributed PIC driver over several processes, one process a rank.
+"""The distributed pieces over several processes, one process a rank: the
+PIC driver's shard mesh (`RankGrid`) and the LM stack's data and pipe axes
+(`AxisRanks`).
 
 The one-process driver holds every shard of an ``(SX, SY)`` mesh on one
 device, stacked on two leading shard axes (`repro_torch.pic.distributed`).
@@ -31,23 +33,45 @@ re-split too. One process is ``ranks=None`` in the drivers, never a
 one); a `RankGrid` always runs its collectives, so one built by hand over
 a group of one runs the real ones.
 
+The language-model stack spreads one stacked mesh axis over ranks the same
+way (`AxisRanks`): the ``data`` axis (shards of the batch: the train step's
+gradient reduction, `distributed.compression`) or the ``pipe`` axis (GPipe
+stages, `distributed.pipeline`). Rank ``r`` of ``W`` holds the contiguous
+block ``[r n / W, (r + 1) n / W)`` of the axis's ``n`` entries. Its
+collectives: `AxisRanks.gather` (``all_gather`` into ``[n, ...]``, rank
+order), `AxisRanks.reduce_sum_` (a tree of per-rank contributions summed
+in rank order from zeros, gathered a bounded chunk at a time),
+`AxisRanks.sum_exact` (an ``all_reduce`` of integers, exact in any
+order), `AxisRanks.shift` (a one-way shift to the next rank with no wrap,
+the reference's ``fwd_perm``) and `AxisRanks.broadcast_last`. Each counts
+its calls in ``counts``.
+
 `init_ranks` joins a group through a ``FileStore`` under a directory the
 caller names (no network address): NCCL with ``cuda:rank`` on the card,
 gloo on the CPU. `check_rank_request` refuses, by name, more ranks than
 visible cards and a rank count with no grid that divides the mesh;
-`check_rank_grid` refuses a given grid that does not divide it.
+`check_rank_grid` refuses a given grid that does not divide it;
+`check_axis_request` refuses more ranks than cards and a rank count that
+does not divide an LM axis.
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["RankGrid", "check_rank_grid", "check_rank_request", "choose_rank_grid", "close_ranks", "init_ranks",
-           "rank_device"]
+from repro_torch.tree import tree_leaves
+
+__all__ = ["AxisRanks", "GATHER_CHUNK_BYTES", "RankGrid", "check_axis_request", "check_rank_grid",
+           "check_rank_request", "choose_rank_grid", "close_ranks", "init_ranks", "rank_device", "stack_sum"]
+
+#: the most bytes of one rank's contribution that `AxisRanks.reduce_sum_`
+#: gathers at once: its temporaries are ``world`` such chunks and one sum
+GATHER_CHUNK_BYTES = 64 << 20
 
 
 def choose_rank_grid(world: int, sx: int, sy: int) -> tuple[int, int] | None:
@@ -84,6 +108,21 @@ def check_rank_request(world: int, mesh_shape, *, n_cards: int | None = None) ->
         raise ValueError(f"no rank grid of {world} ranks divides the {sx}x{sy} mesh: {world} must split as "
                          f"px * py with px dividing {sx} and py dividing {sy}")
     return found
+
+
+def check_axis_request(world: int, n: int, *, n_cards: int | None = None, axis: str = "data") -> int:
+    """The block ``n / world`` each of ``world`` ranks holds along an LM
+    mesh axis of ``n`` entries, or an error naming the cause: more ranks
+    than the ``n_cards`` visible cards (one card a rank; None on the CPU),
+    or a rank count that does not divide the axis."""
+    if world < 1:
+        raise ValueError(f"a run needs at least one rank, got {world}")
+    if n_cards is not None and world > n_cards:
+        raise RuntimeError(f"{world} ranks need {world} cards, one a rank, but {n_cards} are visible")
+    if n < 1 or n % world:
+        raise ValueError(f"{world} ranks do not divide the {axis} axis of {n}: each rank holds a contiguous block "
+                         f"of {n} / {world} entries")
+    return n // world
 
 
 def rank_device(rank: int, device=None) -> torch.device:
@@ -127,7 +166,41 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
-class RankGrid:
+class _Collectives:
+    """What every rank view of a group shares: its gathers, agreements and
+    barrier. A subclass sets ``rank``, ``world``, ``group`` and ``device``."""
+
+    __slots__ = ()
+
+    def _all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (one shape on all ranks), stacked in rank
+        order: ``[world, *t.shape]``."""
+        t = t.contiguous()
+        out = torch.empty((self.world,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(_wire(out), _wire(t), group=self.group)
+        return out
+
+    def values(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's 0-d ``x`` as a ``[world]`` tensor, in rank order."""
+        return self._all_gather(x.reshape(1)).reshape(self.world)
+
+    def agree(self, value: int) -> int:
+        """Rank 0's ``value`` on every rank: a host decision that could
+        differ between ranks (a read of the wall clock, a timed choice)
+        made once. One read on the host."""
+        return int(self.values(torch.tensor(int(value), dtype=torch.int64, device=self.device))[0])
+
+    def barrier(self) -> None:
+        """Return once every rank is here. The host blocks on both
+        backends (on NCCL a collective alone would only order the card's
+        stream)."""
+        if self.device.type == "cuda":
+            dist.barrier(group=self.group, device_ids=[self.device.index])
+        else:
+            dist.barrier(group=self.group)
+
+
+class RankGrid(_Collectives):
     """A rank grid ``(px, py)`` over a process group: this process's place
     in it (``rank``, the group's rank, row-major over the grid), the
     group's global ranks (``peers``) and the device the rank's tensors live
@@ -207,14 +280,6 @@ class RankGrid:
         rolled.narrow(shard_axis, put, 1).copy_(recv)
         return rolled
 
-    def _all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` (one shape on all ranks), stacked in rank
-        order: ``[world, *t.shape]``."""
-        t = t.contiguous()
-        out = torch.empty((self.world,) + tuple(t.shape), dtype=t.dtype, device=t.device)
-        dist.all_gather_into_tensor(_wire(out), _wire(t), group=self.group)
-        return out
-
     def gather(self, per_shard: torch.Tensor, first: int = 0) -> torch.Tensor:
         """The full ``[SX, SY, ...]`` tensor of a per-shard value, given this
         rank's ``[BX, BY, ...]`` block (its shard axes at ``first`` and
@@ -232,21 +297,136 @@ class RankGrid:
         rx, ry = self.coords
         return full.narrow(first, rx * bx, bx).narrow(first + 1, ry * by, by)
 
+
+def stack_sum(stacked: torch.Tensor) -> torch.Tensor:
+    """``stacked[0] + stacked[1] + ...`` added one after another onto
+    zeros, in ``stacked``'s dtype: the one-process step's order of
+    accumulation, which a library sum (whose order depends on the shape
+    and the device) would not keep."""
+    out = torch.zeros(stacked.shape[1:], dtype=stacked.dtype, device=stacked.device)
+    for entry in stacked:
+        out += entry
+    return out
+
+
+class AxisRanks(_Collectives):
+    """Ranks along one stacked mesh axis of the LM stack (``data``: shards
+    of the batch; ``pipe``: GPipe stages) over a process group: the axis
+    has ``n`` entries, and rank ``rank`` of ``world`` holds the contiguous
+    block ``[start, start + n_local)``. ``peers`` are the group's global
+    ranks, ``device`` the rank's tensors' device. ``counts`` counts the
+    collectives this object issued, by name (``shift_backward`` counts
+    `distributed.pipeline`'s exchanges run backwards)."""
+
+    __slots__ = ("axis", "n", "rank", "world", "group", "peers", "device", "counts")
+
+    def __init__(self, axis: str, n: int, rank: int, world: int, group=None, *, peers=None, device=None):
+        check_axis_request(world, n, axis=axis)
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is outside a group of {world}")
+        self.axis, self.n, self.rank, self.world = str(axis), int(n), int(rank), int(world)
+        self.group = group
+        self.peers = tuple(range(self.world)) if peers is None else tuple(peers)
+        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.counts: collections.Counter = collections.Counter()
+
+    @staticmethod
+    def of_group(axis: str, n: int, group) -> "AxisRanks":
+        """The ranks of ``group`` along an axis of ``n`` entries, on the
+        group's device: ``cuda:current`` for NCCL, else the CPU."""
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        peers = [dist.get_global_rank(group, i) for i in range(world)]
+        nccl = dist.get_backend(group) == "nccl"
+        device = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
+        return AxisRanks(axis, n, rank, world, group, peers=peers, device=device)
+
+    def __repr__(self) -> str:
+        return f"AxisRanks({self.axis!r}, n={self.n}, rank={self.rank}, world={self.world})"
+
+    @property
+    def n_local(self) -> int:
+        return self.n // self.world
+
+    @property
+    def start(self) -> int:
+        return self.rank * self.n_local
+
+    @property
+    def is_last(self) -> bool:
+        return self.rank == self.world - 1
+
     def values(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's 0-d ``x`` as a ``[world]`` tensor, in rank order."""
-        return self._all_gather(x.reshape(1)).reshape(self.world)
+        self.counts["values"] += 1
+        return super().values(x)
 
-    def agree(self, value: int) -> int:
-        """Rank 0's ``value`` on every rank: a host decision that could
-        differ between ranks (a read of the wall clock, a timed choice)
-        made once. One read on the host."""
-        return int(self.values(torch.tensor(int(value), dtype=torch.int64, device=self.device))[0])
+    def block(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block ``[n_local, ...]`` of a full ``[n, ...]``
+        tensor, a view."""
+        return full.narrow(0, self.start, self.n_local)
 
-    def barrier(self) -> None:
-        """Return once every rank is here. The host blocks on both
-        backends (on NCCL a collective alone would only order the card's
-        stream)."""
-        if self.device.type == "cuda":
-            dist.barrier(group=self.group, device_ids=[self.device.index])
-        else:
-            dist.barrier(group=self.group)
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The full ``[n, ...]`` tensor from every rank's ``[n_local, ...]``
+        block, in rank order."""
+        self.counts["gather"] += 1
+        return self._all_gather(block).reshape((self.n,) + tuple(block.shape[1:]))
+
+    def reduce_sum_(self, tree) -> int:
+        """Replace each leaf of ``tree`` (this rank's contribution, one
+        shape and dtype on every rank) by the sum of every rank's, added in
+        rank order onto zeros in the leaf's dtype (`stack_sum`): the
+        one-process sum of the stacked contributions, bit for bit. A leaf
+        crosses in chunks of at most `GATHER_CHUNK_BYTES`, so the
+        temporaries stay within ``world + 1`` chunks whatever the leaf's
+        size. Returns the bytes this rank contributed."""
+        sent = 0
+        for leaf in tree_leaves(tree):
+            if not leaf.is_contiguous():
+                raise ValueError("reduce_sum_ sums contiguous leaves in place")
+            flat = leaf.view(-1)
+            step = max(1, GATHER_CHUNK_BYTES // leaf.element_size())
+            for lo in range(0, flat.numel(), step):
+                part = flat[lo:lo + step]
+                self.counts["reduce_gather"] += 1
+                part.copy_(stack_sum(self._all_gather(part)))
+            sent += flat.numel() * leaf.element_size()
+        return sent
+
+    def sum_exact(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's integer ``t`` summed (``all_reduce``): integers add
+        exactly in any order. In place; returns ``t``."""
+        if t.dtype.is_floating_point or t.dtype.is_complex:
+            raise TypeError(f"sum_exact adds integers, whose sum is exact in any order; got {t.dtype}")
+        self.counts["sum_exact"] += 1
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """Send ``t`` to rank ``rank + step`` and return what rank ``rank -
+        step`` sent, with no wrap: a rank with no such sender gets zeros, a
+        rank with no such receiver sends nothing (the reference's
+        ``fwd_perm`` of ``(i, i + 1)`` pairs for ``step = 1``). Every rank
+        calls it with one shape and dtype."""
+        if step not in (1, -1):
+            raise ValueError(f"a shift moves one rank, got step {step}")
+        self.counts["shift" if step > 0 else "shift_back"] += 1
+        send = t.contiguous()
+        recv = torch.zeros_like(send)
+        dst, src = self.rank + step, self.rank - step
+        ops = []
+        if 0 <= dst < self.world:
+            ops.append(dist.P2POp(dist.isend, _wire(send), self.peers[dst], self.group))
+        if 0 <= src < self.world:
+            ops.append(dist.P2POp(dist.irecv, _wire(recv), self.peers[src], self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return recv
+
+    def broadcast_last(self, t: torch.Tensor) -> torch.Tensor:
+        """The last rank's ``t`` on every rank (``t`` is the buffer, one
+        shape and dtype on every rank). In place; returns ``t``."""
+        if not t.is_contiguous():
+            raise ValueError("broadcast_last fills a contiguous buffer")
+        self.counts["broadcast"] += 1
+        dist.broadcast(_wire(t), src=self.peers[-1], group=self.group)
+        return t

@@ -1,8 +1,9 @@
 """Training launcher: the supervised, checkpointed LM training loop on one
-device. Counterpart of `repro.launch.train`.
+device, or data-parallel over ranks. Counterpart of `repro.launch.train`.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b --smoke --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b --global-batch 2 --seq 4096 --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b --smoke --mesh 2 --ranks 2 --device cpu
 
 Runs on ``cuda`` unless ``--device cpu``; with no card and no ``--device
 cpu`` it raises. ``--smoke`` takes the arch's reduced config (float32);
@@ -19,6 +20,21 @@ launcher does. Its axes are held on the one device, so the rules place
 nothing and the step is the same function: the losses are those of the run
 without ``--mesh``, bit for bit. The table's sharded entries are printed
 before the summary.
+
+``--ranks N`` with ``--mesh D`` or ``--mesh DxM`` spreads the data axis
+over N = D processes, one data shard a rank (`torch.multiprocessing`, a
+``FileStore`` in a temporary directory; NCCL with one card a rank, gloo
+with ``--device cpu``): rank r trains on its shard of each step's global
+batch (`data.shard_batch_at`), the gradients are summed over the ranks in
+rank order (`train.make_train_step(..., ranks=...)`), and every rank
+holds the same replica; a model axis M stays on each rank's card, where
+its rules place nothing. The losses are those of the one-process run with
+``--microbatches D`` (bit for bit at ``--microbatches 1``). Rank 0 writes
+the checkpoints and prints the lines, with the gradient reduction's ms a
+step and its bytes a rank. It refuses, by name, ``--ranks`` without
+``--mesh``, a rank count other than the data axis (the model axis over
+ranks is not built) and more ranks than visible cards; nothing runs fewer
+ranks or the CPU in their place.
 """
 
 from __future__ import annotations
@@ -31,43 +47,13 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
-from repro_torch.data import DataConfig, global_batch_at
+from repro_torch.data import DataConfig, global_batch_at, shard_batch_at
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault import Supervisor
 from repro_torch.distributed.sharding import Rules, rules_for, use_rules
 from repro_torch.launch.flops import forward_flops
 from repro_torch.optim import AdamWConfig, ScheduleConfig
-from repro_torch.train import TrainConfig, init_train_state, make_train_step
-
-
-class StepClock:
-    """Marks the start and end of each step: CUDA events on a card, the
-    host clock on the CPU. Read ``ms()`` after the run."""
-
-    def __init__(self, device):
-        self.cuda = device.type == "cuda"
-        self.marks: list[tuple] = []
-
-    def _mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def wrap(self, fn):
-        def timed(*args):
-            start = self._mark()
-            out = fn(*args)
-            self.marks.append((start, self._mark()))
-            return out
-        return timed
-
-    def ms(self) -> list[float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in self.marks]
-        return [(b - a) * 1e3 for a, b in self.marks]
+from repro_torch.train import StepClock, TrainConfig, init_train_state, make_train_step
 
 
 def summary(cfg, losses: list[float], step_ms: list[float], batch: int, seq: int, device) -> str:
@@ -86,7 +72,7 @@ def summary(cfg, losses: list[float], step_ms: list[float], batch: int, seq: int
             + f"; {ms:.2f} ms/step (median of {len(steady)}), {tokens * 1e3 / ms:.1f} tokens/s, {where}")
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=list(ARCH_IDS), required=True)
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced (smoke) config, float32")
@@ -98,14 +84,23 @@ def main(argv=None) -> None:
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mesh", default=None, help="a (data, model) mesh such as 2x2, or a data mesh such as 2")
+    ap.add_argument("--ranks", type=int, default=None, metavar="N",
+                    help="spread the data axis of --mesh over N processes, one data shard a rank (N = its size)")
     ap.add_argument("--device", default=None, help="cuda (default; must exist) or cpu")
-    args = ap.parse_args(argv)
+    return ap
 
-    device = resolve_device(args.device)
+
+def mesh_shape(text: str) -> tuple[int, ...]:
+    return tuple(int(x) for x in text.split("x"))
+
+
+def train(args, ranks=None, device=None, out=print) -> None:
+    """The run of ``args`` on ``device``; over ``ranks`` (the data axis)
+    this rank's part of it. ``out`` prints the lines."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch, dtype=torch.bfloat16)
     rules = None
     if args.mesh:
-        shape = tuple(int(x) for x in args.mesh.split("x"))
+        shape = mesh_shape(args.mesh)
         table = rules_for(cfg, mode="train", multi_pod=False, data_axis=shape[0],
                           model_axis=shape[-1] if len(shape) > 1 else 1)
         rules = Rules(table, dict(zip(("data", "model")[:len(shape)], shape)))
@@ -116,16 +111,19 @@ def main(argv=None) -> None:
 
     gen = torch.Generator(device=device).manual_seed(0)
     state = init_train_state(gen, cfg, device=device)
-    step = make_train_step(cfg, tcfg)
+    step = make_train_step(cfg, tcfg, ranks)
     clock = StepClock(device)
     timed = clock.wrap(step)
 
     def step_fn(st, i):
-        return timed(st, global_batch_at(i, data, device=device))
+        if ranks is None:
+            return timed(st, global_batch_at(i, data, device=device))
+        return timed(st, shard_batch_at(i, data, ranks.rank, ranks.world, device=device))
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    sup = Supervisor(step_fn, CheckpointManager(args.ckpt_dir, keep=3), save_every=args.save_every)
+    sup = Supervisor(step_fn, CheckpointManager(args.ckpt_dir, keep=3, ranks=ranks), save_every=args.save_every,
+                     ranks=ranks)
     t0 = time.perf_counter()
     with use_rules(rules):
         sup.run(state, args.steps)
@@ -133,10 +131,75 @@ def main(argv=None) -> None:
     wall = time.perf_counter() - t0
 
     if rules is not None:
-        print(f"mesh {rules.mesh}: rules " + ", ".join(f"{k}={v}" for k, v in rules.table.items() if v is not None))
-    print(summary(cfg, losses, clock.ms(), args.global_batch, args.seq, device))
-    print(f"wall {wall:.1f} s for {len(losses)} steps and the checkpoint saves (every {args.save_every} steps and "
-          f"at the last, to {args.ckpt_dir}); restarts {sup.restarts}")
+        out(f"mesh {rules.mesh}: rules " + ", ".join(f"{k}={v}" for k, v in rules.table.items() if v is not None))
+    out(summary(cfg, losses, clock.ms(), args.global_batch, args.seq, device))
+    if ranks is not None:
+        red = step.reduction.ms()
+        where = "host clock, cpu" if device.type == "cpu" else f"CUDA events, {torch.cuda.get_device_name(device)}"
+        out(f"gradient reduction over {ranks.world} ranks: {statistics.median(red[1:] or red):.2f} ms/step (median "
+            f"of {len(red[1:] or red)}, {where}), {step.reduce_bytes / 1e6:.3f} MB a rank (its contribution, "
+            f"gathered by the other {ranks.world - 1})")
+    out(f"wall {wall:.1f} s for {len(losses)} steps and the checkpoint saves (every {args.save_every} steps and "
+        f"at the last, to {args.ckpt_dir}); restarts {sup.restarts}")
+
+
+def run_ranks(args, device=None) -> None:
+    """``args`` over ``args.ranks`` spawned processes, one a rank; checked
+    first (`check_axis_request`); a rank that fails makes this raise."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.distributed.ranks import check_axis_request
+
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    n_cards = None if on_cpu else (torch.cuda.device_count() if torch.cuda.is_available() else 0)
+    check_axis_request(args.ranks, args.ranks, n_cards=n_cards, axis="data")
+    store = tempfile.mkdtemp(prefix="train_ranks_")
+    try:
+        mp.start_processes(_rank_main, args=(args.ranks, store, vars(args), "cpu" if on_cpu else None),
+                           nprocs=args.ranks, start_method="spawn")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _rank_main(rank: int, world: int, store: str, arg_dict: dict, device) -> None:
+    """One rank of `run_ranks`: join the group, train on this rank's data
+    shard; rank 0 prints."""
+    import functools
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.ranks import AxisRanks, close_ranks, init_ranks
+
+    dev = init_ranks(rank, world, store, device=device)
+    if dev.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        out = functools.partial(print, flush=True) if rank == 0 else (lambda *a, **k: None)
+        train(argparse.Namespace(**arg_dict), AxisRanks.of_group("data", world, dist.group.WORLD), dev, out)
+    finally:
+        close_ranks()
+
+
+def main(argv=None) -> None:
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.ranks is not None:
+        if not args.mesh:
+            ap.error("--ranks spreads the data axis over processes: name it with --mesh D or --mesh DxM")
+        data_axis = mesh_shape(args.mesh)[0]
+        if args.ranks != data_axis:
+            ap.error(f"--ranks {args.ranks} must equal the data axis of --mesh {args.mesh} ({data_axis}): one data "
+                     "shard a rank (the model axis over ranks is not built)")
+        if args.global_batch % (args.ranks * args.microbatches):
+            ap.error(f"--global-batch {args.global_batch} does not split into {args.ranks} ranks x "
+                     f"{args.microbatches} microbatches")
+        run_ranks(args, args.device)
+        return
+    train(args, device=resolve_device(args.device))
 
 
 if __name__ == "__main__":

@@ -1,3 +1,3 @@
 """The LM train step. Counterpart of `repro.train`."""
 
-from repro_torch.train.step import TrainConfig, init_train_state, make_train_step  # noqa: F401
+from repro_torch.train.step import StepClock, TrainConfig, init_train_state, make_train_step  # noqa: F401

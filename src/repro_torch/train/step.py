@@ -8,11 +8,27 @@ counters, which stay device tensors, so a step reads nothing back to the
 host. With ``microbatches = k`` the batch is cut into k along its rows, and
 the float32 gradients ``acc += g.float() / k`` are summed in the
 reference's order; the metrics are the mean over the microbatches.
+
+Data-parallel over ranks (``ranks``, a `distributed.ranks.AxisRanks` on
+the ``data`` axis, one data shard a rank): each rank's batch is its shard
+of the global batch, one microbatch of the reference's accumulation over
+``D = world`` (which ``microbatches = k`` splits further), and the step is
+the one-process step at ``microbatches = D k``: with ``K = D k`` of 1 the
+gradients stay in the parameters' dtype, else each contributes ``g / K``
+in float32; the ranks' contributions are summed in rank order from zeros
+(`AxisRanks.reduce_sum_`, a chunk of at most `ranks.GATHER_CHUNK_BYTES` a
+rank at a time, so the temporaries stay within ``(world + 1)`` chunks),
+the metrics are gathered and averaged over the stack, and every rank takes
+the same `adamw_update_`, so the replicas stay bit-equal. With k = 1 that
+is the one-process step at ``microbatches = D`` bit for bit; with k > 1 the
+float32 sums group by rank, within rounding of it. The MoE load-balance
+term is each microbatch's own, as in the reference's microbatched step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -20,7 +36,7 @@ from repro_torch.models import ModelConfig, cross_entropy, forward, init_params
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, ScheduleConfig, adamw_init, adamw_update_, lr_schedule
 
-__all__ = ["TrainConfig", "init_train_state", "make_train_step"]
+__all__ = ["StepClock", "TrainConfig", "init_train_state", "make_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +50,37 @@ class TrainConfig:
     microbatches: int = 1
 
 
+class StepClock:
+    """Marks the start and end of each call of a wrapped function: CUDA
+    events on a card, the host clock on the CPU. Read ``ms()`` after the
+    run."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks: list[tuple] = []
+
+    def _mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def wrap(self, fn):
+        def timed(*args):
+            start = self._mark()
+            out = fn(*args)
+            self.marks.append((start, self._mark()))
+            return out
+        return timed
+
+    def ms(self) -> list[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self.marks]
+        return [(b - a) * 1e3 for a, b in self.marks]
+
+
 def init_train_state(gen, model_cfg: ModelConfig, *, device=None) -> dict:
     """Parameters of ``model_cfg`` from ``gen`` on ``device`` (default
     ``cuda``, which must exist), zero moments and a zero step counter."""
@@ -42,11 +89,20 @@ def init_train_state(gen, model_cfg: ModelConfig, *, device=None) -> dict:
     return {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, ranks=None):
     """``train_step(state, batch) -> (state, metrics)``: one optimizer step,
     written into ``state`` (which is returned). ``batch``: ``inputs`` and
     ``targets`` (B, S), optional ``mask``, ``frames`` (whisper) and
-    ``prefix_embeddings`` (llava), on the state's device."""
+    ``prefix_embeddings`` (llava), on the state's device.
+
+    Over ``ranks`` (the data axis, one shard a rank) ``batch`` is this
+    rank's shard (`data.shard_batch_at`), and ``train_step.reduction`` (a
+    `StepClock`) times each step's gradient reduction, whose bytes a rank
+    (its contribution, gathered by every other rank) are in
+    ``train_step.reduce_bytes``."""
+    if ranks is not None and (ranks.axis != "data" or ranks.n != ranks.world):
+        raise ValueError(f"a data-parallel step takes one data shard a rank, not {ranks!r}")
+    n_data = 1 if ranks is None else ranks.world
 
     def loss_fn(params, batch):
         aux: dict = {}
@@ -75,11 +131,23 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
         by_leaf = {id(leaf): g for leaf, g in zip(leaves, grads)}
         return metrics, tree_map(lambda leaf: by_leaf[id(leaf)], live)
 
+    def reduce(grads, ms):
+        """Every rank's gradients summed in rank order, into ``grads``; the
+        metrics' mean over every rank's microbatches."""
+        train_step.reduce_bytes = ranks.reduce_sum_(grads)
+        with torch.no_grad():
+            return {name: torch.mean(ranks.gather(torch.stack([m[name] for m in ms])[None]).reshape(-1), dim=0)
+                    for name in ms[0]}
+
     def train_step(state, batch):
         k = train_cfg.microbatches
+        total = n_data * k
         params = state["params"]
-        if k == 1:
-            metrics, grads = value_and_grad(params, batch)
+        if total == 1:
+            m, grads = value_and_grad(params, batch)
+            ms = [m]
+            if ranks is not None:  # the reduction sums contiguous leaves in place
+                grads = tree_map(lambda g: g.contiguous(), grads)
         else:
             rows = next(iter(batch.values())).shape[0]
             if rows % k:
@@ -90,9 +158,14 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
                 one = {name: x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i] for name, x in batch.items()}
                 m, g = value_and_grad(params, one)
                 for acc, gg in zip(tree_leaves(grads), tree_leaves(g)):
-                    acc.add_(gg.to(torch.float32) / k)
+                    acc.add_(gg.to(torch.float32) / total)
                 del g
                 ms.append(m)
+        if ranks is not None:
+            metrics = reduction(grads, ms)
+        elif total == 1:
+            metrics = ms[0]
+        else:
             metrics = {name: torch.mean(torch.stack([m[name] for m in ms]), dim=0) for name in ms[0]}
 
         lr_scale = lr_schedule(state["step"], train_cfg.schedule)
@@ -101,4 +174,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
         state["step"].add_(1)
         return state, dict(metrics, **opt_metrics, lr_scale=lr_scale)
 
+    if ranks is not None:
+        train_step.reduction = StepClock(ranks.device)
+        train_step.reduce_bytes = 0
+        reduction = train_step.reduction.wrap(reduce)
     return train_step
