@@ -266,7 +266,20 @@ Phases, in order; any failure exits non-zero:
    the one-process step at ``microbatches`` = the rank count (losses and
    the parameters' SHA-256), and the reduction and GPipe over the ranks
    bit-equal to their stacked runs; with one card a line says that (b) did
-   not run.
+   not run;
+26. the LM stack's model axis over ranks (tensor and vocabulary
+   parallelism; plain PyTorch ops and NCCL, no kernel of the port's): (a)
+   ``launch.train --mesh 1x1 --ranks 1``'s layout, an NCCL group of one
+   rank joined through a ``FileStore`` under build/ (`mesh_ranks(1, 1)`),
+   21(d)'s phi3-mini-3.8b at full width, its first 3 steps through the
+   tensor-parallel step (`make_train_step` over the layout: every
+   attention, MLP and vocabulary boundary issues its all-gather and sum in
+   rank order, in the recompute too) and the `Supervisor` over the layout:
+   the losses bit-equal to 21(d)'s, ms a step and peak GB beside 21(d)'s,
+   the model axis's collectives counted a step (eager), their ms a step
+   and bytes; (b) where two or more cards are visible, a 1x2 layout, one
+   card a rank, phi3's losses within rounding of 21(d)'s; with one card a
+   line says that (b) did not run.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -345,6 +358,12 @@ LM_DIST = dict(steps=3, data=2, model=2, stages=4, micro=8, mb_seq=512, shards=8
 # cards: 8 shards and 4 stages split evenly), one card each, phi3 at a
 # global batch of one sequence a rank
 LM_RANKS = dict(steps=3)
+# phase 26: the model axis over ranks: 21(d)'s first steps through a 1x1
+# (data, model) layout on an NCCL group of one, every model-axis boundary's
+# collective issued; with two or more cards (b) a 1x2 layout, one card a
+# rank, its bf16 losses within loss_rtol of 21(d)'s (the row-parallel
+# contractions add their partial sums in another order)
+LM_MODEL_RANKS = dict(loss_rtol=1e-2)
 
 
 # the kernel that a dispatcher op's backend launches once a step
@@ -1689,15 +1708,19 @@ class CollectiveCount:
 def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1):
     """Phase 21(d)'s phi3-mini-3.8b (bf16, float32 moments, seed 0) at a
     global batch of ``batch`` x 4096, ``LM_RANKS["steps"]`` steps through
-    the `Supervisor`: over ``data_ranks`` (one shard a rank) the
-    data-parallel step, else the one-process step at ``microbatches``.
-    Returns the losses, ms a step (the median after the first), peak GB,
-    the reduction's ms a step and bytes a rank, and the state."""
+    the `Supervisor`: over ``data_ranks`` (one shard a rank; or a
+    `MeshRanks` layout, whose data axis that is, each rank on its blocks of
+    the model axis) the rank's part of the step, else the one-process step
+    at ``microbatches``. Returns the losses, ms a step (the median after
+    the first), peak GB, the reduction's ms a step and bytes a rank, over a
+    layout the model axis's collectives' ms a step, bytes a step and
+    counts a step, and the state."""
     import statistics
 
     from repro_torch.configs.registry import get_config
     from repro_torch.data import DataConfig, shard_batch_at
     from repro_torch.distributed.fault import Supervisor
+    from repro_torch.distributed.ranks import MeshRanks
     from repro_torch.optim import AdamWConfig, ScheduleConfig
     from repro_torch.train import StepClock, TrainConfig, init_train_state, make_train_step
 
@@ -1709,11 +1732,12 @@ def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1):
     data = DataConfig(vocab_size=cfg.vocab_size, global_batch=batch, seq_len=LM_TRAIN_FULL["seq"], seed=0)
     torch.cuda.synchronize(dev)       # the card's context exists before its memory stats are reset
     torch.cuda.reset_peak_memory_stats(dev)
-    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
-    clock = StepClock(dev)
     step = make_train_step(cfg, tcfg, data_ranks)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, device=dev, rules=step.rules)
+    clock = StepClock(dev)
     timed = clock.wrap(step)
-    r, w = (0, 1) if data_ranks is None else (data_ranks.rank, data_ranks.world)
+    shards = data_ranks.data if isinstance(data_ranks, MeshRanks) else data_ranks
+    r, w = (0, 1) if shards is None else (shards.rank, shards.world)
     sup = Supervisor(lambda st, i: timed(st, shard_batch_at(i, data, r, w, device=dev)), _NoCheckpoint(),
                      async_save=True, ranks=data_ranks)
     state, _ = sup.run(state, n)
@@ -1723,6 +1747,11 @@ def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1):
     if data_ranks is not None:
         red = step.reduction.ms()
         out.update(reduce_ms=statistics.median(red[1:]), reduce_bytes=step.reduce_bytes)
+    if isinstance(data_ranks, MeshRanks):
+        tp = step.rules.model
+        tms = tp.step_ms()
+        out.update(model_ms=statistics.median(tms[1:]), model_bytes=tp.sent / len(tms),
+                   model_counts={k: v / len(tms) for k, v in sorted(tp.counts.items())})
     return out
 
 
@@ -1927,6 +1956,104 @@ def lm_ranks_phase(torch, dispatch, dev, smi: str, full_losses: list[float], ful
     if not all(got["same"].values()) or got["losses"] != one["losses"]:
         fail(f"lm ranks (b): bit-equal {got['same']}, losses {got['losses']} against {one['losses']}")
     say(f"phase 25b: {time.perf_counter() - t0:.1f} s")
+
+
+def lm_model_rank_cell(rank: int, world: int, store: str, out: str) -> None:
+    """Phase 26(b)'s rank: join the NCCL group of ``world`` ranks, one card
+    each, as a 1 x ``world`` (data, model) layout; phi3's steps on this
+    rank's blocks; rank 0 writes the results to ``out``."""
+    import torch
+
+    from repro_torch.distributed.ranks import close_ranks, init_ranks, mesh_ranks
+
+    dev = init_ranks(rank, world, store)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        mesh = mesh_ranks(1, world)
+        got = phi3_ranks_run(torch, dev, mesh, LM_TRAIN_FULL["batch"])
+        res = {k: got[k] for k in ("losses", "ms", "peak_gb", "model_ms", "model_bytes")}
+        res["peak_gb_all"] = [float(v) for v in
+                              mesh.values(torch.tensor(torch.cuda.max_memory_allocated(dev) / 1e9, device=dev)).cpu()]
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+    finally:
+        close_ranks()
+
+
+def lm_model_ranks_phase(torch, dispatch, dev, smi: str, full_losses: list[float], full_ms: float,
+                         full_peak: float) -> None:
+    """Phase 26: the LM stack's model axis over ranks (see the module
+    docstring). ``full_losses``, ``full_ms``, ``full_peak``: phase 21(d)'s."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.ranks import close_ranks, init_ranks, mesh_ranks
+
+    torch.set_float32_matmul_precision("highest")
+    cfg = get_config(LM_TRAIN_FULL["arch"])
+    n = LM_RANKS["steps"]
+    want = full_losses[:n]
+
+    # (a) --mesh 1x1 --ranks 1: an NCCL group of one, every model-axis boundary's collective run for real
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_lm_model_ranks_", dir=ROOT / "build")
+    try:
+        init_ranks(0, 1, store)
+        mesh = mesh_ranks(1, 1)
+        with CollectiveCount(dist) as cc:
+            got = phi3_ranks_run(torch, dev, mesh, LM_TRAIN_FULL["batch"])
+        del got["state"]
+        torch.cuda.empty_cache()
+        calls = {k: v / n for k, v in sorted(cc.calls.items())}
+        say(f"lm model ranks (a) [{smi}]: NCCL group of 1 rank over a FileStore, a 1x1 (data, model) layout; "
+            f"{cfg.name} at full width (bf16, {cfg.n_layers} layers, float32 moments), batch "
+            f"{LM_TRAIN_FULL['batch']} x {LM_TRAIN_FULL['seq']}, {n} steps through the tensor- and vocabulary-parallel "
+            f"step and the Supervisor over the layout: losses " + " ".join(f"{x:.4f}" for x in got["losses"])
+            + f", bit-equal to phase 21(d)'s first {n}: {got['losses'] == want}; {got['ms']:.1f} ms/step (median of "
+            f"steps 2-{n}; 21(d): {full_ms:.1f}, {got['ms'] / full_ms - 1:+.2%}), peak {got['peak_gb']:.2f} GB (21(d): "
+            f"{full_peak:.2f}); model-axis collectives {got['model_ms']:.2f} ms/step (median of steps 2-{n}, CUDA "
+            f"events), {got['model_bytes'] / 1e9:.3f} GB a rank a step, a step: {got['model_counts']}; gradient "
+            f"reduction {got['reduce_ms']:.2f} ms/step; torch.distributed calls a step {calls} (eager)")
+        if got["losses"] != want:
+            fail(f"lm model ranks (a): losses {got['losses']!r}, phase 21(d)'s {want!r} (bit-equal)")
+        # every boundary of every layer: a sum after each attention and MLP block and the embedding, and a sum
+        # of each column-parallel input's cotangent
+        if min(got["model_counts"].get(k, 0) for k in ("sum_out", "copy_in")) < 2 * cfg.n_layers + 1:
+            fail(f"lm model ranks (a): the model axis's boundaries issued too few collectives: {got['model_counts']}")
+    finally:
+        close_ranks()
+        shutil.rmtree(store, ignore_errors=True)
+    no_plain(dispatch, "lm model ranks (a)")
+    say(f"phase 26a: {time.perf_counter() - t0:.1f} s")
+
+    # (b) a 1x2 layout, one card a rank
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        say(f"lm model ranks (b): not run ({n_cards} card)")
+        return
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_lm_model_ranks_", dir=ROOT / "build")
+    out = Path(store) / "rank0.json"
+    try:
+        mp.start_processes(lm_model_rank_cell, args=(2, store, str(out)), nprocs=2, start_method="spawn")
+        got = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    close = all(abs(a - b) <= LM_MODEL_RANKS["loss_rtol"] * abs(b) for a, b in zip(got["losses"], want))
+    say(f"lm model ranks (b) [{smi}]: a 1x2 layout, one card a rank (NCCL): {cfg.name}'s losses "
+        + " ".join(f"{x:.4f}" for x in got["losses"]) + f" against 21(d)'s " + " ".join(f"{x:.4f}" for x in want)
+        + f" (within rtol {LM_MODEL_RANKS['loss_rtol']}: {close}), {got['ms']:.1f} ms/step against 21(d)'s "
+        f"{full_ms:.1f}, model-axis collectives {got['model_ms']:.2f} ms/step and {got['model_bytes'] / 1e9:.3f} GB a "
+        f"rank a step, peak GB per card {[round(v, 2) for v in got['peak_gb_all']]}")
+    if not close:
+        fail(f"lm model ranks (b): losses {got['losses']} against 21(d)'s {want}")
+    say(f"phase 26b: {time.perf_counter() - t0:.1f} s")
 
 
 def tree_equal(torch, a, b) -> bool:
@@ -2279,9 +2406,9 @@ class _NoCheckpoint:
         return None
 
 
-def train_phase(torch, np, dispatch, dev, smi: str) -> tuple[list[float], float]:
+def train_phase(torch, np, dispatch, dev, smi: str) -> tuple[list[float], float, float]:
     """Phase 21: LM training on the card (see the module docstring).
-    Returns (d)'s losses and its ms a step."""
+    Returns (d)'s losses, its ms a step and its peak GB."""
     import dataclasses
     import statistics
 
@@ -2515,7 +2642,7 @@ def train_phase(torch, np, dispatch, dev, smi: str) -> tuple[list[float], float]
     torch.cuda.empty_cache()
     say(f"phase 21d: {time.perf_counter() - t0:.1f} s")
     no_plain(dispatch, "LM training")
-    return losses, ms
+    return losses, ms, peak
 
 
 def phi3_gpipe(torch, cfg, dev):
@@ -3678,7 +3805,7 @@ def main() -> None:
 
     # -- 21. language-model training on the card ---------------------------------------------
     t0 = time.perf_counter()
-    full_losses, full_ms = train_phase(torch, np, dispatch, dev, smi)
+    full_losses, full_ms, full_peak = train_phase(torch, np, dispatch, dev, smi)
     say(f"phase 21: {time.perf_counter() - t0:.1f} s")
 
     # -- 22. the LM's distributed pieces on the card --------------------------------------------
@@ -3702,6 +3829,11 @@ def main() -> None:
     t0 = time.perf_counter()
     lm_ranks_phase(torch, dispatch, dev, smi, full_losses, full_ms)
     say(f"phase 25: {time.perf_counter() - t0:.1f} s")
+
+    # -- 26. the LM stack's model axis over ranks ---------------------------------------------------
+    t0 = time.perf_counter()
+    lm_model_ranks_phase(torch, dispatch, dev, smi, full_losses, full_ms, full_peak)
+    say(f"phase 26: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -6,6 +6,7 @@ tests/dist_lm_check.py, on inputs made with numpy from a seed.
 
     PYTHONPATH=src python examples/torch_dist_lm.py --device cpu
     PYTHONPATH=src python examples/torch_dist_lm.py --ranks 4 --device cpu
+    PYTHONPATH=src python examples/torch_dist_lm.py --mesh 2x2 --device cpu
 
 Runs on the CUDA device unless ``--device cpu``. Without ``--ranks`` every
 mesh axis is stacked on the one device. With ``--ranks N`` (N dividing 4)
@@ -14,6 +15,14 @@ it spawns N processes, one a rank (NCCL with one card a rank, gloo with
 directory: each holds a block of the stages and of the data shards, and
 rank 0 also runs the stacked checks and holds the ranks' results to them
 bit for bit.
+
+With ``--mesh DxM`` it spawns D·M ranks laid out as a (data, model) mesh
+(`distributed.ranks.mesh_ranks`) and trains phi3-mini-3.8b's smoke config
+3 steps through the tensor- and vocabulary-parallel step, each rank on its
+blocks and its data shard; rank 0 holds the run to the one-process step at
+``microbatches = D``: every metric within rtol 1e-5 (``tokens`` and
+``accuracy`` exact), the gathered parameters within rtol 2e-3 and atol
+2e-5 (check A's).
 """
 
 import argparse
@@ -36,6 +45,7 @@ from repro_torch.distributed.compression import (  # noqa: E402
 )
 from repro_torch.distributed.pipeline import pipeline_forward  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update_  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 STAGES, MICRO, MB, D = 4, 8, 4, 16        # check B
 SHARDS, STEPS, ROWS = 8, 60, 64           # check C: 8 rows a shard a step
@@ -200,12 +210,107 @@ def run_ranks(n_ranks: int, device=None) -> None:
         shutil.rmtree(store, ignore_errors=True)
 
 
+TP = dict(arch="phi3-mini-3.8b", steps=3, batch=4, seq=16)
+TP_METRIC_RTOL, TP_PARAM_RTOL, TP_PARAM_ATOL = 1e-5, 2e-3, 2e-5
+
+
+def tp_train(device, mesh=None, microbatches: int = 1):
+    """``TP``'s steps of its smoke config (seed 0, the synthetic batches,
+    check A's optimizer): over ``mesh`` (a `MeshRanks` layout) on this
+    rank's blocks and data shard, else the one-process step at
+    ``microbatches``. Returns (each step's metrics, the whole parameters;
+    gathered over the model ranks, a collective)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data import DataConfig, global_batch_at, shard_batch_at
+    from repro_torch.optim import ScheduleConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.step import state_blocks
+
+    cfg = get_smoke_config(TP["arch"])
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), schedule=ScheduleConfig(warmup_steps=2, total_steps=50),
+                       microbatches=microbatches)
+    step = make_train_step(cfg, tcfg, mesh)
+    state = init_train_state(torch.Generator(device=device).manual_seed(0), cfg, device=device, rules=step.rules)
+    data = DataConfig(vocab_size=cfg.vocab_size, global_batch=TP["batch"], seq_len=TP["seq"])
+    metrics = []
+    for i in range(TP["steps"]):
+        batch = (global_batch_at(i, data, device=device) if mesh is None
+                 else shard_batch_at(i, data, mesh.data.rank, mesh.data.world, device=device))
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, (state if mesh is None else state_blocks(cfg, step.rules).gather(state))["params"]
+
+
+def tp_check(device, mesh) -> bool:
+    """The tensor-parallel run over ``mesh``, held on rank 0 to the
+    one-process step at ``microbatches = D``; prints there. True on every
+    rank if it held."""
+    got, params = tp_train(device, mesh)
+    ok = True
+    if mesh.rank == 0:
+        d, m = mesh.shape
+        want, w_params = tp_train(device, microbatches=d)
+        worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-6) for g, w in zip(got, want) for k in w)
+        exact = all(g[k] == w[k] for g, w in zip(got, want) for k in ("tokens", "accuracy"))
+        close = all(torch.allclose(a, b, rtol=TP_PARAM_RTOL, atol=TP_PARAM_ATOL)
+                    for a, b in zip(tree_leaves(params), tree_leaves(w_params)))
+        ok = worst <= TP_METRIC_RTOL and exact and close
+        print(f"TP {TP['arch']} smoke over a {d}x{m} mesh ({d * m} ranks), {TP['steps']} steps: losses "
+              + " ".join(f"{g['loss']:.6f}" for g in got) + " (one process at microbatches="
+              f"{d}: " + " ".join(f"{w['loss']:.6f}" for w in want) + f"); largest metric rtol {worst:.2e}, tokens and "
+              f"accuracy exact {exact}, parameters within rtol {TP_PARAM_RTOL} atol {TP_PARAM_ATOL} {close}: "
+              f"{'OK' if ok else 'FAILED'}", flush=True)
+    return bool(mesh.agree(int(ok)))
+
+
+def _tp_rank_main(rank: int, world: int, store: str, shape, device) -> None:
+    """One rank of ``--mesh``: join the group, lay out the mesh, run
+    `tp_check`; a failed check raises."""
+    from repro_torch.distributed.ranks import close_ranks, init_ranks, mesh_ranks
+
+    dev = init_ranks(rank, world, store, device=device)
+    if dev.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        ok = tp_check(dev, mesh_ranks(*shape))
+    finally:
+        close_ranks()
+    if not ok:
+        raise SystemExit(1)
+
+
+def run_mesh(text: str, device=None) -> None:
+    """`tp_check` over the D·M ranks of the ``DxM`` mesh ``text``;
+    refuses, by name, more ranks than visible cards."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.distributed.ranks import check_axis_request
+
+    d, m = (int(x) for x in text.split("x"))
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    n_cards = None if on_cpu else (torch.cuda.device_count() if torch.cuda.is_available() else 0)
+    check_axis_request(d * m, d, n_cards=n_cards, model=m)
+    if TP["batch"] % d:
+        raise ValueError(f"a data axis of {d} does not split the batch of {TP['batch']}")
+    store = tempfile.mkdtemp(prefix="torch_dist_lm_tp_")
+    try:
+        mp.start_processes(_tp_rank_main, args=(d * m, store, (d, m), "cpu" if on_cpu else None), nprocs=d * m,
+                           start_method="spawn")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--ranks", type=int, default=None, metavar="N",
                     help="spread the stages and the data shards over N processes, one a rank")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="train over a (data, model) mesh of D·M processes, one a rank, against one process")
     args = ap.parse_args()
+    if args.mesh is not None:
+        run_mesh(args.mesh, args.device)
+        return
     if args.ranks is not None:
         run_ranks(args.ranks, args.device)
         return

@@ -589,12 +589,23 @@ class CheckpointManager:
     the other ranks' ``save`` does nothing. ``latest_step`` is rank 0's on
     every rank (`agree`), and ``restore`` waits for rank 0's write, then
     for every rank (a barrier), before any rank reads. Both are
-    collective: every rank calls them."""
+    collective: every rank calls them.
 
-    def __init__(self, directory: str, *, keep: int = 3, ranks=None):
+    Over a (data, model) layout (``ranks``, a `distributed.ranks.MeshRanks`)
+    each rank holds its block of the model axis: ``blocks`` (a
+    `distributed.sharding.ModelBlocks` of the saved tree) gathers the
+    blocks of data row 0 into the whole tree on ``save`` (collective over
+    that row's model group; rank 0 writes it), and on ``restore`` every
+    rank takes its own block of each whole leaf. A checkpoint so holds the
+    whole tree, and moves between packages and mesh sizes."""
+
+    def __init__(self, directory: str, *, keep: int = 3, ranks=None, blocks=None):
+        if blocks is not None and not hasattr(ranks, "model"):
+            raise ValueError("a checkpoint of model-axis blocks needs the (data, model) layout they come from")
         self.directory = directory
         self.keep = keep
         self.ranks = ranks
+        self.blocks = blocks
         self.writer = ranks is None or ranks.rank == 0
         if self.writer:
             os.makedirs(directory, exist_ok=True)
@@ -606,7 +617,12 @@ class CheckpointManager:
         """Write ``tree`` as ``step_<step:09d>`` (atomically), point
         ``LATEST`` at it, and drop all but the newest ``keep``. With
         ``blocking=False`` the write runs on a background thread; the host
-        copies are made before this returns. Over ranks only rank 0 writes."""
+        copies are made before this returns. Over ranks only rank 0 writes;
+        with ``blocks`` data row 0 gathers the whole tree first."""
+        if self.blocks is not None:
+            if self.ranks.data.rank != 0:
+                return
+            tree = self.blocks.gather(tree)
         if not self.writer:
             return
         pairs = _flatten_with_names(tree)
@@ -706,10 +722,13 @@ class CheckpointManager:
         if [n for n, _ in pairs] != manifest["names"]:
             raise ValueError(f"checkpoint/model structure mismatch at {d}")
         dtypes = manifest.get("dtypes", [str(a.dtype) for a in arrays])
-        for arr, (name, leaf) in zip(arrays, pairs):
-            if tuple(arr.shape) != tuple(leaf.shape):
-                raise ValueError(f"checkpoint leaf {name} has shape {arr.shape}, expected {tuple(leaf.shape)}")
+        values = [_from_host(arr, dt) for arr, dt in zip(arrays, dtypes)]
+        if self.blocks is not None:  # this rank's block of each whole leaf
+            values = [self.blocks.block_of(i, v) for i, v in enumerate(values)]
+        for v, (name, leaf) in zip(values, pairs):
+            if tuple(v.shape) != tuple(leaf.shape):
+                raise ValueError(f"checkpoint leaf {name} has shape {tuple(v.shape)}, expected {tuple(leaf.shape)}")
         with torch.no_grad():
-            for arr, dt, (_, leaf) in zip(arrays, dtypes, pairs):
-                leaf.copy_(_from_host(arr, dt))
+            for v, (_, leaf) in zip(values, pairs):
+                leaf.copy_(v)
         return tree, step

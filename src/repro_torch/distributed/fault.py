@@ -100,10 +100,12 @@ class Supervisor:
     copying the latest checkpoint into the state held.
 
     Over ``ranks`` (an `AxisRanks` whose ranks each hold the replicated
-    state, and a checkpoint manager over the same ranks) every rank runs
-    the same loop. At each step's start each rank's injector sets a flag
-    in place of raising, and the flags are gathered (one small collective a
-    step, which reads the host): if any rank's fired, every rank restores
+    state, or a `MeshRanks` layout whose ranks hold their blocks of the
+    model axis, and a checkpoint manager over the same ranks) every rank
+    runs the same loop. At each step's start each rank's injector sets a flag
+    in place of raising, and the flags are gathered over every rank (all
+    D·M of a layout; one small collective a step, which reads the host):
+    if any rank's fired, every rank restores
     and replays. An exception raised inside ``step_fn`` on one rank alone
     is not recovered: the ranks' collectives are then out of step, so it
     is raised, and the other ranks end with the group's error (its

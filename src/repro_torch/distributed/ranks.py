@@ -53,6 +53,15 @@ visible cards and a rank count with no grid that divides the mesh;
 `check_rank_grid` refuses a given grid that does not divide it;
 `check_axis_request` refuses more ranks than cards and a rank count that
 does not divide an LM axis.
+
+The (data, model) layout of the LM stack (`MeshRanks`, built by
+`mesh_ranks`) lays D·M ranks out as rank ``r = d M + m``, so that the
+ranks of one model group are neighbours: a data group for each ``m``
+(ranks ``m, M + m, ...``) and a model group for each ``d`` (ranks ``d M
+... d M + M - 1``), each made by ``dist.new_group`` in the same order on
+every rank, and an `AxisRanks` for each axis over this rank's group. Its
+own collectives (``values``, ``agree``, ``barrier``) run over all D·M
+ranks. The model axis's collectives are `distributed.tensor_parallel`'s.
 """
 
 from __future__ import annotations
@@ -66,8 +75,9 @@ import torch.distributed as dist
 
 from repro_torch.tree import tree_leaves
 
-__all__ = ["AxisRanks", "GATHER_CHUNK_BYTES", "RankGrid", "check_axis_request", "check_rank_grid",
-           "check_rank_request", "choose_rank_grid", "close_ranks", "init_ranks", "rank_device", "stack_sum"]
+__all__ = ["AxisRanks", "GATHER_CHUNK_BYTES", "MeshRanks", "RankGrid", "check_axis_request", "check_rank_grid",
+           "check_rank_request", "choose_rank_grid", "close_ranks", "init_ranks", "mesh_ranks", "rank_device",
+           "stack_sum"]
 
 #: the most bytes of one rank's contribution that `AxisRanks.reduce_sum_`
 #: gathers at once: its temporaries are ``world`` such chunks and one sum
@@ -110,19 +120,28 @@ def check_rank_request(world: int, mesh_shape, *, n_cards: int | None = None) ->
     return found
 
 
-def check_axis_request(world: int, n: int, *, n_cards: int | None = None, axis: str = "data") -> int:
-    """The block ``n / world`` each of ``world`` ranks holds along an LM
-    mesh axis of ``n`` entries, or an error naming the cause: more ranks
-    than the ``n_cards`` visible cards (one card a rank; None on the CPU),
-    or a rank count that does not divide the axis."""
+def check_axis_request(world: int, n: int, *, n_cards: int | None = None, axis: str = "data",
+                       model: int = 1) -> int:
+    """The block ``n / (world / model)`` each of ``world`` ranks holds along
+    an LM mesh axis of ``n`` entries, the ranks laid out as ``world /
+    model`` blocks of the axis by ``model`` ranks of the model axis (a
+    (data, model) layout of D·M ranks, `MeshRanks`; ``model = 1``: the
+    axis alone), or an error naming the cause: more ranks than the
+    ``n_cards`` visible cards (one card a rank; None on the CPU), a rank
+    count that is not a multiple of the model axis, or one that does not
+    divide the axis."""
     if world < 1:
         raise ValueError(f"a run needs at least one rank, got {world}")
     if n_cards is not None and world > n_cards:
         raise RuntimeError(f"{world} ranks need {world} cards, one a rank, but {n_cards} are visible")
-    if n < 1 or n % world:
-        raise ValueError(f"{world} ranks do not divide the {axis} axis of {n}: each rank holds a contiguous block "
-                         f"of {n} / {world} entries")
-    return n // world
+    if model < 1 or world % model:
+        raise ValueError(f"{world} ranks do not lay out as the {axis} axis by a model axis of {model}: D·M ranks, "
+                         f"rank d·{model} + m")
+    blocks = world // model
+    if n < 1 or n % blocks:
+        raise ValueError(f"{blocks} ranks do not divide the {axis} axis of {n}: each rank holds a contiguous block "
+                         f"of {n} / {blocks} entries")
+    return n // blocks
 
 
 def rank_device(rank: int, device=None) -> torch.device:
@@ -430,3 +449,56 @@ class AxisRanks(_Collectives):
         self.counts["broadcast"] += 1
         dist.broadcast(_wire(t), src=self.peers[-1], group=self.group)
         return t
+
+
+class MeshRanks(_Collectives):
+    """A (data, model) layout of ``world = D·M`` ranks over a process
+    group: this process is rank ``rank = d M + m`` of it; ``data`` is the
+    `AxisRanks` of the data axis (D entries, one a rank, over the data
+    group of column ``m``) and ``model`` that of the model axis (M
+    entries, over the model group of row ``d``). ``values``, ``agree``
+    and ``barrier`` run over every rank of the layout (``group``)."""
+
+    __slots__ = ("data", "model", "rank", "world", "group", "device")
+
+    def __init__(self, data: AxisRanks, model: AxisRanks, group=None):
+        self.data, self.model = data, model
+        self.world = data.world * model.world
+        self.rank = data.rank * model.world + model.rank
+        self.group = group
+        self.device = data.device
+
+    def __repr__(self) -> str:
+        return f"MeshRanks({self.data.world}x{self.model.world}, rank={self.rank})"
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.data.world, self.model.world
+
+
+def mesh_ranks(d: int, m: int, members=None) -> MeshRanks | None:
+    """The (data, model) layout of ``d x m`` ranks over the global ranks
+    ``members`` (default: every rank of the default group, which must then
+    hold ``d * m``): member ``i`` is layout rank ``i``. Collective over the
+    default group: every process calls it with the same arguments, member
+    or not (``dist.new_group`` asks that); a process outside ``members``
+    gets None. A group of every rank of the default group is that group: a
+    layout over every rank (one rank too) makes no new group for it."""
+    world = dist.get_world_size()
+    members = list(range(world)) if members is None else [int(r) for r in members]
+    if len(members) != d * m:
+        raise ValueError(f"a {d}x{m} layout takes {d * m} ranks, not {len(members)}")
+
+    def group_of(ranks):
+        return dist.group.WORLD if sorted(ranks) == list(range(world)) else dist.new_group(ranks)
+
+    whole = group_of(members)
+    data_groups = [group_of([members[j * m + c] for j in range(d)]) for c in range(m)]
+    model_groups = [group_of([members[r * m + j] for j in range(m)]) for r in range(d)]
+    me = dist.get_rank()
+    if me not in members:
+        return None
+    i = members.index(me)
+    row, col = divmod(i, m)
+    return MeshRanks(AxisRanks.of_group("data", d, data_groups[col]), AxisRanks.of_group("model", m, model_groups[row]),
+                     whole)

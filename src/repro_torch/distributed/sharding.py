@@ -32,8 +32,10 @@ import contextlib
 import threading
 
 import numpy as np
+import torch
 
 from repro_torch.core.shape_functions import max_guard
+from repro_torch.distributed.tensor_parallel import splits_model
 
 __all__ = [
     "Rules",
@@ -43,8 +45,12 @@ __all__ = [
     "is_axes",
     "logical_spec",
     "map_axes",
+    "ModelBlocks",
+    "model_dim",
     "plan_balanced_split",
+    "recompute_context",
     "rules_for",
+    "tensor_parallel",
     "train_rules",
     "tree_specs",
     "use_rules",
@@ -117,11 +123,15 @@ def _mesh_axes(m):
 
 class Rules:
     """A rule table, logical axis name -> mesh axes (a name, a tuple of
-    names or None), and the mesh it serves as ``{axis name: size}``."""
+    names or None), and the mesh it serves as ``{axis name: size}``.
+    ``model``, a `distributed.tensor_parallel.TensorParallel`, spreads the
+    model axis over ranks: the layers then hold and compute this rank's
+    block of every dimension the table maps to ``model``."""
 
-    def __init__(self, table: dict, mesh: dict | None = None):
+    def __init__(self, table: dict, mesh: dict | None = None, model=None):
         self.table = dict(table)
         self.mesh = None if mesh is None else dict(mesh)
+        self.model = model
 
     def spec(self, axes: tuple) -> tuple:
         return tuple(_mesh_axes(self.table.get(ax)) if ax is not None else None for ax in axes)
@@ -144,6 +154,21 @@ def use_rules(rules: Rules | None):
         yield
     finally:
         _state.rules = prev
+
+
+def tensor_parallel():
+    """The installed table's model axis over ranks (a `TensorParallel`),
+    or None: the model axis is then held whole."""
+    r = current_rules()
+    return None if r is None else r.model
+
+
+def recompute_context():
+    """A ``context_fn`` for `torch.utils.checkpoint`: the forward's rule
+    table installed again around the recompute, which on a card runs on
+    autograd's worker thread (where no table is installed) and must take
+    the forward's path, its collectives included."""
+    return contextlib.nullcontext(), use_rules(current_rules())
 
 
 def logical_spec(axes: tuple) -> tuple | None:
@@ -179,6 +204,81 @@ def map_axes(fn, tree):
 def tree_specs(logical_tree, rules: Rules):
     """A tree of logical-axis tuples -> the same tree of specs."""
     return map_axes(rules.spec, logical_tree)
+
+
+# ------------------------------------------------------------------
+# a rank's blocks of the model axis (`Rules.model`)
+# ------------------------------------------------------------------
+
+
+def model_dim(axes: tuple, table: dict) -> int | None:
+    """The dimension of a leaf with logical ``axes`` that ``table`` places
+    on the ``model`` mesh axis, or None (the leaf is replicated over it)."""
+    dims = [i for i, ax in enumerate(axes) if ax is not None and splits_model(table.get(ax))]
+    if len(dims) > 1:
+        raise ValueError(f"logical axes {axes} place two dimensions on the model axis")
+    return dims[0] if dims else None
+
+
+def _zip_leaves(tree, axes):
+    """``(leaf, its axes)`` pairs of a tree and its logical-axes twin, in
+    `tree_leaves` order (dict keys sorted)."""
+    if is_axes(axes):
+        return [(tree, axes)]
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in _zip_leaves(tree[k], axes[k])]
+    return [pair for t, a in zip(tree, axes) for pair in _zip_leaves(t, a)]
+
+
+def _rebuild(tree, axes, values):
+    """``tree``'s structure with its leaves (in `tree_leaves` order) taken
+    from the iterator ``values``."""
+    if is_axes(axes):
+        return next(values)
+    if isinstance(tree, dict):
+        done = {k: _rebuild(tree[k], axes[k], values) for k in sorted(tree)}
+        return {k: done[k] for k in tree}
+    return type(tree)(_rebuild(t, a, values) for t, a in zip(tree, axes))
+
+
+class ModelBlocks:
+    """A rank's blocks of a tree over the model ranks of ``rules``
+    (``rules.model``): ``axes`` is the tree's logical-axes twin, ``whole``
+    the same tree with the whole leaves' shapes (tensors, on ``meta`` as
+    well). A leaf that the table places on ``model`` is cut along that
+    dimension into `TensorParallel.range`'s block; every other leaf is
+    replicated. Leaves are listed in `tree_leaves` order (dict keys
+    sorted), as checkpoints name them."""
+
+    def __init__(self, axes, whole, rules: Rules):
+        self.axes, self.rules = axes, rules
+        pairs = _zip_leaves(whole, axes)
+        self.dims = [model_dim(a, rules.table) for _, a in pairs]
+        self.shapes = [tuple(t.shape) for t, _ in pairs]
+
+    def block_of(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block (a view) of leaf ``i``'s whole value."""
+        dim = self.dims[i]
+        if dim is None:
+            return full
+        lo, hi = self.rules.model.range(full.shape[dim])
+        return full.narrow(dim, lo, hi - lo)
+
+    def cut(self, tree):
+        """This rank's block of every leaf of a whole tree, as contiguous
+        copies."""
+        leaves = [t for t, _ in _zip_leaves(tree, self.axes)]
+        blocks = (self.block_of(i, t).clone(memory_format=torch.contiguous_format) for i, t in enumerate(leaves))
+        return _rebuild(tree, self.axes, blocks)
+
+    def gather(self, tree):
+        """The whole leaves of a tree of this rank's blocks: each cut leaf
+        gathered over the model ranks (collective: every model rank calls
+        it), every other leaf as it is."""
+        leaves = [t for t, _ in _zip_leaves(tree, self.axes)]
+        whole = (t if d is None else self.rules.model.gather_dim(t, d, shape[d])
+                 for t, d, shape in zip(leaves, self.dims, self.shapes))
+        return _rebuild(tree, self.axes, whole)
 
 
 # ------------------------------------------------------------------

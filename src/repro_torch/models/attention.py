@@ -6,13 +6,20 @@ Scores and softmax are float32 whatever the inputs' dtype (the reference's
 ``preferred_element_type=float32``: the operands are upcast before the
 product). The cache carries each slot's absolute position, so a full cache
 and a sliding-window ring cache are one code path.
+
+With the model axis over ranks (`distributed.sharding.tensor_parallel`)
+and ``heads`` on it, a rank computes its block of the heads: q, k and v
+column-parallel, ``wo`` row-parallel with a sum over the model ranks
+after it (`TensorParallel.sum_out`). Where ``kv_heads`` stays replicated
+(fewer kv heads than ranks, or a count the axis does not divide) each rank
+projects the kv heads of its own q heads.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, tensor_parallel
 from repro_torch.models.common import ModelConfig, ParamInit, apply_rope, dense_init, rope_frequencies
 
 NEG_INF = -1e30
@@ -226,16 +233,38 @@ def attention_apply(
 
     cache: {"k": (B, S_cache, KV, D), "v": ..., "pos": (S_cache,)} updated at
     cache_index (a device tensor) when decoding. kv_source: encoder states
-    for cross-attention (no cache, not causal). Returns (out, new_cache).
+    for cross-attention (no cache, not causal); with the heads on the model
+    axis over ranks, states the caller passed through
+    `TensorParallel.copy_in` once for all the layers that read them (so
+    that their cotangents add in the one-process order before the sum over
+    the ranks). Returns (out, new_cache).
     """
     b, s, _ = x.shape
     hd = cfg.hd
     n_rep = cfg.n_heads // cfg.n_kv_heads
 
+    wk, wv = params["wk"], params["wv"]
+    tp = tensor_parallel()
+    split = tp is not None and tp.splits("heads")
+    pick = None
+    if split:
+        # column-parallel over this rank's q heads; the replicated inputs'
+        # cotangents add over the model ranks
+        if cache is not None:
+            raise ValueError("attention over the model ranks runs the training forward, not a cached decode")
+        x = tp.copy_in(x)
+        if not tp.splits("kv_heads"):
+            # every rank holds every kv head: project those of its q heads;
+            # the kv weights' gradients add over the model ranks
+            h0, h1 = tp.range(cfg.n_heads)
+            lo, hi = h0 // n_rep, (h1 - 1) // n_rep + 1
+            wk, wv = tp.copy_in(wk)[:, lo:hi], tp.copy_in(wv)[:, lo:hi]
+            pick = (h0 - lo * n_rep, h1 - lo * n_rep)
+
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     src = x if kv_source is None else kv_source
-    k = torch.einsum("bsd,dhk->bshk", src, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, params["wv"])
+    k = torch.einsum("bsd,dhk->bshk", src, wk)
+    v = torch.einsum("bsd,dhk->bshk", src, wv)
     q = constrain(q, "batch", None, "heads", None)
     k = constrain(k, "batch", None, "kv_heads", None)
 
@@ -274,6 +303,8 @@ def attention_apply(
 
     k_rep = _repeat_kv(k_full, n_rep)
     v_rep = _repeat_kv(v_full, n_rep)
+    if pick is not None:
+        k_rep, v_rep = k_rep[:, :, pick[0]:pick[1]], v_rep[:, :, pick[0]:pick[1]]
 
     sk = k_rep.shape[1]
     if s > 1 and max(s, sk) > chunked_threshold:
@@ -286,6 +317,8 @@ def attention_apply(
 
     out = constrain(out, "batch", None, "heads", None)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    if split:  # row-parallel: every rank's partial sum over its heads
+        y = tp.sum_out(y)
     return y, new_cache
 
 

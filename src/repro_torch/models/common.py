@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import constrain, current_rules
+from repro_torch.distributed.sharding import constrain, current_rules, tensor_parallel
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (tree_map: callers import it from here too)
 
 # ---------------------------------------------------------------------------
@@ -181,32 +181,61 @@ class _EmbedLookup(torch.autograd.Function):
     Under a rule table the reference skips the pre-sort (it would cost GSPMD
     an all-gather). Whether to sort is decided in ``forward``: the caller's
     thread holds the rule table, and a card's backward runs on autograd's
-    own worker thread, which does not."""
+    own worker thread, which does not.
+
+    ``table`` may be the block of rows ``[lo, lo + len(table))`` of the
+    vocabulary (the model axis over ranks): an id outside it looks up a row
+    of zeros, and in the backward adds a row of zeros (exact: the float32
+    sums start from +0 and never hold -0), so that the rows of the ids
+    inside keep their order and no host read picks them out."""
 
     @staticmethod
-    def forward(ctx, table, ids):
-        ctx.save_for_backward(ids)
+    def forward(ctx, table, ids, lo):
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
         ctx.presort = current_rules() is None
-        return table[ids]
+        if lo is None:
+            ctx.save_for_backward(ids)
+            return table[ids]
+        local = ids - lo
+        inside = (local >= 0) & (local < table.shape[0])
+        ctx.save_for_backward(local, inside)
+        rows = table[local.clamp(0, table.shape[0] - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
 
     @staticmethod
     def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
         v, d = ctx.table_shape
-        flat_ids = ids.reshape(-1)
+        flat_ids = ctx.saved_tensors[0].reshape(-1)
         flat_g = g.reshape(-1, d)
+        if len(ctx.saved_tensors) > 1:  # a block: zeros for the ids outside it
+            keep = ctx.saved_tensors[1].reshape(-1, 1)
+            flat_ids = flat_ids.clamp(0, v - 1)
+            flat_g = torch.where(keep, flat_g, torch.zeros((), dtype=flat_g.dtype, device=flat_g.device))
         if ctx.presort:
             order = torch.argsort(flat_ids, stable=True)
             flat_ids = flat_ids[order]
             flat_g = flat_g[order]
         dt = torch.zeros((v, d), dtype=torch.float32, device=g.device)
         dt.index_put_((flat_ids.long(),), flat_g.float(), accumulate=True)
-        return dt.to(ctx.table_dtype), None
+        return dt.to(ctx.table_dtype), None, None
 
 
-def embed_lookup(table, ids):
-    return _EmbedLookup.apply(table, ids)
+def embed_lookup(table, ids, vocab_size: int | None = None):
+    """``table[ids]`` with the sorted-scatter backward. With ``vocab`` on
+    the model axis over ranks, ``table`` is this rank's block of the
+    ``vocab_size`` rows: each rank looks up its own ids (zeros for the
+    others') and the rows are summed over the model ranks, exactly (one row
+    and zeros)."""
+    tp = tensor_parallel()
+    if tp is None or not tp.splits("vocab"):
+        return _EmbedLookup.apply(table, ids, None)
+    if vocab_size is None:
+        raise ValueError("an embedding split over the model ranks needs the whole vocabulary's size")
+    lo, hi = tp.range(vocab_size)
+    if hi - lo != table.shape[0]:
+        raise ValueError(f"a block of {table.shape[0]} rows is not this rank's block [{lo}, {hi}) of the vocabulary "
+                         f"of {vocab_size}")
+    return tp.sum_out(_EmbedLookup.apply(table, ids, lo))
 
 
 def embedding_init(init: ParamInit, cfg: ModelConfig):
@@ -298,7 +327,12 @@ def chunked_scan(step, h0, xs, *, chunk: int = 128):
 
 
 def unembed(x, table):
-    """Logits via the (tied) embedding table: (B,S,D) @ (V,D)^T."""
+    """Logits via the (tied) embedding table: (B,S,D) @ (V,D)^T. With
+    ``vocab`` on the model axis over ranks, ``table`` is this rank's block
+    of rows and the logits are that block's."""
+    tp = tensor_parallel()
+    if tp is not None and tp.splits("vocab"):
+        x = tp.copy_in(x)
     logits = torch.einsum("bsd,vd->bsv", x, table)
     return constrain(logits, "batch", None, "vocab")
 

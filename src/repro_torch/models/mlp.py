@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, tensor_parallel
 from repro_torch.models.common import ModelConfig, ParamInit, dense_init, gelu
 
 
@@ -31,9 +31,17 @@ def mlp_axes(cfg: ModelConfig):
 
 
 def mlp_apply(params, x, cfg: ModelConfig):
+    """With ``mlp`` on the model axis over ranks, ``w_gate`` and ``w_up``
+    are column-parallel and ``w_down`` row-parallel, one sum over the model
+    ranks after it."""
+    tp = tensor_parallel()
+    split = tp is not None and tp.splits("mlp")
+    if split:
+        x = tp.copy_in(x)
     if cfg.act == "swiglu":
         h = F.silu(torch.einsum("bsd,df->bsf", x, params["w_gate"])) * torch.einsum("bsd,df->bsf", x, params["w_up"])
     else:
         h = gelu(torch.einsum("bsd,df->bsf", x, params["w_up"]))
     h = constrain(h, "batch", None, "mlp")
-    return torch.einsum("bsf,fd->bsd", h, params["w_down"])
+    y = torch.einsum("bsf,fd->bsd", h, params["w_down"])
+    return tp.sum_out(y) if split else y

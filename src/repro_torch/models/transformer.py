@@ -14,7 +14,12 @@ One code path covers the ten architectures through the config's repeating
 Layer parameters are stacked over periods with the reference's leaf names
 and shapes; the reference's scan is a loop over periods that slices every
 leaf at period ``i``, and with ``remat`` and grad on each period runs under
-`torch.utils.checkpoint` (the reference's ``jax.checkpoint``). Decode
+`torch.utils.checkpoint` (the reference's ``jax.checkpoint``), its
+recompute under the forward's rule table. With the model axis over ranks
+(`distributed.tensor_parallel`) the layers hold and compute this rank's
+block of the heads, the MLP width and the vocabulary: the embedding looks
+up its block of rows (tied: the same block the head uses), and the logits
+are this rank's block of the vocabulary. Decode
 carries stacked per-period caches the same way; the decode state's
 ``index`` is a 0-d int32 tensor on the device, never read on the host.
 """
@@ -27,7 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, recompute_context, tensor_parallel
 from repro_torch.distributed.sharding import map_axes as _map_axes
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
@@ -44,6 +49,7 @@ from repro_torch.models.common import (
     rmsnorm_axes,
     rmsnorm_init,
     softcap,
+    unembed,
 )
 from repro_torch.models.mlp import mlp_apply, mlp_axes, mlp_init
 from repro_torch.models.moe import moe_apply, moe_axes, moe_init
@@ -205,7 +211,7 @@ def _period(tree, i: int):
 
 
 def _embed(params, tokens, cfg: ModelConfig):
-    x = embed_lookup(params["embed"]["table"], tokens).to(cfg.dtype)
+    x = embed_lookup(params["embed"]["table"], tokens, cfg.vocab_size).to(cfg.dtype)
     if cfg.name.startswith("gemma"):
         # sqrt(d) rounded to the model's dtype first, as in the reference
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype).item()
@@ -214,8 +220,7 @@ def _embed(params, tokens, cfg: ModelConfig):
 
 def _head(params, x, cfg: ModelConfig):
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", x, _unembed_table(params))
-    return softcap(logits, cfg.logit_softcap)
+    return softcap(unembed(x, _unembed_table(params)), cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +262,9 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeddings=None, frames=
     x = constrain(x, "batch", "seq", "embed")
 
     enc_out = encode(params, frames, cfg) if frames is not None else None
+    tp = tensor_parallel()
+    if enc_out is not None and tp is not None and tp.splits("heads"):
+        enc_out = tp.copy_in(enc_out)  # every cross-attention's part of its cotangent, summed over the ranks
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def period_body(x, i):
@@ -271,7 +279,7 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeddings=None, frames=
     lb_sum, dr_sum = _zero_aux(x.device)
     for i in range(cfg.n_periods):
         if remat and torch.is_grad_enabled():
-            x, lb, dr = checkpoint(period_body, x, i, use_reentrant=False)
+            x, lb, dr = checkpoint(period_body, x, i, use_reentrant=False, context_fn=recompute_context)
         else:
             x, lb, dr = period_body(x, i)
         lb_sum, dr_sum = lb_sum + lb, dr_sum + dr

@@ -61,8 +61,21 @@ def adamw_init(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in _leaves(tree)))
+def global_norm(tree, *, model=None, sharded=None) -> torch.Tensor:
+    """The float32 norm of every leaf. Over the model axis (``model``, a
+    `distributed.tensor_parallel.TensorParallel`; ``sharded``, a list of
+    flags in leaf order, True where the leaf is this rank's block of a
+    leaf cut over the model ranks) each cut leaf's sum of squares is the
+    sum of every rank's, added in rank order (one gather for all of them);
+    a replicated leaf counts once."""
+    squares = [torch.sum(torch.square(g.to(torch.float32))) for g in _leaves(tree)]
+    if model is not None:
+        cut = [i for i, s in enumerate(sharded) if s]
+        if cut:
+            total = model.sum(torch.stack([squares[i] for i in cut]), "norm")
+            for j, i in enumerate(cut):
+                squares[i] = total[j]
+    return torch.sqrt(sum(squares))
 
 
 def _clip_scale(norm, max_norm: float) -> torch.Tensor:
@@ -73,10 +86,10 @@ def _clip(g, scale) -> torch.Tensor:
     return (g.to(torch.float32) * scale).to(g.dtype)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, model=None, sharded=None):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
-    before clipping)."""
-    norm = global_norm(grads)
+    before clipping); ``model``, ``sharded``: `global_norm`'s."""
+    norm = global_norm(grads, model=model, sharded=sharded)
     scale = _clip_scale(norm, max_norm)
     return _map(lambda g: _clip(g, scale), grads), norm
 
@@ -96,14 +109,15 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig, lr_scale=1.0):
 _CHUNK = 1 << 24
 
 
-def adamw_update_(grads, state: dict, params, cfg: AdamWConfig, lr_scale=1.0) -> dict:
+def adamw_update_(grads, state: dict, params, cfg: AdamWConfig, lr_scale=1.0, *, model=None, sharded=None) -> dict:
     """One AdamW step in the reference's arithmetic and order, written into
     ``params``, ``state["mu"]``, ``state["nu"]`` and ``state["count"]``.
     The clip by the global norm is applied a slice at a time as the slice
-    is updated, so no clipped copy of the gradients is made. Returns the
+    is updated, so no clipped copy of the gradients is made. Over the
+    model axis, ``model`` and ``sharded`` are `global_norm`'s. Returns the
     metrics."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, model=model, sharded=sharded)
         scale = _clip_scale(gnorm, cfg.grad_clip)
         state["count"].add_(1)
         count = state["count"]

@@ -23,20 +23,39 @@ the same `adamw_update_`, so the replicas stay bit-equal. With k = 1 that
 is the one-process step at ``microbatches = D`` bit for bit; with k > 1 the
 float32 sums group by rank, within rounding of it. The MoE load-balance
 term is each microbatch's own, as in the reference's microbatched step.
+
+Over a (data, model) layout (``ranks``, a `distributed.ranks.MeshRanks`
+of D·M ranks) the model axis is spread too: the step installs the rule
+table of `rules_for` for the (D, M) mesh with the model ranks in it
+(`model_rules`), so that every attention, MLP and vocabulary matrix is
+this rank's block (`distributed.tensor_parallel`); the state holds the
+blocks (`init_train_state(..., rules=...)`, `state_blocks`). The data
+reduction runs over the rank's data group (model column) as above; the
+gradient norm adds the squares of the cut leaves over the model ranks in
+rank order and counts a replicated leaf (a norm's scale) once, whose
+gradient is the same on every model rank. The row-parallel contractions
+add their partial sums in a new order, so the step is the one-process
+step within rounding at M > 1, and bit for bit at M = 1, where every sum
+over the model group is ``0 + x``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
 import torch
 
+from repro_torch.distributed.ranks import MeshRanks
+from repro_torch.distributed.sharding import ModelBlocks, Rules, rules_for, use_rules
+from repro_torch.distributed.tensor_parallel import TensorParallel, check_model_axis
 from repro_torch.models import ModelConfig, cross_entropy, forward, init_params
+from repro_torch.models.transformer import param_axes
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, ScheduleConfig, adamw_init, adamw_update_, lr_schedule
 
-__all__ = ["StepClock", "TrainConfig", "init_train_state", "make_train_step"]
+__all__ = ["StepClock", "TrainConfig", "init_train_state", "make_train_step", "model_rules", "state_blocks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,10 +100,44 @@ class StepClock:
         return [(b - a) * 1e3 for a, b in self.marks]
 
 
-def init_train_state(gen, model_cfg: ModelConfig, *, device=None) -> dict:
+def model_rules(model_cfg: ModelConfig, ranks: MeshRanks) -> Rules:
+    """The rule table of `rules_for` for the (D, M) mesh of ``ranks``, with
+    the model axis over its model ranks; refuses, by name, a config whose
+    layers the model axis cannot split at M > 1 (`check_model_axis`)."""
+    d, m = ranks.shape
+    check_model_axis(model_cfg, m)
+    table = rules_for(model_cfg, mode="train", multi_pod=False, data_axis=d, model_axis=m)
+    return Rules(table, {"data": d, "model": m}, model=TensorParallel(ranks.model, table))
+
+
+def state_axes(model_cfg: ModelConfig) -> dict:
+    """The logical axes of the train state's tree."""
+    pa = param_axes(model_cfg)
+    return {"params": pa, "opt": {"mu": pa, "nu": pa, "count": ()}, "step": ()}
+
+
+def param_blocks(model_cfg: ModelConfig, rules: Rules) -> ModelBlocks:
+    """The parameters' blocks over the model ranks of ``rules``."""
+    return ModelBlocks(param_axes(model_cfg), init_params(None, model_cfg, device="meta"), rules)
+
+
+def state_blocks(model_cfg: ModelConfig, rules: Rules) -> ModelBlocks:
+    """The train state's blocks over the model ranks of ``rules``: its cut
+    and its gather into the whole state (checkpoints write the whole)."""
+    params = init_params(None, model_cfg, device="meta")
+    whole = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    return ModelBlocks(state_axes(model_cfg), whole, rules)
+
+
+def init_train_state(gen, model_cfg: ModelConfig, *, device=None, rules: Rules | None = None) -> dict:
     """Parameters of ``model_cfg`` from ``gen`` on ``device`` (default
-    ``cuda``, which must exist), zero moments and a zero step counter."""
+    ``cuda``, which must exist), zero moments and a zero step counter. With
+    ``rules`` carrying the model axis over ranks (`model_rules`) the
+    parameters are made whole, then cut to this rank's block, and the
+    moments are the block's."""
     params = init_params(gen, model_cfg, device=device)
+    if rules is not None and rules.model is not None:
+        params = param_blocks(model_cfg, rules).cut(params)
     dev = tree_leaves(params)[0].device
     return {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -95,14 +148,26 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, ranks=None):
     ``targets`` (B, S), optional ``mask``, ``frames`` (whisper) and
     ``prefix_embeddings`` (llava), on the state's device.
 
-    Over ``ranks`` (the data axis, one shard a rank) ``batch`` is this
-    rank's shard (`data.shard_batch_at`), and ``train_step.reduction`` (a
-    `StepClock`) times each step's gradient reduction, whose bytes a rank
-    (its contribution, gathered by every other rank) are in
-    ``train_step.reduce_bytes``."""
+    Over ``ranks`` (the data axis, one shard a rank; or a `MeshRanks`
+    layout, whose data axis that is) ``batch`` is this rank's data shard
+    (`data.shard_batch_at`), and ``train_step.reduction`` (a `StepClock`)
+    times each step's gradient reduction, whose bytes a rank (its
+    contribution, gathered by every other rank) are in
+    ``train_step.reduce_bytes``. Over a `MeshRanks` layout the state is
+    this rank's block (`init_train_state(..., rules=train_step.rules)`),
+    and ``train_step.rules.model`` (a `TensorParallel`) counts and times
+    the model axis's collectives, a step a call."""
+    mesh = ranks if isinstance(ranks, MeshRanks) else None
+    if mesh is not None:
+        ranks = mesh.data
     if ranks is not None and (ranks.axis != "data" or ranks.n != ranks.world):
         raise ValueError(f"a data-parallel step takes one data shard a rank, not {ranks!r}")
     n_data = 1 if ranks is None else ranks.world
+    rules = tp = sharded = None
+    if mesh is not None:
+        rules = model_rules(model_cfg, mesh)
+        tp = rules.model
+        sharded = [d is not None for d in param_blocks(model_cfg, rules).dims]
 
     def loss_fn(params, batch):
         aux: dict = {}
@@ -111,7 +176,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, ranks=None):
         # multimodal prefix: the loss only on the token positions (suffix)
         if "prefix_embeddings" in batch:
             logits = logits[:, batch["prefix_embeddings"].shape[1]:]
-        loss, metrics = cross_entropy(logits, batch["targets"], batch.get("mask"), z_loss=train_cfg.z_loss)
+        loss, metrics = cross_entropy(logits, batch["targets"], batch.get("mask"), z_loss=train_cfg.z_loss,
+                                      vocab_size=model_cfg.vocab_size)
         if "moe_load_balance" in aux:
             loss = loss + train_cfg.moe_aux_weight * aux["moe_load_balance"]
             metrics["moe_load_balance"] = aux["moe_load_balance"]
@@ -125,7 +191,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, ranks=None):
         `jax.grad` (whisper's encoder without frames)."""
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         leaves = tree_leaves(live)
-        with torch.enable_grad():
+        with torch.enable_grad(), use_rules(rules) if rules is not None else contextlib.nullcontext():
             loss, metrics = loss_fn(live, batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         by_leaf = {id(leaf): g for leaf, g in zip(leaves, grads)}
@@ -140,6 +206,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, ranks=None):
                     for name in ms[0]}
 
     def train_step(state, batch):
+        if tp is not None:
+            tp.new_step()
         k = train_cfg.microbatches
         total = n_data * k
         params = state["params"]
@@ -169,11 +237,13 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, ranks=None):
             metrics = {name: torch.mean(torch.stack([m[name] for m in ms]), dim=0) for name in ms[0]}
 
         lr_scale = lr_schedule(state["step"], train_cfg.schedule)
-        opt_metrics = adamw_update_(grads, state["opt"], params, train_cfg.optimizer, lr_scale=lr_scale)
+        opt_metrics = adamw_update_(grads, state["opt"], params, train_cfg.optimizer, lr_scale=lr_scale, model=tp,
+                                    sharded=sharded)
         del grads
         state["step"].add_(1)
         return state, dict(metrics, **opt_metrics, lr_scale=lr_scale)
 
+    train_step.rules = rules
     if ranks is not None:
         train_step.reduction = StepClock(ranks.device)
         train_step.reduce_bytes = 0

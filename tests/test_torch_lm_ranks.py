@@ -397,8 +397,8 @@ def test_launch_train_refuses_by_name(capsys):
         launch_train.main(ARGV + ["--ranks", "2"])
     assert "--ranks spreads the data axis over processes: name it with --mesh" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        launch_train.main(ARGV + ["--mesh", "2x2", "--ranks", "4"])
-    assert "--ranks 4 must equal the data axis of --mesh 2x2 (2)" in capsys.readouterr().err
+        launch_train.main(ARGV + ["--mesh", "2x2", "--ranks", "3"])
+    assert "--ranks 3 must equal the data axis of --mesh 2x2 (2)" in capsys.readouterr().err
     # no card here: more ranks than cards, and nothing runs on the CPU in their place
     args = launch_train.parser().parse_args(ARGV[:-2] + ["--mesh", "2", "--ranks", "2"])
     with pytest.raises(RuntimeError, match="2 ranks need 2 cards, one a rank, but 0 are visible"):
