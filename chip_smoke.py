@@ -279,7 +279,18 @@ Phases, in order; any failure exits non-zero:
    the model axis's collectives counted a step (eager), their ms a step
    and bytes; (b) where two or more cards are visible, a 1x2 layout, one
    card a rank, phi3's losses within rounding of 21(d)'s; with one card a
-   line says that (b) did not run.
+   line says that (b) did not run; (c) MoE layers over the model axis:
+   deepseek-moe-16b at its published widths (d 2048, 64 experts of 1408,
+   2 shared, top-6, vocab 102400; bf16, float32 moments), its 28 layers
+   cut to 4, 21(d)'s batch, 3 steps in one process and then through a 1x1
+   layout on an NCCL group of one (`rules_for` puts the experts on
+   ``model``: the expert-parallel path, every MoE boundary's collective
+   run): the losses bit-equal, at least one sum out and two sums in a MoE
+   layer a step, ms a step against the one-process run, peak GB, the
+   collectives' ms, bytes and counts a step, the dropped share; (d) where
+   two or more cards are visible, the same over a 1x2 layout (32 experts a
+   card), its losses within (b)'s rtol of (c)'s; with one card a line
+   says that (d) did not run.
 
 Every ``auto`` path resolves through the dispatcher, into a fresh cache
 file made for the run; on the card ``auto`` picks among the kernels only.
@@ -364,6 +375,12 @@ LM_RANKS = dict(steps=3)
 # rank, its bf16 losses within loss_rtol of 21(d)'s (the row-parallel
 # contractions add their partial sums in another order)
 LM_MODEL_RANKS = dict(loss_rtol=1e-2)
+# phase 26(c), (d): the model axis over ranks for MoE layers: deepseek-moe-16b
+# at its published widths, its 28 layers cut to 4 so that its train state
+# (2.77 B parameters, ~33 GB with the float32 moments) fits beside the run,
+# at 21(d)'s batch; (c) a 1x1 layout against its one-process steps, (d) with
+# two or more cards a 1x2 layout, 32 experts a card
+LM_EXPERT_RANKS = dict(arch="deepseek-moe-16b", layers=4)
 
 
 # the kernel that a dispatcher op's backend launches once a step
@@ -1705,14 +1722,15 @@ class CollectiveCount:
             setattr(self.dist, name, fn)
 
 
-def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1):
-    """Phase 21(d)'s phi3-mini-3.8b (bf16, float32 moments, seed 0) at a
-    global batch of ``batch`` x 4096, ``LM_RANKS["steps"]`` steps through
-    the `Supervisor`: over ``data_ranks`` (one shard a rank; or a
-    `MeshRanks` layout, whose data axis that is, each rank on its blocks of
-    the model axis) the rank's part of the step, else the one-process step
-    at ``microbatches``. Returns the losses, ms a step (the median after
-    the first), peak GB, the reduction's ms a step and bytes a rank, over a
+def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1, cfg=None):
+    """Phase 21(d)'s phi3-mini-3.8b (or ``cfg``; bf16, float32 moments,
+    seed 0) at a global batch of ``batch`` x 4096, ``LM_RANKS["steps"]``
+    steps through the `Supervisor`: over ``data_ranks`` (one shard a rank;
+    or a `MeshRanks` layout, whose data axis that is, each rank on its
+    blocks of the model axis) the rank's part of the step, else the
+    one-process step at ``microbatches``. Returns the losses, ms a step
+    (the median after the first), peak GB, the MoE layers' dropped share a
+    step (MoE configs), the reduction's ms a step and bytes a rank, over a
     layout the model axis's collectives' ms a step, bytes a step and
     counts a step, and the state."""
     import statistics
@@ -1724,7 +1742,7 @@ def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1):
     from repro_torch.optim import AdamWConfig, ScheduleConfig
     from repro_torch.train import StepClock, TrainConfig, init_train_state, make_train_step
 
-    cfg = get_config(LM_TRAIN_FULL["arch"])
+    cfg = cfg or get_config(LM_TRAIN_FULL["arch"])
     n = LM_RANKS["steps"]
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3),
                        schedule=ScheduleConfig(warmup_steps=10, total_steps=LM_TRAIN_FULL["steps"]),
@@ -1743,7 +1761,8 @@ def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1):
     state, _ = sup.run(state, n)
     step_ms = clock.ms()
     out = {"losses": [float(m["loss"]) for m in sup.metrics_log], "ms": statistics.median(step_ms[1:]),
-           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "state": state}
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "state": state,
+           "dropped": [float(m["moe_dropped_frac"]) for m in sup.metrics_log if "moe_dropped_frac" in m]}
     if data_ranks is not None:
         red = step.reduction.ms()
         out.update(reduce_ms=statistics.median(red[1:]), reduce_bytes=step.reduce_bytes)
@@ -1958,10 +1977,21 @@ def lm_ranks_phase(torch, dispatch, dev, smi: str, full_losses: list[float], ful
     say(f"phase 25b: {time.perf_counter() - t0:.1f} s")
 
 
-def lm_model_rank_cell(rank: int, world: int, store: str, out: str) -> None:
-    """Phase 26(b)'s rank: join the NCCL group of ``world`` ranks, one card
-    each, as a 1 x ``world`` (data, model) layout; phi3's steps on this
-    rank's blocks; rank 0 writes the results to ``out``."""
+def moe_full_config():
+    """Phase 26(c)'s deepseek-moe-16b: its published widths, its depth cut
+    to ``LM_EXPERT_RANKS["layers"]``."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(LM_EXPERT_RANKS["arch"]), n_layers=LM_EXPERT_RANKS["layers"])
+
+
+def lm_model_rank_cell(rank: int, world: int, store: str, out: str, moe: bool = False) -> None:
+    """Phase 26(b)'s rank (with ``moe``, 26(d)'s): join the NCCL group of
+    ``world`` ranks, one card each, as a 1 x ``world`` (data, model)
+    layout; phi3's steps (26(c)'s deepseek-moe-16b's) on this rank's
+    blocks; rank 0 writes the results to ``out``."""
     import torch
 
     from repro_torch.distributed.ranks import close_ranks, init_ranks, mesh_ranks
@@ -1972,8 +2002,8 @@ def lm_model_rank_cell(rank: int, world: int, store: str, out: str) -> None:
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
         mesh = mesh_ranks(1, world)
-        got = phi3_ranks_run(torch, dev, mesh, LM_TRAIN_FULL["batch"])
-        res = {k: got[k] for k in ("losses", "ms", "peak_gb", "model_ms", "model_bytes")}
+        got = phi3_ranks_run(torch, dev, mesh, LM_TRAIN_FULL["batch"], cfg=moe_full_config() if moe else None)
+        res = {k: got[k] for k in ("losses", "ms", "peak_gb", "model_ms", "model_bytes", "dropped")}
         res["peak_gb_all"] = [float(v) for v in
                               mesh.values(torch.tensor(torch.cuda.max_memory_allocated(dev) / 1e9, device=dev)).cpu()]
         if rank == 0:
@@ -2054,6 +2084,91 @@ def lm_model_ranks_phase(torch, dispatch, dev, smi: str, full_losses: list[float
     if not close:
         fail(f"lm model ranks (b): losses {got['losses']} against 21(d)'s {want}")
     say(f"phase 26b: {time.perf_counter() - t0:.1f} s")
+
+
+def lm_expert_ranks_phase(torch, dispatch, dev, smi: str) -> None:
+    """Phase 26(c), (d): the model axis over ranks for MoE layers (see the
+    module docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.ranks import close_ranks, init_ranks, mesh_ranks
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+
+    torch.set_float32_matmul_precision("highest")
+    cfg = moe_full_config()
+    n, batch = LM_RANKS["steps"], LM_TRAIN_FULL["batch"]
+    n_params = sum(t.numel() for t in tree_leaves(init_params(None, cfg, device="meta")))
+    table = rules_for(cfg, mode="train", multi_pod=False, data_axis=1, model_axis=1)
+
+    # (c) the one-process steps, then the same through a 1x1 layout on an NCCL group of one
+    t0 = time.perf_counter()
+    one = phi3_ranks_run(torch, dev, None, batch, cfg=cfg)
+    del one["state"]
+    torch.cuda.empty_cache()
+    store = tempfile.mkdtemp(prefix="chip_smoke_lm_expert_ranks_", dir=ROOT / "build")
+    try:
+        init_ranks(0, 1, store)
+        mesh = mesh_ranks(1, 1)
+        with CollectiveCount(dist) as cc:
+            got = phi3_ranks_run(torch, dev, mesh, batch, cfg=cfg)
+        del got["state"]
+        torch.cuda.empty_cache()
+        calls = {k: v / n for k, v in sorted(cc.calls.items())}
+        say(f"lm expert ranks (c) [{smi}]: NCCL group of 1 rank over a FileStore, a 1x1 (data, model) layout "
+            f"(experts={table['experts']}, expert_mlp={table['expert_mlp']}); {cfg.name} at its published widths "
+            f"(d {cfg.d_model}, {cfg.moe.n_experts} experts of {cfg.moe.d_expert}, {cfg.moe.n_shared} shared, top-"
+            f"{cfg.moe.top_k}, vocab {cfg.vocab_size}; bf16, float32 moments), depth cut to {cfg.n_layers} of 28 "
+            f"layers ({n_params / 1e9:.3f} B parameters), batch {batch} x {LM_TRAIN_FULL['seq']}, {n} steps: losses "
+            + " ".join(f"{x:.4f}" for x in got["losses"]) + f", bit-equal to the one-process run's: "
+            f"{got['losses'] == one['losses']}; {got['ms']:.1f} ms/step (median of steps 2-{n}; one process "
+            f"{one['ms']:.1f}, {got['ms'] / one['ms'] - 1:+.2%}), peak {got['peak_gb']:.2f} GB (one process "
+            f"{one['peak_gb']:.2f}); dropped share a step {got['dropped']} (one process {one['dropped']}); "
+            f"model-axis collectives {got['model_ms']:.2f} ms/step (median of steps 2-{n}, CUDA events), "
+            f"{got['model_bytes'] / 1e9:.3f} GB a rank a step, a step: {got['model_counts']}; gradient reduction "
+            f"{got['reduce_ms']:.2f} ms/step; torch.distributed calls a step {calls} (eager)")
+        if got["losses"] != one["losses"] or got["dropped"] != one["dropped"]:
+            fail(f"lm expert ranks (c): losses {got['losses']!r}, dropped {got['dropped']!r}; one process "
+                 f"{one['losses']!r}, {one['dropped']!r} (bit-equal)")
+        # a sum out after every attention and MoE block and the embedding; a sum in of every attention's input, every
+        # MoE layer's input and gates, and the head's
+        counts = got["model_counts"]
+        if counts.get("sum_out", 0) < 2 * cfg.n_layers + 1 or counts.get("copy_in", 0) < 3 * cfg.n_layers + 1:
+            fail(f"lm expert ranks (c): the MoE layers' boundaries issued too few collectives: {counts}")
+    finally:
+        close_ranks()
+        shutil.rmtree(store, ignore_errors=True)
+    no_plain(dispatch, "lm expert ranks (c)")
+    say(f"phase 26c: {time.perf_counter() - t0:.1f} s")
+
+    # (d) a 1x2 layout, one card a rank, half the experts a card
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        say(f"lm expert ranks (d): not run ({n_cards} card)")
+        return
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_lm_expert_ranks_", dir=ROOT / "build")
+    out = Path(store) / "rank0.json"
+    try:
+        mp.start_processes(lm_model_rank_cell, args=(2, store, str(out), True), nprocs=2, start_method="spawn")
+        two = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    close = all(abs(a - b) <= LM_MODEL_RANKS["loss_rtol"] * abs(b) for a, b in zip(two["losses"], got["losses"]))
+    say(f"lm expert ranks (d) [{smi}]: a 1x2 layout, one card a rank (NCCL), {cfg.moe.n_experts // 2} experts a "
+        f"card: {cfg.name}'s losses " + " ".join(f"{x:.4f}" for x in two["losses"]) + " against (c)'s "
+        + " ".join(f"{x:.4f}" for x in got["losses"]) + f" (within rtol {LM_MODEL_RANKS['loss_rtol']}: {close}), "
+        f"{two['ms']:.1f} ms/step against (c)'s {got['ms']:.1f}, model-axis collectives {two['model_ms']:.2f} ms/step "
+        f"and {two['model_bytes'] / 1e9:.3f} GB a rank a step, peak GB per card "
+        f"{[round(v, 2) for v in two['peak_gb_all']]}, dropped share a step {two['dropped']}")
+    if not close:
+        fail(f"lm expert ranks (d): losses {two['losses']} against (c)'s {got['losses']}")
+    say(f"phase 26d: {time.perf_counter() - t0:.1f} s")
 
 
 def tree_equal(torch, a, b) -> bool:
@@ -3833,6 +3948,7 @@ def main() -> None:
     # -- 26. the LM stack's model axis over ranks ---------------------------------------------------
     t0 = time.perf_counter()
     lm_model_ranks_phase(torch, dispatch, dev, smi, full_losses, full_ms, full_peak)
+    lm_expert_ranks_phase(torch, dispatch, dev, smi)
     say(f"phase 26: {time.perf_counter() - t0:.1f} s")
     AUTOTUNE_CACHE.unlink(missing_ok=True)
 

@@ -1,7 +1,9 @@
 """The LM stack's model axis over ranks: tensor and vocabulary parallelism
-for attention and dense-MLP layers, the port's counterpart of what GSPMD
-inserts from the reference's rules (`distributed.sharding.rules_for`:
-``heads``, ``kv_heads``, ``mlp`` and ``vocab`` map to ``model``).
+for attention and dense-MLP layers, and expert parallelism (or tensor
+parallelism inside each expert) for MoE layers, the port's counterpart of
+what GSPMD inserts from the reference's rules
+(`distributed.sharding.rules_for`: ``heads``, ``kv_heads``, ``mlp``,
+``vocab`` and ``experts`` or ``expert_mlp`` map to ``model``).
 
 A `TensorParallel` carries the model axis's ranks (an `AxisRanks` over the
 model group of a `MeshRanks` layout) and the rule table. Rank ``m`` of
@@ -28,7 +30,10 @@ span on the clock of the rank's device in the current step's ``marks``
 (`new_step` opens a step), so that each step is charged its model-axis
 time (`step_ms`).
 
-Layers with experts, Mamba or xLSTM mixers have no model-axis form here:
+An MoE layer (`models.moe.moe_apply`) holds this rank's experts where M
+divides the expert count, else this rank's block of every expert's width;
+its router and dispatch run replicated on every rank, and one *sum out*
+ends it. Layers with Mamba or xLSTM mixers have no model-axis form here:
 `check_model_axis` refuses them at ``M > 1`` by name.
 """
 
@@ -61,15 +66,14 @@ def splits_model(entry) -> bool:
 
 def check_model_axis(cfg, model_axis: int) -> None:
     """Refuse, by name, a config whose layers the model axis cannot split
-    yet (experts, Mamba and xLSTM mixers) at ``model_axis > 1``."""
+    yet (Mamba and xLSTM mixers) at ``model_axis > 1``."""
     if model_axis <= 1:
         return
     specs = tuple(cfg.pattern) + tuple(cfg.tail)
-    kinds = sorted({s.ffn for s in specs if s.ffn == "moe"} | {s.mixer for s in specs
-                                                               if s.mixer in ("mamba", "mlstm", "slstm")})
+    kinds = sorted({s.mixer for s in specs if s.mixer in ("mamba", "mlstm", "slstm")})
     if kinds:
         raise ValueError(f"{cfg.name} has {', '.join(kinds)} layers: the model axis over {model_axis} ranks splits "
-                         "attention and dense-MLP layers only (expert, Mamba and xLSTM parallelism are not built)")
+                         "attention, dense-MLP and MoE layers only (Mamba and xLSTM parallelism are not built)")
 
 
 class TensorParallel:

@@ -28,7 +28,9 @@ there (``crash``), ``--autosave-every`` keeps rolling checkpoints (under
 ``--autosave-path``, default ``checkpoints/<scenario>``) that a crash
 restores; the timed line then gives the halts, retries and restarts. ``--spec`` runs a SimSpec JSON file, written by this
 launcher's ``--dump-spec`` or by the reference's, with the other options as
-overrides; ``--dump-spec`` writes the resolved spec and exits.
+overrides; ``--dump-spec`` writes the resolved spec and exits. The
+reference's deprecated flags are taken as it takes them: ``--workload``
+is ``--scenario`` with a note, ``--use-pallas`` is ``--backend pallas``.
 ``--mesh SXxSY`` runs the distributed driver (`DistSimulation`), its
 SX x SY shards on the one device (a ``--spec`` file's mesh is honoured the
 same way); the lines then name the mesh and give the growths and the
@@ -165,6 +167,8 @@ def build_spec(args):
             overrides[name] = value
     if args.grid is not None:
         overrides["grid"] = tuple(args.grid)
+    if args.use_pallas:
+        overrides["use_pallas"] = True
     if args.sentinel:
         overrides["health"] = {"enable": True}
     if args.fault is not None:
@@ -185,7 +189,7 @@ def build_spec(args):
     if args.spec is not None:
         with open(args.spec) as f:
             return apply_overrides(SimSpec.from_json(f.read()), **overrides)
-    return scenario(args.scenario or "uniform", **overrides)
+    return scenario(args.scenario or args.workload or "uniform", **overrides)
 
 
 def profile_window(sim, window: int, *, graphs: bool) -> None:
@@ -247,6 +251,7 @@ def profile_window(sim, window: int, *, graphs: bool) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--scenario", default=None, choices=scenario_names(), help="registered scenario (default uniform)")
+    ap.add_argument("--workload", default=None, choices=["uniform", "lwfa"], help="deprecated alias of --scenario")
     ap.add_argument("--spec", default=None, metavar="FILE.json",
                     help="run a serialized SimSpec (from either package) instead of a named scenario")
     ap.add_argument("--dump-spec", default=None, metavar="PATH", help="write the resolved SimSpec JSON to PATH and exit")
@@ -259,6 +264,7 @@ def main(argv=None) -> None:
     ap.add_argument("--backend", default=None,
                     choices=["auto", "torch", "cuda", "cuda_reduced", "xla", "pallas", "pallas_reduced"],
                     help="kernel backend of the bin contractions (reference names map onto the port's)")
+    ap.add_argument("--use-pallas", action="store_true", help="deprecated: same as --backend pallas")
     ap.add_argument("--deposition", default=None, choices=["matrix", "matrix_unfused", "scatter", "rhocell"],
                     help="deposition mode (default: the scenario's, the fused matrix deposition)")
     ap.add_argument("--gather", default=None, choices=["matrix", "matrix_unfused", "scatter"],
@@ -306,8 +312,11 @@ def main(argv=None) -> None:
                     help="repeatable: one cartesian sweep axis over a flat override (e.g. --sweep drift=0.1,0.2 "
                          "--sweep order=1,2); members of one compiled shape share a bucket")
     args = ap.parse_args(argv)
-    if args.scenario and args.spec:
-        ap.error("--scenario and --spec are mutually exclusive")
+    if (args.scenario or args.workload) and args.spec:
+        ap.error("--scenario/--workload and --spec are mutually exclusive")
+    if args.workload:
+        print("note: --workload is deprecated, use --scenario (scenario defaults were unified: 'lwfa' now runs the "
+              "canonical registry parameters, not the old launcher variant)")
     try:
         spec = build_spec(args)
         ensemble = None

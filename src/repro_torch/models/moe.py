@@ -14,6 +14,18 @@ capacity-slot buffer the gapped binned layout.
 
 Covers Mixtral (8 experts, top-2), DeepSeek-MoE (shared experts + 64
 fine-grained, top-6) and Jamba (16 experts, top-2).
+
+Over the model axis over ranks (`distributed.tensor_parallel`) the table
+of `rules_for` puts ``experts`` on ``model`` where the model ranks divide
+the expert count (expert parallelism: rank m holds the experts of its
+`block_range`), else ``expert_mlp`` (tensor parallelism inside each
+expert: every expert's columns of ``w_gate``/``w_up`` and rows of
+``w_down`` in the rank's block), and the shared experts' width over
+``mlp``. The router, stage 1 and the load-balance terms run replicated on
+every model rank, so the capacity drop and the aux terms are the
+one-process step's; each rank computes its part of the output (its
+experts' slots, or its slice of every expert's width, plus its slice of
+the shared experts), and one sum over the ranks ends the layer.
 """
 
 from __future__ import annotations
@@ -21,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, tensor_parallel
 from repro_torch.models.common import ModelConfig, MoEConfig, ParamInit, dense_init
 
 
@@ -89,6 +101,14 @@ def _dispatch_row(expert_ids_k, *, n_experts: int, cap: int, s: int, k: int):
     return slot_token, a_slot, fits
 
 
+def _local_slots(a_slot, lo: int, hi: int):
+    """Each assignment's slot within the block ``[lo, hi)`` of slots,
+    counted from 0; the block's zero row ``hi - lo`` for a slot outside it
+    or a dropped assignment (slot ``E*cap``)."""
+    inside = (a_slot >= lo) & (a_slot < hi)
+    return torch.where(inside, a_slot - lo, hi - lo)
+
+
 class _DispatchGather(torch.autograd.Function):
     """Stage 2's gather of the tokens into the binned buffer: ``x_ext[b,
     slot_token[b, j]]``, with ``x_ext`` the tokens and a zero row ``s`` for
@@ -126,11 +146,21 @@ class _DispatchGather(torch.autograd.Function):
 def moe_apply(params, x, cfg: ModelConfig):
     """x: (B, S, d) -> (y (B, S, d), aux (load_balance, dropped_frac)).
     Sorted-dispatch, capacity-dropped MoE; the dispatch is per sequence, the
-    expert compute batched over (B, E, C)."""
+    expert compute batched over (B, E, C).
+
+    Over the model ranks two inputs cross the *copy in* boundary: the ``x``
+    that the dispatch and the shared experts read, and the gates where the
+    combine reads them (each rank's combine sees its own part of the
+    output, so each holds part of their cotangents). The router reads
+    ``x`` itself: its cotangent is whole on every rank already, and the
+    load-balance terms read the replicated softmax."""
     m = cfg.moe
     b, s, d = x.shape
     k = m.top_k
     cap = _capacity(s, m)
+    tp = tensor_parallel()
+    ep = tp is not None and tp.splits("experts")
+    split = ep or (tp is not None and tp.splits("expert_mlp"))
 
     # --- router (per token), float32
     logits = torch.einsum("bsd,de->bse", x.float(), params["router"])
@@ -142,9 +172,17 @@ def moe_apply(params, x, cfg: ModelConfig):
     # --- stage 1: per-sequence counting sort into gapped expert bins
     slot_token, a_slot, fits = _dispatch_row(expert_ids, n_experts=m.n_experts, cap=cap, s=s, k=k)
 
+    x_in = tp.copy_in(x) if split else x
+    n_exp, slot_of = m.n_experts, a_slot
+    if ep:  # this rank's experts: its block of slots, every other slot its zero row
+        lo, hi = tp.range(m.n_experts)
+        n_exp = hi - lo
+        slot_token = slot_token[:, lo * cap:hi * cap]
+        slot_of = _local_slots(a_slot, lo * cap, hi * cap)
+
     # --- stage 2: gather into the binned buffer (gap slots read a zero row)
-    buf = _DispatchGather.apply(x, slot_token, a_slot, k)
-    buf = buf.reshape(b, m.n_experts, cap, d)
+    buf = _DispatchGather.apply(x_in, slot_token, slot_of, k)
+    buf = buf.reshape(b, n_exp, cap, d)
     buf = constrain(buf, "batch", "experts", None, None)
 
     h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"])) * torch.einsum(
@@ -153,19 +191,22 @@ def moe_apply(params, x, cfg: ModelConfig):
     out_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
     out_buf = constrain(out_buf, "batch", "experts", None, None)
 
-    # --- stage 3: weighted combine (row E*cap of out_flat is zero). The
+    # --- stage 3: weighted combine (the last row of out_flat is zero). The
     # gather's backward scatter-adds into out_flat, but each kept slot holds
-    # one assignment: only the discarded zero row E*cap takes more than one
-    # add, so the rows that are kept repeat bit for bit on a card.
-    out_flat = torch.cat([out_buf.reshape(b, m.n_experts * cap, d), out_buf.new_zeros((b, 1, d))], dim=1)
-    picked = torch.gather(out_flat, 1, a_slot.long()[..., None].expand(b, s * k, d)).reshape(b, s, k, d)
-    y = torch.sum(picked * gate_vals[..., None].to(picked.dtype), dim=2)
+    # one assignment: only the discarded zero row takes more than one add,
+    # so the rows that are kept repeat bit for bit on a card.
+    out_flat = torch.cat([out_buf.reshape(b, n_exp * cap, d), out_buf.new_zeros((b, 1, d))], dim=1)
+    picked = torch.gather(out_flat, 1, slot_of.long()[..., None].expand(b, s * k, d)).reshape(b, s, k, d)
+    gates = tp.copy_in(gate_vals) if split else gate_vals
+    y = torch.sum(picked * gates[..., None].to(picked.dtype), dim=2)
 
     # --- shared experts (DeepSeek): dense path, always active
     if "shared" in params:
         sh = params["shared"]
-        hs = F.silu(torch.einsum("bsd,df->bsf", x, sh["w_gate"])) * torch.einsum("bsd,df->bsf", x, sh["w_up"])
+        hs = F.silu(torch.einsum("bsd,df->bsf", x_in, sh["w_gate"])) * torch.einsum("bsd,df->bsf", x_in, sh["w_up"])
         y = y + torch.einsum("bsf,fd->bsd", hs, sh["w_down"])
+    if split:  # every rank's part of the output, added in rank order
+        y = tp.sum_out(y)
 
     # load-balance metrics (Switch-style aux loss ingredients); the counts
     # are a scatter-add, which needs no host read (a CUDA bincount does one)

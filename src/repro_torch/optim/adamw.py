@@ -67,8 +67,10 @@ def global_norm(tree, *, model=None, sharded=None) -> torch.Tensor:
     flags in leaf order, True where the leaf is this rank's block of a
     leaf cut over the model ranks) each cut leaf's sum of squares is the
     sum of every rank's, added in rank order (one gather for all of them);
-    a replicated leaf counts once."""
-    squares = [torch.sum(torch.square(g.to(torch.float32))) for g in _leaves(tree)]
+    a replicated leaf counts once. Each leaf is summed in its logical
+    order whatever its strides (a gradient autograd gives strided sums as
+    its contiguous copy does, which the rank paths reduce)."""
+    squares = [torch.sum(torch.square(g.reshape(-1).to(torch.float32))) for g in _leaves(tree)]
     if model is not None:
         cut = [i for i, s in enumerate(sharded) if s]
         if cut:

@@ -27,13 +27,14 @@ term is each microbatch's own, as in the reference's microbatched step.
 Over a (data, model) layout (``ranks``, a `distributed.ranks.MeshRanks`
 of D·M ranks) the model axis is spread too: the step installs the rule
 table of `rules_for` for the (D, M) mesh with the model ranks in it
-(`model_rules`), so that every attention, MLP and vocabulary matrix is
-this rank's block (`distributed.tensor_parallel`); the state holds the
+(`model_rules`), so that every attention, MLP and vocabulary matrix, and
+every MoE layer's experts (or each expert's width), is this rank's block
+(`distributed.tensor_parallel`); the state holds the
 blocks (`init_train_state(..., rules=...)`, `state_blocks`). The data
 reduction runs over the rank's data group (model column) as above; the
 gradient norm adds the squares of the cut leaves over the model ranks in
-rank order and counts a replicated leaf (a norm's scale) once, whose
-gradient is the same on every model rank. The row-parallel contractions
+rank order and counts a replicated leaf (a norm's scale, a router) once,
+whose gradient is the same on every model rank. The row-parallel contractions
 add their partial sums in a new order, so the step is the one-process
 step within rounding at M > 1, and bit for bit at M = 1, where every sum
 over the model group is ``0 + x``.
@@ -102,8 +103,11 @@ class StepClock:
 
 def model_rules(model_cfg: ModelConfig, ranks: MeshRanks) -> Rules:
     """The rule table of `rules_for` for the (D, M) mesh of ``ranks``, with
-    the model axis over its model ranks; refuses, by name, a config whose
-    layers the model axis cannot split at M > 1 (`check_model_axis`)."""
+    the model axis over its model ranks: attention heads, MLP widths and the
+    vocabulary, and an MoE layer's experts where M divides their count
+    (else every expert's width). Refuses, by name, a config whose layers
+    the model axis cannot split at M > 1 (Mamba, xLSTM:
+    `check_model_axis`)."""
     d, m = ranks.shape
     check_model_axis(model_cfg, m)
     table = rules_for(model_cfg, mode="train", multi_pod=False, data_axis=d, model_axis=m)

@@ -61,16 +61,16 @@ def train_config(microbatches: int = 1):
                        microbatches=microbatches)
 
 
-def make_inputs(arch: str, state=None) -> dict:
-    """``arch``'s smoke config's whole initial train state (``state``, or
-    the port's own from seed 0) and STEPS + 1 batches of BATCH x SEQ
-    tokens, with the stub frames (whisper) and prefix embeddings (llava)
-    from a numpy seed."""
+def make_inputs(arch: str, state=None, cfg=None) -> dict:
+    """``arch``'s smoke config's (or ``cfg``'s) whole initial train state
+    (``state``, or the port's own from seed 0) and STEPS + 1 batches of
+    BATCH x SEQ tokens, with the stub frames (whisper) and prefix
+    embeddings (llava) from a numpy seed."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.data import DataConfig, global_batch_at
     from repro_torch.train import init_train_state
 
-    cfg = get_smoke_config(arch)
+    cfg = cfg or get_smoke_config(arch)
     if state is None:
         state = init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
     rng = np.random.default_rng(30)
@@ -99,18 +99,19 @@ def shard(batch: dict, r: int, world: int) -> dict:
     return {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
 
 
-def train(arch: str, inputs: dict, ranks, k: int = 1):
-    """STEPS steps of ``arch`` from the whole initial state: over ``ranks``
-    (a `MeshRanks` layout or a data `AxisRanks`) on this rank's blocks and
-    data shard; with None the one-process step at ``microbatches = k``.
-    Returns (the state, whole; the metrics; the model axis's step counts;
-    the state of blocks; the step)."""
+def train(arch: str, inputs: dict, ranks, k: int = 1, cfg=None):
+    """STEPS steps of ``arch``'s smoke config (or ``cfg``) from the whole
+    initial state: over ``ranks`` (a `MeshRanks` layout or a data
+    `AxisRanks`) on this rank's blocks and data shard; with None the
+    one-process step at ``microbatches = k``. Returns (the state, whole;
+    the metrics; the model axis's step counts; the state of blocks; the
+    step)."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.distributed.ranks import MeshRanks
     from repro_torch.train import make_train_step
     from repro_torch.train.step import state_blocks
 
-    cfg = get_smoke_config(arch)
+    cfg = cfg or get_smoke_config(arch)
     step = make_train_step(cfg, train_config(k), ranks)
     blocks = state_blocks(cfg, step.rules) if isinstance(ranks, MeshRanks) else None
     data = None if ranks is None else (ranks.data if blocks is not None else ranks)

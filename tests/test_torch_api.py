@@ -139,6 +139,22 @@ def test_pic_run_cli_on_cpu(capsys):
     assert "host reads/window=" in out
 
 
+def test_pic_run_deprecated_flags_resolve_as_the_reference(tmp_path, capsys):
+    """``--workload`` is ``--scenario`` with a note, ``--use-pallas`` is
+    ``--backend pallas``: the same SimSpec, written and not run."""
+    with pytest.warns(DeprecationWarning, match="use_pallas"):
+        pic_run.main(["--workload", "lwfa", "--use-pallas", "--grid", "8", "8", "64", "--dump-spec",
+                      str(tmp_path / "old.json")])
+    assert "note: --workload is deprecated, use --scenario" in capsys.readouterr().out
+    pic_run.main(["--scenario", "lwfa", "--backend", "pallas", "--grid", "8", "8", "64", "--dump-spec",
+                  str(tmp_path / "new.json")])
+    old, new = (tapi.SimSpec.from_json((tmp_path / f"{n}.json").read_text()) for n in ("old", "new"))
+    assert old == new and old.name == "lwfa" and old.deposition.backend == "cuda"
+    with pytest.raises(SystemExit):
+        pic_run.main(["--workload", "uniform", "--spec", str(tmp_path / "new.json")])
+    assert "--scenario/--workload and --spec are mutually exclusive" in capsys.readouterr().err
+
+
 def _imports(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -245,12 +245,14 @@ def test_launch_train_refuses_the_model_axis_by_name(capsys):
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", check.REF_ARCH, *argv, "--mesh", "2x2", "--ranks", "3"])
     assert "--ranks 3 must equal the data axis of --mesh 2x2 (2), or D·M (4)" in capsys.readouterr().err
-    for arch, kinds in (("deepseek-moe-16b", "moe"), ("mixtral-8x22b", "moe"), ("jamba-v0.1-52b", "mamba, moe"),
-                        ("xlstm-1.3b", "mlstm, slstm")):
+    for arch, kinds in (("jamba-v0.1-52b", "mamba"), ("xlstm-1.3b", "mlstm, slstm")):
         with pytest.raises(SystemExit):
             launch_train.main(["--arch", arch, *argv, "--mesh", "1x2", "--ranks", "2"])
-        assert f"has {kinds} layers: the model axis over 2 ranks splits attention and dense-MLP layers only" in \
+        assert f"has {kinds} layers: the model axis over 2 ranks splits attention, dense-MLP and MoE layers only" in \
             capsys.readouterr().err, arch
+    for arch in ("deepseek-moe-16b", "mixtral-8x22b"):  # MoE layers split over the model ranks
+        for m in (2, 4):
+            check_model_axis(get_smoke_config(arch), m)
     # no card here: more ranks than cards, and nothing runs on the CPU in their place
     args = launch_train.parser().parse_args(["--arch", check.REF_ARCH, *argv[:-2], "--mesh", "1x2", "--ranks", "2"])
     with pytest.raises(RuntimeError, match="2 ranks need 2 cards, one a rank, but 0 are visible"):
