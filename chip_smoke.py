@@ -267,27 +267,40 @@ Phases, in order; any failure exits non-zero:
    the parameters' SHA-256), and the reduction and GPipe over the ranks
    bit-equal to their stacked runs; with one card a line says that (b) did
    not run;
-26. the LM stack's model axis over ranks (tensor and vocabulary
-   parallelism; plain PyTorch ops and NCCL, no kernel of the port's): (a)
-   ``launch.train --mesh 1x1 --ranks 1``'s layout, an NCCL group of one
-   rank joined through a ``FileStore`` under build/ (`mesh_ranks(1, 1)`),
-   21(d)'s phi3-mini-3.8b at full width, its first 3 steps through the
-   tensor-parallel step (`make_train_step` over the layout: every
-   attention, MLP and vocabulary boundary issues its all-gather and sum in
-   rank order, in the recompute too) and the `Supervisor` over the layout:
-   the losses bit-equal to 21(d)'s, ms a step and peak GB beside 21(d)'s,
-   the model axis's collectives counted a step (eager), their ms a step
-   and bytes; (b) where two or more cards are visible, a 1x2 layout, one
+26. the LM stack's model and data axes over ranks as `rules_for`'s table
+   places them (tensor, vocabulary, expert and sequence parallelism, and
+   the ``fsdp`` rule; plain PyTorch ops and NCCL, no kernel of the
+   port's): (a) ``launch.train --mesh 1x1 --ranks 1``'s layout, an NCCL
+   group of one rank joined through a ``FileStore`` under build/
+   (`mesh_ranks(1, 1)`), 21(d)'s phi3-mini-3.8b at full width, its first 3
+   steps through the step over the layout (`make_train_step`: the stream
+   cut by sequence, every attention, MLP and vocabulary boundary issuing
+   its sequence all-gather or reduce-scatter in rank order, in the
+   recompute too, every norm's scale summed, and each period's ``fsdp``
+   leaves gathered inside its remat region, forward and again in the
+   recompute, their gradients reduce-scattered) and the `Supervisor` over
+   the layout: the losses bit-equal to 21(d)'s, ms a step against
+   21(d)'s, the peak within 1.0 GB of 21(d)'s (one period's gathered
+   weights live at a time), the model axis's and the data axis's
+   collectives counted a step (eager), their ms a step and bytes, each
+   boundary's backward (which runs once a boundary a step) at least once a
+   boundary a layer, and a data-axis gather a leaf a period forward and in
+   the recompute; then a checkpoint's gather of the whole state over the
+   layout on the device alone, adding at most 1.0 GB (a chunk at a time);
+   (b) where two or more cards are visible, a 1x2 layout, one
    card a rank, phi3's losses within rounding of 21(d)'s; with one card a
    line says that (b) did not run; (c) MoE layers over the model axis:
    deepseek-moe-16b at its published widths (d 2048, 64 experts of 1408,
    2 shared, top-6, vocab 102400; bf16, float32 moments), its 28 layers
    cut to 4, 21(d)'s batch, 3 steps in one process and then through a 1x1
    layout on an NCCL group of one (`rules_for` puts the experts on
-   ``model``: the expert-parallel path, every MoE boundary's collective
-   run): the losses bit-equal, at least one sum out and two sums in a MoE
-   layer a step, ms a step against the one-process run, peak GB, the
-   collectives' ms, bytes and counts a step, the dropped share; (d) where
+   ``model``: the expert-parallel path under the sequence split and the
+   ``fsdp`` rule, every boundary's collective run): the losses bit-equal,
+   the backwards of a sequence reduce-scatter and of a gather at least
+   once a layer and the gates' sum a MoE layer a step, the data-axis
+   gathers as in (a), ms a
+   step against the one-process run, peak GB, both axes' collectives' ms,
+   bytes and counts a step, the dropped share; (d) where
    two or more cards are visible, the same over a 1x2 layout (32 experts a
    card), its losses within (b)'s rtol of (c)'s; with one card a line
    says that (d) did not run.
@@ -369,12 +382,16 @@ LM_DIST = dict(steps=3, data=2, model=2, stages=4, micro=8, mb_seq=512, shards=8
 # cards: 8 shards and 4 stages split evenly), one card each, phi3 at a
 # global batch of one sequence a rank
 LM_RANKS = dict(steps=3)
-# phase 26: the model axis over ranks: 21(d)'s first steps through a 1x1
-# (data, model) layout on an NCCL group of one, every model-axis boundary's
-# collective issued; with two or more cards (b) a 1x2 layout, one card a
+# phase 26: the model and data axes over ranks: 21(d)'s first steps through a
+# 1x1 (data, model) layout on an NCCL group of one, every model-axis
+# boundary's collective issued (the sequence split included) and every
+# period's fsdp leaves gathered in its remat region; the peak within
+# peak_gb of 21(d)'s; a checkpoint's gather of the state over the layout
+# adding at most gather_gb on the device (a chunk at a time, never a whole
+# stacked leaf); with two or more cards (b) a 1x2 layout, one card a
 # rank, its bf16 losses within loss_rtol of 21(d)'s (the row-parallel
 # contractions add their partial sums in another order)
-LM_MODEL_RANKS = dict(loss_rtol=1e-2)
+LM_MODEL_RANKS = dict(loss_rtol=1e-2, peak_gb=1.0, gather_gb=1.0)
 # phase 26(c), (d): the model axis over ranks for MoE layers: deepseek-moe-16b
 # at its published widths, its 28 layers cut to 4 so that its train state
 # (2.77 B parameters, ~33 GB with the float32 moments) fits beside the run,
@@ -1731,7 +1748,7 @@ def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1, cf
     one-process step at ``microbatches``. Returns the losses, ms a step
     (the median after the first), peak GB, the MoE layers' dropped share a
     step (MoE configs), the reduction's ms a step and bytes a rank, over a
-    layout the model axis's collectives' ms a step, bytes a step and
+    layout the model and data axes' collectives' ms a step, bytes a step and
     counts a step, and the state."""
     import statistics
 
@@ -1771,6 +1788,10 @@ def phi3_ranks_run(torch, dev, data_ranks, batch: int, microbatches: int = 1, cf
         tms = tp.step_ms()
         out.update(model_ms=statistics.median(tms[1:]), model_bytes=tp.sent / len(tms),
                    model_counts={k: v / len(tms) for k, v in sorted(tp.counts.items())})
+        fs = step.rules.data
+        fms = fs.step_ms()
+        out.update(data_ms=statistics.median(fms[1:]), data_bytes=fs.sent / len(fms),
+                   data_counts={k: v / len(fms) for k, v in sorted(fs.counts.items())})
     return out
 
 
@@ -2003,13 +2024,76 @@ def lm_model_rank_cell(rank: int, world: int, store: str, out: str, moe: bool = 
         torch.set_float32_matmul_precision("highest")
         mesh = mesh_ranks(1, world)
         got = phi3_ranks_run(torch, dev, mesh, LM_TRAIN_FULL["batch"], cfg=moe_full_config() if moe else None)
-        res = {k: got[k] for k in ("losses", "ms", "peak_gb", "model_ms", "model_bytes", "dropped")}
+        res = {k: got[k] for k in ("losses", "ms", "peak_gb", "model_ms", "model_bytes", "data_ms", "data_bytes",
+                                   "dropped")}
         res["peak_gb_all"] = [float(v) for v in
                               mesh.values(torch.tensor(torch.cuda.max_memory_allocated(dev) / 1e9, device=dev)).cpu()]
         if rank == 0:
             Path(out).write_text(json.dumps(res))
     finally:
         close_ranks()
+
+
+def seq_fsdp_line(tag: str, smi: str, got: dict, n: int) -> str:
+    """Phase 26's line of the data axis's collectives (`phi3_ranks_run`'s
+    ``data_*``): the fsdp gathers and the gradients' reduce-scatter."""
+    dc = got["data_counts"]
+    return (f"{tag} [{smi}]: data-axis collectives (the fsdp rule) {got['data_ms']:.2f} ms/step (median of steps "
+            f"2-{n}, CUDA events), {got['data_bytes'] / 1e9:.3f} GB a rank a step; a step: parameter gathers "
+            f"{dc.get('param_gather', 0):.0f} (forward and recompute), reduce-scatters "
+            f"{dc.get('reduce_scatter', 0):.0f}, norm sums {dc.get('norm', 0):.0f}")
+
+
+def seq_fsdp_check(tag: str, cfg, got: dict) -> None:
+    """Every boundary of every layer crossed each step (`phi3_ranks_run`'s
+    counts a step), held by the backwards, which run once a boundary a
+    step: the cotangent of the sequence gathered into each attention, MLP
+    or MoE block and the head summed, that of the reduce-scatter out of
+    each block gathered, each norm's scale summed, the stream's cut
+    gathered once; an MoE layer's gates summed; the forwards' gathers and
+    reduce-scatters at least as often; every ``fsdp`` leaf of every period
+    gathered in the forward and again in the recompute, and its gradient
+    reduce-scattered once."""
+    from repro_torch.distributed.sharding import data_dim, map_axes, rules_for
+    from repro_torch.models.transformer import param_axes
+
+    layers = cfg.total_layers
+    need = {"seq_gather_grad": 2 * layers + 1, "seq_scatter_grad": 2 * layers, "seq_gather": 2 * layers + 1,
+            "seq_scatter": 2 * layers, "norm_scale": 2 * layers + 1, "seq_split_grad": 1}
+    if cfg.moe is not None:
+        need["copy_in"] = sum(1 for s in cfg.pattern if s.ffn == "moe") * cfg.n_periods
+    table = rules_for(cfg, mode="train", multi_pod=False, data_axis=1, model_axis=1)
+    cut = []
+    map_axes(lambda a: cut.append(data_dim(a, table) is not None), param_axes(cfg)["layers"])
+    per_period = sum(cut)
+    need_data = {"param_gather": 2 * cfg.n_periods * per_period, "reduce_scatter": cfg.n_periods * per_period}
+    low = {k: (got["model_counts"].get(k, 0), v) for k, v in need.items() if got["model_counts"].get(k, 0) < v}
+    low.update({k: (got["data_counts"].get(k, 0), v) for k, v in need_data.items()
+                if got["data_counts"].get(k, 0) < v})
+    if low:
+        fail(f"{tag}: too few collectives a step (got, needed): {low}")
+
+
+def checkpoint_gather_probe(torch, dev, cfg, mesh, state) -> dict:
+    """A checkpoint's gather of ``state`` (this rank's blocks over
+    ``mesh``) on the device alone (`ModelBlocks.whole_leaves` keeping
+    nothing: every cut leaf crosses a bounded chunk at a time): the device
+    memory it adds above what is held before it (GB), its seconds, and the
+    state's GB and largest leaf's GB."""
+    from repro_torch.train.step import model_rules, state_blocks
+    from repro_torch.tree import tree_leaves
+
+    blocks = state_blocks(cfg, model_rules(cfg, mesh))
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in blocks.whole_leaves(state, keep=False):
+        pass
+    torch.cuda.synchronize(dev)
+    sizes = [t.numel() * t.element_size() for t in tree_leaves(state)]
+    return {"added_gb": (torch.cuda.max_memory_allocated(dev) - held) / 1e9, "s": time.perf_counter() - t0,
+            "state_gb": sum(sizes) / 1e9, "leaf_gb": max(sizes) / 1e9}
 
 
 def lm_model_ranks_phase(torch, dispatch, dev, smi: str, full_losses: list[float], full_ms: float,
@@ -2036,24 +2120,35 @@ def lm_model_ranks_phase(torch, dispatch, dev, smi: str, full_losses: list[float
         mesh = mesh_ranks(1, 1)
         with CollectiveCount(dist) as cc:
             got = phi3_ranks_run(torch, dev, mesh, LM_TRAIN_FULL["batch"])
+        probe = checkpoint_gather_probe(torch, dev, cfg, mesh, got["state"])
         del got["state"]
         torch.cuda.empty_cache()
         calls = {k: v / n for k, v in sorted(cc.calls.items())}
         say(f"lm model ranks (a) [{smi}]: NCCL group of 1 rank over a FileStore, a 1x1 (data, model) layout; "
             f"{cfg.name} at full width (bf16, {cfg.n_layers} layers, float32 moments), batch "
-            f"{LM_TRAIN_FULL['batch']} x {LM_TRAIN_FULL['seq']}, {n} steps through the tensor- and vocabulary-parallel "
-            f"step and the Supervisor over the layout: losses " + " ".join(f"{x:.4f}" for x in got["losses"])
+            f"{LM_TRAIN_FULL['batch']} x {LM_TRAIN_FULL['seq']}, {n} steps through the tensor-, vocabulary- and "
+            f"sequence-parallel step with the fsdp rule and the Supervisor over the layout: losses "
+            + " ".join(f"{x:.4f}" for x in got["losses"])
             + f", bit-equal to phase 21(d)'s first {n}: {got['losses'] == want}; {got['ms']:.1f} ms/step (median of "
-            f"steps 2-{n}; 21(d): {full_ms:.1f}, {got['ms'] / full_ms - 1:+.2%}), peak {got['peak_gb']:.2f} GB (21(d): "
-            f"{full_peak:.2f}); model-axis collectives {got['model_ms']:.2f} ms/step (median of steps 2-{n}, CUDA "
-            f"events), {got['model_bytes'] / 1e9:.3f} GB a rank a step, a step: {got['model_counts']}; gradient "
-            f"reduction {got['reduce_ms']:.2f} ms/step; torch.distributed calls a step {calls} (eager)")
+            f"steps 2-{n}; 21(d): {full_ms:.1f}, step ratio {got['ms'] / full_ms:.4f}, "
+            f"{got['ms'] / full_ms - 1:+.2%}), "
+            f"peak {got['peak_gb']:.2f} GB (21(d): {full_peak:.2f}, {got['peak_gb'] - full_peak:+.2f}); model-axis "
+            f"collectives {got['model_ms']:.2f} ms/step (median of steps 2-{n}, CUDA events), "
+            f"{got['model_bytes'] / 1e9:.3f} GB a rank a step, a step: {got['model_counts']}; gradient reduction "
+            f"{got['reduce_ms']:.2f} ms/step; torch.distributed calls a step {calls} (eager)")
+        say(seq_fsdp_line("lm model ranks (a)", smi, got, n))
+        say(f"lm model ranks (a) [{smi}]: a checkpoint's gather of the {probe['state_gb']:.2f} GB state over the "
+            f"layout (its largest leaf {probe['leaf_gb']:.2f} GB), a bounded chunk at a time: "
+            f"{probe['added_gb']:.3f} GB of device memory above the state, {probe['s']:.2f} s")
+        if probe["added_gb"] > LM_MODEL_RANKS["gather_gb"]:
+            fail(f"lm model ranks (a): a checkpoint's gather added {probe['added_gb']:.3f} GB on the device "
+                 f"(within {LM_MODEL_RANKS['gather_gb']} GB: a chunk at a time, never a whole leaf)")
         if got["losses"] != want:
             fail(f"lm model ranks (a): losses {got['losses']!r}, phase 21(d)'s {want!r} (bit-equal)")
-        # every boundary of every layer: a sum after each attention and MLP block and the embedding, and a sum
-        # of each column-parallel input's cotangent
-        if min(got["model_counts"].get(k, 0) for k in ("sum_out", "copy_in")) < 2 * cfg.n_layers + 1:
-            fail(f"lm model ranks (a): the model axis's boundaries issued too few collectives: {got['model_counts']}")
+        seq_fsdp_check("lm model ranks (a)", cfg, got)
+        if abs(got["peak_gb"] - full_peak) > LM_MODEL_RANKS["peak_gb"]:
+            fail(f"lm model ranks (a): peak {got['peak_gb']:.2f} GB against 21(d)'s {full_peak:.2f} (within "
+                 f"{LM_MODEL_RANKS['peak_gb']} GB: one period's gathered weights live at a time)")
     finally:
         close_ranks()
         shutil.rmtree(store, ignore_errors=True)
@@ -2080,7 +2175,8 @@ def lm_model_ranks_phase(torch, dispatch, dev, smi: str, full_losses: list[float
         + " ".join(f"{x:.4f}" for x in got["losses"]) + f" against 21(d)'s " + " ".join(f"{x:.4f}" for x in want)
         + f" (within rtol {LM_MODEL_RANKS['loss_rtol']}: {close}), {got['ms']:.1f} ms/step against 21(d)'s "
         f"{full_ms:.1f}, model-axis collectives {got['model_ms']:.2f} ms/step and {got['model_bytes'] / 1e9:.3f} GB a "
-        f"rank a step, peak GB per card {[round(v, 2) for v in got['peak_gb_all']]}")
+        f"rank a step, data-axis {got['data_ms']:.2f} ms/step and {got['data_bytes'] / 1e9:.3f} GB, peak GB per card "
+        f"{[round(v, 2) for v in got['peak_gb_all']]}")
     if not close:
         fail(f"lm model ranks (b): losses {got['losses']} against 21(d)'s {want}")
     say(f"phase 26b: {time.perf_counter() - t0:.1f} s")
@@ -2130,14 +2226,11 @@ def lm_expert_ranks_phase(torch, dispatch, dev, smi: str) -> None:
             f"model-axis collectives {got['model_ms']:.2f} ms/step (median of steps 2-{n}, CUDA events), "
             f"{got['model_bytes'] / 1e9:.3f} GB a rank a step, a step: {got['model_counts']}; gradient reduction "
             f"{got['reduce_ms']:.2f} ms/step; torch.distributed calls a step {calls} (eager)")
+        say(seq_fsdp_line("lm expert ranks (c)", smi, got, n))
         if got["losses"] != one["losses"] or got["dropped"] != one["dropped"]:
             fail(f"lm expert ranks (c): losses {got['losses']!r}, dropped {got['dropped']!r}; one process "
                  f"{one['losses']!r}, {one['dropped']!r} (bit-equal)")
-        # a sum out after every attention and MoE block and the embedding; a sum in of every attention's input, every
-        # MoE layer's input and gates, and the head's
-        counts = got["model_counts"]
-        if counts.get("sum_out", 0) < 2 * cfg.n_layers + 1 or counts.get("copy_in", 0) < 3 * cfg.n_layers + 1:
-            fail(f"lm expert ranks (c): the MoE layers' boundaries issued too few collectives: {counts}")
+        seq_fsdp_check("lm expert ranks (c)", cfg, got)
     finally:
         close_ranks()
         shutil.rmtree(store, ignore_errors=True)
@@ -2164,8 +2257,8 @@ def lm_expert_ranks_phase(torch, dispatch, dev, smi: str) -> None:
         f"card: {cfg.name}'s losses " + " ".join(f"{x:.4f}" for x in two["losses"]) + " against (c)'s "
         + " ".join(f"{x:.4f}" for x in got["losses"]) + f" (within rtol {LM_MODEL_RANKS['loss_rtol']}: {close}), "
         f"{two['ms']:.1f} ms/step against (c)'s {got['ms']:.1f}, model-axis collectives {two['model_ms']:.2f} ms/step "
-        f"and {two['model_bytes'] / 1e9:.3f} GB a rank a step, peak GB per card "
-        f"{[round(v, 2) for v in two['peak_gb_all']]}, dropped share a step {two['dropped']}")
+        f"and {two['model_bytes'] / 1e9:.3f} GB a rank a step, data-axis {two['data_ms']:.2f} ms/step, peak GB per "
+        f"card {[round(v, 2) for v in two['peak_gb_all']]}, dropped share a step {two['dropped']}")
     if not close:
         fail(f"lm expert ranks (d): losses {two['losses']} against (c)'s {got['losses']}")
     say(f"phase 26d: {time.perf_counter() - t0:.1f} s")

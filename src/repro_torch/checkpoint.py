@@ -592,12 +592,13 @@ class CheckpointManager:
     collective: every rank calls them.
 
     Over a (data, model) layout (``ranks``, a `distributed.ranks.MeshRanks`)
-    each rank holds its block of the model axis: ``blocks`` (a
-    `distributed.sharding.ModelBlocks` of the saved tree) gathers the
-    blocks of data row 0 into the whole tree on ``save`` (collective over
-    that row's model group; rank 0 writes it), and on ``restore`` every
-    rank takes its own block of each whole leaf. A checkpoint so holds the
-    whole tree, and moves between packages and mesh sizes."""
+    each rank holds its block of the model axis and its slice of the data
+    axis: ``blocks`` (a `distributed.sharding.ModelBlocks` of the saved
+    tree) gathers every leaf whole on ``save``, a bounded chunk at a time
+    (collective over every rank of the layout; rank 0 copies each chunk to
+    the host and writes the tree), and on ``restore`` every rank takes its
+    own block of each whole leaf. A checkpoint so holds the whole tree, and
+    moves between packages and layouts."""
 
     def __init__(self, directory: str, *, keep: int = 3, ranks=None, blocks=None):
         if blocks is not None and not hasattr(ranks, "model"):
@@ -618,16 +619,16 @@ class CheckpointManager:
         ``LATEST`` at it, and drop all but the newest ``keep``. With
         ``blocking=False`` the write runs on a background thread; the host
         copies are made before this returns. Over ranks only rank 0 writes;
-        with ``blocks`` data row 0 gathers the whole tree first."""
-        if self.blocks is not None:
-            if self.ranks.data.rank != 0:
-                return
-            tree = self.blocks.gather(tree)
-        if not self.writer:
-            return
+        with ``blocks`` every rank gathers each leaf whole first."""
         pairs = _flatten_with_names(tree)
+        leaves = [x for _, x in pairs] if self.blocks is None else self.blocks.whole_leaves(tree, keep=self.writer)
+        if not self.writer:
+            if self.blocks is not None:
+                for _ in leaves:  # every rank takes part in each leaf's gathers
+                    pass
+            return
         names = [n for n, _ in pairs]
-        host = [_host_bits(x, own=not blocking) for _, x in pairs]
+        host = [_host_bits(x, own=not blocking) for x in leaves]
         if blocking:
             self._write(step, names, host)
             return

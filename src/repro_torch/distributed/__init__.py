@@ -8,7 +8,9 @@ training loop's `FailureInjector`, `StragglerMonitor` and `Supervisor`,
 (`compression`: the PIC driver's migration rows and the int8
 error-feedback gradient all-reduce), the language-model stack's
 logical-axis rules and the PIC driver's load-aware mesh split
-(`sharding`), and GPipe over stacked stages (`pipeline`)."""
+(`sharding`), the model axis over ranks (`tensor_parallel`: tensor,
+vocabulary, expert and sequence parallelism), the ``fsdp`` rule over the
+data ranks (`fsdp`), and GPipe over stacked stages (`pipeline`)."""
 
 from repro_torch.distributed.fault import FailureInjector, StragglerMonitor, Supervisor  # noqa: F401
 from repro_torch.distributed.sharding import (  # noqa: F401

@@ -101,7 +101,8 @@ class Supervisor:
 
     Over ``ranks`` (an `AxisRanks` whose ranks each hold the replicated
     state, or a `MeshRanks` layout whose ranks hold their blocks of the
-    model axis, and a checkpoint manager over the same ranks) every rank
+    model axis and their slices of the data axis, and a checkpoint manager
+    over the same ranks, which gathers and cuts them) every rank
     runs the same loop. At each step's start each rank's injector sets a flag
     in place of raising, and the flags are gathered over every rank (all
     D·M of a layout; one small collective a step, which reads the host):

@@ -41,6 +41,10 @@ block ``[r n / W, (r + 1) n / W)`` of the axis's ``n`` entries. Its
 collectives: `AxisRanks.gather` (``all_gather`` into ``[n, ...]``, rank
 order), `AxisRanks.reduce_sum_` (a tree of per-rank contributions summed
 in rank order from zeros, gathered a bounded chunk at a time),
+`AxisRanks.gather_dim` (a leaf's contiguous blocks, `block_range`, along
+one dimension into the whole, uneven blocks padded to the widest),
+`AxisRanks.reduce_scatter` (`reduce_sum_`'s sum of which the rank keeps
+its block: the ``fsdp`` rule's gradient, `distributed.fsdp`),
 `AxisRanks.sum_exact` (an ``all_reduce`` of integers, exact in any
 order), `AxisRanks.shift` (a one-way shift to the next rank with no wrap,
 the reference's ``fwd_perm``) and `AxisRanks.broadcast_last`. Each counts
@@ -61,7 +65,8 @@ ranks of one model group are neighbours: a data group for each ``m``
 ... d M + M - 1``), each made by ``dist.new_group`` in the same order on
 every rank, and an `AxisRanks` for each axis over this rank's group. Its
 own collectives (``values``, ``agree``, ``barrier``) run over all D·M
-ranks. The model axis's collectives are `distributed.tensor_parallel`'s.
+ranks. The model axis's step collectives are `distributed.tensor_parallel`'s,
+the data axis's parameter gathers and reduce-scatters `distributed.fsdp`'s.
 """
 
 from __future__ import annotations
@@ -75,9 +80,9 @@ import torch.distributed as dist
 
 from repro_torch.tree import tree_leaves
 
-__all__ = ["AxisRanks", "GATHER_CHUNK_BYTES", "MeshRanks", "RankGrid", "check_axis_request", "check_rank_grid",
-           "check_rank_request", "choose_rank_grid", "close_ranks", "init_ranks", "mesh_ranks", "rank_device",
-           "stack_sum"]
+__all__ = ["AxisRanks", "GATHER_CHUNK_BYTES", "MeshRanks", "RankGrid", "block_range", "check_axis_request",
+           "check_rank_grid", "check_rank_request", "choose_rank_grid", "close_ranks", "init_ranks", "mesh_ranks",
+           "rank_device", "stack_sum"]
 
 #: the most bytes of one rank's contribution that `AxisRanks.reduce_sum_`
 #: gathers at once: its temporaries are ``world`` such chunks and one sum
@@ -317,12 +322,24 @@ class RankGrid(_Collectives):
         return full.narrow(first, rx * bx, bx).narrow(first + 1, ry * by, by)
 
 
-def stack_sum(stacked: torch.Tensor) -> torch.Tensor:
+def block_range(n: int, world: int, rank: int) -> tuple[int, int]:
+    """The contiguous block ``[lo, hi)`` of ``n`` entries that rank
+    ``rank`` of ``world`` holds: the first ``n % world`` ranks hold one
+    entry more (`torch.tensor_split`'s blocks)."""
+    base, extra = divmod(int(n), int(world))
+    lo = rank * base + min(rank, extra)
+    return lo, lo + base + (1 if rank < extra else 0)
+
+
+def stack_sum(stacked: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """``stacked[0] + stacked[1] + ...`` added one after another onto
     zeros, in ``stacked``'s dtype: the one-process step's order of
     accumulation, which a library sum (whose order depends on the shape
-    and the device) would not keep."""
-    out = torch.zeros(stacked.shape[1:], dtype=stacked.dtype, device=stacked.device)
+    and the device) would not keep. Into ``out`` where given."""
+    if out is None:
+        out = torch.zeros(stacked.shape[1:], dtype=stacked.dtype, device=stacked.device)
+    else:
+        out.zero_()
     for entry in stacked:
         out += entry
     return out
@@ -409,6 +426,48 @@ class AxisRanks(_Collectives):
                 part.copy_(stack_sum(self._all_gather(part)))
             sent += flat.numel() * leaf.element_size()
         return sent
+
+    def gather_dim(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """The whole of an axis of ``n`` entries at ``dim`` from every rank's
+        contiguous block of it (`block_range`: the first ``n % world``
+        ranks hold one entry more), in rank order and in ``x``'s layout,
+        contiguous. Uneven blocks cross padded to the widest. Counted as
+        ``gather_dim``."""
+        blocks = [block_range(n, self.world, r) for r in range(self.world)]
+        widest = blocks[0][1]
+        x = x.contiguous()
+        if x.shape[dim] != widest:
+            pad = x.new_zeros(x.shape[:dim] + (widest,) + x.shape[dim + 1:])
+            pad.narrow(dim, 0, x.shape[dim]).copy_(x)
+            x = pad
+        self.counts["gather_dim"] += 1
+        parts = self._all_gather(x)
+        if self.world == 1:
+            return parts[0]
+        return torch.cat([parts[r].narrow(dim, 0, hi - lo) for r, (lo, hi) in enumerate(blocks)], dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """This rank's block (`block_range`) along ``dim`` (of ``n``
+        entries) of every rank's ``x`` (one shape on every rank) summed in
+        rank order onto zeros: `reduce_sum_`'s sum, gathered a chunk of
+        ``x``'s leading dimension of at most `GATHER_CHUNK_BYTES` at a
+        time, of which the rank keeps its slice. Contiguous, in ``x``'s
+        dtype; each chunk counted as ``reduce_scatter``."""
+        x = x.contiguous()
+        lo, hi = block_range(n, self.world, self.rank)
+        out = torch.empty(x.shape[:dim] + (hi - lo,) + x.shape[dim + 1:], dtype=x.dtype, device=x.device)
+        row = max(1, x[0].numel() * x.element_size())
+        step = max(1, GATHER_CHUNK_BYTES // row)
+        for a in range(0, x.shape[0], step):
+            b = min(a + step, x.shape[0])
+            self.counts["reduce_scatter"] += 1
+            parts = self._all_gather(x[a:b])
+            if dim:
+                stack_sum(parts.narrow(dim + 1, lo, hi - lo), out=out[a:b])
+            elif max(a, lo) < min(b, hi):
+                x0, x1 = max(a, lo), min(b, hi)
+                stack_sum(parts[:, x0 - a:x1 - a], out=out[x0 - lo:x1 - lo])
+        return out
 
     def sum_exact(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's integer ``t`` summed (``all_reduce``): integers add

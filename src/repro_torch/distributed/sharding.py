@@ -7,11 +7,24 @@ launcher installs a rule table (`use_rules`) that maps each logical name to
 mesh axes. A mesh here is a mapping from axis name to size, such as
 ``{"data": 2, "model": 2}``, and a spec is a plain tuple whose entries are
 None, a mesh-axis name or a tuple of names: the port's counterpart of a
-`PartitionSpec`, equal to ``tuple(P(...))`` of the reference. Every mesh
-axis is held on the one device, as the PIC driver stacks its shards, so a
-table places nothing: `constrain` checks its axes against the tensor's
-rank and returns the tensor, and a step computes the same function with
-rules as without (GSPMD leaves the reference's step the same function).
+`PartitionSpec`, equal to ``tuple(P(...))`` of the reference.
+
+A table alone places nothing: every mesh axis is held on the one device,
+as the PIC driver stacks its shards, `constrain` checks its axes against
+the tensor's rank and returns the tensor, and a step computes the same
+function with rules as without (GSPMD leaves the reference's step the same
+function). A table whose axes are spread over ranks (`Rules.model`, a
+`tensor_parallel.TensorParallel`; `Rules.data`, an `fsdp.FSDP`; both made
+by `train.step.model_rules` for a `MeshRanks` layout) places what it maps:
+
+* on ``model``: the heads, the MLP width, the vocabulary, the experts (or
+  each expert's width) and, in training, the sequence of the residual
+  stream between the regions (`tensor_parallel`);
+* on ``data``: the ``fsdp`` dimension of every layer matrix, with its two
+  AdamW moments (`fsdp`), and the batch.
+
+`ModelBlocks` cuts a tree into a rank's blocks over both axes and gathers
+it whole (a checkpoint).
 
 Logical axes used across the stack:
   batch       global batch                    -> ('pod','data') / ('data',)
@@ -29,12 +42,14 @@ Logical axes used across the stack:
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import numpy as np
 import torch
 
 from repro_torch.core.shape_functions import max_guard
+from repro_torch.distributed import ranks as _ranks
 from repro_torch.distributed.tensor_parallel import splits_model
 
 __all__ = [
@@ -46,6 +61,8 @@ __all__ = [
     "logical_spec",
     "map_axes",
     "ModelBlocks",
+    "data_dim",
+    "fsdp",
     "model_dim",
     "plan_balanced_split",
     "recompute_context",
@@ -126,12 +143,15 @@ class Rules:
     names or None), and the mesh it serves as ``{axis name: size}``.
     ``model``, a `distributed.tensor_parallel.TensorParallel`, spreads the
     model axis over ranks: the layers then hold and compute this rank's
-    block of every dimension the table maps to ``model``."""
+    block of every dimension the table maps to ``model``. ``data``, a
+    `distributed.fsdp.FSDP`, spreads the ``fsdp`` dimensions over the data
+    ranks: each holds its slice, gathered where a layer reads it."""
 
-    def __init__(self, table: dict, mesh: dict | None = None, model=None):
+    def __init__(self, table: dict, mesh: dict | None = None, model=None, data=None):
         self.table = dict(table)
         self.mesh = None if mesh is None else dict(mesh)
         self.model = model
+        self.data = data
 
     def spec(self, axes: tuple) -> tuple:
         return tuple(_mesh_axes(self.table.get(ax)) if ax is not None else None for ax in axes)
@@ -161,6 +181,14 @@ def tensor_parallel():
     or None: the model axis is then held whole."""
     r = current_rules()
     return None if r is None else r.model
+
+
+def fsdp():
+    """The installed table's ``fsdp`` rule over the data ranks (an
+    `FSDP`), or None: every parameter is then held whole on each data
+    rank."""
+    r = current_rules()
+    return None if r is None else r.data
 
 
 def recompute_context():
@@ -207,8 +235,12 @@ def tree_specs(logical_tree, rules: Rules):
 
 
 # ------------------------------------------------------------------
-# a rank's blocks of the model axis (`Rules.model`)
+# a rank's blocks over the model and data axes (`Rules.model`, `Rules.data`)
 # ------------------------------------------------------------------
+
+
+def _places(entry, axis: str) -> bool:
+    return entry == axis or (isinstance(entry, (tuple, list)) and axis in entry)
 
 
 def model_dim(axes: tuple, table: dict) -> int | None:
@@ -217,6 +249,16 @@ def model_dim(axes: tuple, table: dict) -> int | None:
     dims = [i for i, ax in enumerate(axes) if ax is not None and splits_model(table.get(ax))]
     if len(dims) > 1:
         raise ValueError(f"logical axes {axes} place two dimensions on the model axis")
+    return dims[0] if dims else None
+
+
+def data_dim(axes: tuple, table: dict) -> int | None:
+    """The dimension of a leaf with logical ``axes`` that ``table`` places
+    on the ``data`` mesh axis (``fsdp``), or None (the leaf is whole on
+    every data rank)."""
+    dims = [i for i, ax in enumerate(axes) if ax is not None and _places(table.get(ax), "data")]
+    if len(dims) > 1:
+        raise ValueError(f"logical axes {axes} place two dimensions on the data axis")
     return dims[0] if dims else None
 
 
@@ -242,27 +284,34 @@ def _rebuild(tree, axes, values):
 
 
 class ModelBlocks:
-    """A rank's blocks of a tree over the model ranks of ``rules``
-    (``rules.model``): ``axes`` is the tree's logical-axes twin, ``whole``
-    the same tree with the whole leaves' shapes (tensors, on ``meta`` as
-    well). A leaf that the table places on ``model`` is cut along that
-    dimension into `TensorParallel.range`'s block; every other leaf is
-    replicated. Leaves are listed in `tree_leaves` order (dict keys
+    """A rank's blocks of a tree over the model ranks (``rules.model``) and
+    the data ranks (``rules.data``) of ``rules``: ``axes`` is the tree's
+    logical-axes twin, ``whole`` the same tree with the whole leaves'
+    shapes (tensors, on ``meta`` as well). A leaf is cut along the
+    dimension the table places on ``model`` (``dims``) into
+    `TensorParallel.range`'s block, and along the one it places on
+    ``data`` (``data_dims``: ``fsdp``) into `FSDP.range`'s block; along
+    neither it is whole. With no ``rules.data`` nothing is cut over the
+    data ranks. Leaves are listed in `tree_leaves` order (dict keys
     sorted), as checkpoints name them."""
 
     def __init__(self, axes, whole, rules: Rules):
         self.axes, self.rules = axes, rules
         pairs = _zip_leaves(whole, axes)
-        self.dims = [model_dim(a, rules.table) for _, a in pairs]
+        self.dims = [model_dim(a, rules.table) if rules.model is not None else None for _, a in pairs]
+        self.data_dims = [data_dim(a, rules.table) if rules.data is not None else None for _, a in pairs]
+        for (_, a), m, d in zip(pairs, self.dims, self.data_dims):
+            if m is not None and m == d:
+                raise ValueError(f"logical axes {a} place one dimension on both the model and the data axes")
         self.shapes = [tuple(t.shape) for t, _ in pairs]
 
     def block_of(self, i: int, full: torch.Tensor) -> torch.Tensor:
         """This rank's block (a view) of leaf ``i``'s whole value."""
-        dim = self.dims[i]
-        if dim is None:
-            return full
-        lo, hi = self.rules.model.range(full.shape[dim])
-        return full.narrow(dim, lo, hi - lo)
+        for dim, ranks in ((self.dims[i], self.rules.model), (self.data_dims[i], self.rules.data)):
+            if dim is not None:
+                lo, hi = ranks.range(full.shape[dim])
+                full = full.narrow(dim, lo, hi - lo)
+        return full
 
     def cut(self, tree):
         """This rank's block of every leaf of a whole tree, as contiguous
@@ -271,14 +320,44 @@ class ModelBlocks:
         blocks = (self.block_of(i, t).clone(memory_format=torch.contiguous_format) for i, t in enumerate(leaves))
         return _rebuild(tree, self.axes, blocks)
 
+    def whole_leaves(self, tree, keep: bool = True):
+        """The whole leaves of a tree of this rank's blocks, one at a time
+        in `tree_leaves` order, on the host (None in place of each where
+        not ``keep``). A cut leaf crosses a chunk at a time along its first
+        dimension cut over neither axis (a stacked leaf's periods), each
+        chunk of the whole at most `ranks.GATHER_CHUNK_BYTES` or one entry
+        of that dimension, gathered over the data ranks, then over the
+        model ranks, and copied to the host before the next is gathered:
+        no device holds more than a chunk of a whole leaf. Collective:
+        every rank of the layout iterates it to the end."""
+        for t, m, d, shape in zip((t for t, _ in _zip_leaves(tree, self.axes)), self.dims, self.data_dims,
+                                  self.shapes):
+            t = t.detach()
+            if m is None and d is None:
+                yield t.cpu() if keep else None
+                continue
+            out = torch.empty(shape, dtype=t.dtype) if keep else None
+            free = [k for k in range(len(shape)) if k not in (m, d)]
+            c = free[0] if free else None
+            spans = [(0, 1)]
+            if c is not None:
+                row = max(1, math.prod(shape) // max(1, shape[c]) * t.element_size())
+                step = max(1, _ranks.GATHER_CHUNK_BYTES // row)
+                spans = [(a, min(a + step, shape[c])) for a in range(0, shape[c], step)]
+            for a, b in spans:
+                part = t if c is None else t.narrow(c, a, b - a)
+                if d is not None:
+                    part = self.rules.data.ranks.gather_dim(part, d, shape[d])
+                if m is not None:
+                    part = self.rules.model.gather_dim(part, m, shape[m])
+                if keep:
+                    (out if c is None else out.narrow(c, a, b - a)).copy_(part)
+            yield out
+
     def gather(self, tree):
-        """The whole leaves of a tree of this rank's blocks: each cut leaf
-        gathered over the model ranks (collective: every model rank calls
-        it), every other leaf as it is."""
-        leaves = [t for t, _ in _zip_leaves(tree, self.axes)]
-        whole = (t if d is None else self.rules.model.gather_dim(t, d, shape[d])
-                 for t, d, shape in zip(leaves, self.dims, self.shapes))
-        return _rebuild(tree, self.axes, whole)
+        """The whole leaves of a tree of this rank's blocks (`whole_leaves`,
+        on the host), in the tree's structure."""
+        return _rebuild(tree, self.axes, self.whole_leaves(tree))
 
 
 # ------------------------------------------------------------------

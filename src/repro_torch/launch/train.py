@@ -26,34 +26,34 @@ before the summary.
 ``--ranks N`` with ``--mesh D`` or ``--mesh DxM`` spreads the mesh over N
 processes, one a rank (`torch.multiprocessing`, a ``FileStore`` in a
 temporary directory; NCCL with one card a rank, gloo with ``--device
-cpu``):
+cpu``), as a (data, model) layout of D x N/D ranks (`MeshRanks`, rank
+``d M + m``) under `rules_for`'s table: N = D·M of a ``DxM`` mesh spreads
+both axes, N = D the data axis alone (a model axis M then stays on each
+rank's card, where its rules place nothing). Each rank holds its block
+of every attention head, MLP width, vocabulary row and MoE expert (or
+each expert's width) that the table places on ``model``, and in training
+its block of the residual stream's sequence between the regions (tensor,
+vocabulary, expert and sequence parallelism,
+`distributed.tensor_parallel`); each data rank holds its slice of every
+``fsdp`` dimension of the layer matrices and of their two AdamW moments
+(`distributed.fsdp`), gathered whole inside each period's remat region,
+and trains on its shard of each step's global batch
+(`data.shard_batch_at`). The losses are those of the one-process run
+with ``--microbatches D`` within rounding (the row-parallel contractions
+add their partial sums in another order, and the gradient norm's squares
+group by slice), and bit for bit at D = M = 1, where every collective
+still runs over a group of one. Whisper's table puts the sequence
+nowhere, and decode puts it nowhere either.
 
-* N = D spreads the data axis alone, one data shard a rank: rank r trains
-  on its shard of each step's global batch (`data.shard_batch_at`), the
-  gradients are summed over the ranks in rank order
-  (`train.make_train_step(..., ranks=...)`), and every rank holds the same
-  replica; a model axis M stays on each rank's card, where its rules place
-  nothing. The losses are those of the one-process run with
-  ``--microbatches D`` (bit for bit at ``--microbatches 1``);
-* N = D·M with ``--mesh DxM`` spreads the model axis too (`MeshRanks`, rank
-  ``d M + m``): each rank holds its block of every attention, MLP and
-  vocabulary matrix that `rules_for` places on ``model`` (tensor and
-  vocabulary parallelism, `distributed.tensor_parallel`), trains on data
-  shard d, and the gradients are summed over its data group. The losses
-  are those of the one-process run with ``--microbatches D`` within
-  rounding (the row-parallel contractions add their partial sums in
-  another order), and at M = 1, where the model axis's collectives still
-  run over groups of one, bit for bit those of ``--ranks D``.
-
-Rank 0 writes the checkpoints (with M ranks a row, the whole tree gathered
-from data row 0's blocks) and prints the lines, with the gradient
-reduction's ms a step and its bytes a rank, and over a model axis the
-model-axis collectives' ms a step and MB a rank a step. It refuses, by
-name and before it starts a process, ``--ranks`` without ``--mesh``, any
-other rank count, a model axis over ranks (M > 1) for a config with MoE,
-Mamba or xLSTM layers (their model-axis forms are not built), and more
-ranks than visible cards; nothing runs fewer ranks, the CPU, or the model
-axis held on one card in their place.
+Rank 0 writes the checkpoints (the whole tree gathered a bounded chunk
+at a time from every rank's blocks) and prints the lines, with the
+gradient reduction's ms a step and its bytes a rank, and the model-axis
+and the data-axis collectives' ms a step, bytes a rank a step and counts
+a step. It refuses, by name and before it starts a process,
+``--ranks`` without ``--mesh``, any other rank count, a model axis over
+ranks (M > 1) for a config with Mamba or xLSTM layers (their model-axis
+forms are not built), and more ranks than visible cards; nothing runs
+fewer ranks, the CPU, or the model axis held on one card in their place.
 """
 
 from __future__ import annotations
@@ -115,10 +115,9 @@ def mesh_shape(text: str) -> tuple[int, ...]:
 
 
 def train(args, ranks=None, device=None, out=print) -> list[float]:
-    """The run of ``args`` on ``device``; over ``ranks`` (an `AxisRanks` of
-    the data axis, or a `MeshRanks` layout of the data and model axes)
-    this rank's part of it. ``out`` prints the lines. Returns the losses."""
-    from repro_torch.distributed.ranks import MeshRanks
+    """The run of ``args`` on ``device``; over ``ranks`` (a `MeshRanks`
+    layout of the data and model axes) this rank's part of it. ``out``
+    prints the lines. Returns the losses."""
     from repro_torch.train.step import state_blocks
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch, dtype=torch.bfloat16)
@@ -133,8 +132,6 @@ def train(args, ranks=None, device=None, out=print) -> list[float]:
                        schedule=ScheduleConfig(warmup_steps=10, total_steps=args.steps),
                        microbatches=args.microbatches)
 
-    mesh = ranks if isinstance(ranks, MeshRanks) else None
-    data_ranks = mesh.data if mesh is not None else ranks
     step = make_train_step(cfg, tcfg, ranks)
     gen = torch.Generator(device=device).manual_seed(0)
     state = init_train_state(gen, cfg, device=device, rules=step.rules)
@@ -142,13 +139,13 @@ def train(args, ranks=None, device=None, out=print) -> list[float]:
     timed = clock.wrap(step)
 
     def step_fn(st, i):
-        if data_ranks is None:
+        if ranks is None:
             return timed(st, global_batch_at(i, data, device=device))
-        return timed(st, shard_batch_at(i, data, data_ranks.rank, data_ranks.world, device=device))
+        return timed(st, shard_batch_at(i, data, ranks.data.rank, ranks.data.world, device=device))
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    blocks = None if mesh is None else state_blocks(cfg, step.rules)
+    blocks = None if ranks is None else state_blocks(cfg, step.rules)
     sup = Supervisor(step_fn, CheckpointManager(args.ckpt_dir, keep=3, ranks=ranks, blocks=blocks),
                      save_every=args.save_every, ranks=ranks)
     t0 = time.perf_counter()
@@ -161,30 +158,37 @@ def train(args, ranks=None, device=None, out=print) -> list[float]:
         out(f"mesh {rules.mesh}: rules " + ", ".join(f"{k}={v}" for k, v in rules.table.items() if v is not None))
     out(summary(cfg, losses, clock.ms(), args.global_batch, args.seq, device))
     where = "host clock, cpu" if device.type == "cpu" else f"CUDA events, {torch.cuda.get_device_name(device)}"
-    if data_ranks is not None:
+    if ranks is not None:
         red = step.reduction.ms()
-        out(f"gradient reduction over {data_ranks.world} ranks: {statistics.median(red[1:] or red):.2f} ms/step "
+        out(f"gradient reduction over {ranks.data.world} ranks: {statistics.median(red[1:] or red):.2f} ms/step "
             f"(median of {len(red[1:] or red)}, {where}), {step.reduce_bytes / 1e6:.3f} MB a rank (its "
-            f"contribution, gathered by the other {data_ranks.world - 1})")
-    if mesh is not None:
+            f"contribution, gathered by the other {ranks.data.world - 1})")
         tp = step.rules.model
         tms = tp.step_ms()
         out(f"model-axis collectives over {tp.world} ranks: {statistics.median(tms[1:] or tms):.2f} ms/step (median "
             f"of {len(tms[1:] or tms)}, {where}), {tp.sent / len(tms) / 1e6:.3f} MB a rank a step (its "
             f"contributions, all-gathered and summed in rank order); {sum(tp.counts.values()) // len(tms)} a step "
             f"({', '.join(f'{k} {v // len(tms)}' for k, v in sorted(tp.counts.items()))})")
+        fs = step.rules.data
+        if fs is not None:
+            fms = fs.step_ms()
+            out(f"data-axis collectives over {fs.world} ranks: {statistics.median(fms[1:] or fms):.2f} ms/step "
+                f"(median of {len(fms[1:] or fms)}, {where}), {fs.sent / len(fms) / 1e9:.6f} GB a rank a step (the "
+                f"fsdp slices gathered, forward and recompute, and their gradients reduce-scattered); "
+                f"{sum(fs.counts.values()) // len(fms)} a step "
+                f"({', '.join(f'{k} {v // len(fms)}' for k, v in sorted(fs.counts.items()))})")
     out(f"wall {wall:.1f} s for {len(losses)} steps and the checkpoint saves (every {args.save_every} steps and "
         f"at the last, to {args.ckpt_dir}); restarts {sup.restarts}")
     return losses
 
 
-def layout(args) -> tuple[int, int, bool]:
-    """``(D, M, spread)`` of ``args.mesh``; ``spread``: the model axis is
-    spread over the ranks (``--ranks`` D·M of a ``DxM`` mesh) rather than
-    held on each rank's card (``--ranks`` D)."""
+def layout(args) -> tuple[int, int, int]:
+    """``(D, M, ranks)`` of ``args.mesh``: ``ranks`` is the model axis's
+    ranks, M where ``--ranks`` is D·M of a ``DxM`` mesh, else 1 (the model
+    axis held on each rank's card)."""
     shape = mesh_shape(args.mesh)
     d, m = shape[0], (shape[1] if len(shape) > 1 else 1)
-    return d, m, len(shape) > 1 and args.ranks == d * m
+    return d, m, (m if args.ranks == d * m else 1)
 
 
 def run_ranks(args, device=None) -> None:
@@ -199,8 +203,8 @@ def run_ranks(args, device=None) -> None:
 
     on_cpu = device is not None and torch.device(device).type == "cpu"
     n_cards = None if on_cpu else (torch.cuda.device_count() if torch.cuda.is_available() else 0)
-    d, m, spread = layout(args)
-    check_axis_request(args.ranks, d, n_cards=n_cards, axis="data", model=m if spread else 1)
+    d, _, model = layout(args)
+    check_axis_request(args.ranks, d, n_cards=n_cards, axis="data", model=model)
     store = tempfile.mkdtemp(prefix="train_ranks_")
     try:
         mp.start_processes(_rank_main, args=(args.ranks, store, vars(args), "cpu" if on_cpu else None),
@@ -211,21 +215,19 @@ def run_ranks(args, device=None) -> None:
 
 def _rank_main(rank: int, world: int, store: str, arg_dict: dict, device) -> None:
     """One rank of `run_ranks`: join the group, train on this rank's data
-    shard (and, over a model axis, its blocks); rank 0 prints."""
+    shard and blocks; rank 0 prints."""
     import functools
     import os
 
-    import torch.distributed as dist
-
-    from repro_torch.distributed.ranks import AxisRanks, close_ranks, init_ranks, mesh_ranks
+    from repro_torch.distributed.ranks import close_ranks, init_ranks, mesh_ranks
 
     dev = init_ranks(rank, world, store, device=device)
     if dev.type == "cpu":  # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     try:
         args = argparse.Namespace(**arg_dict)
-        d, m, spread = layout(args)
-        ranks = mesh_ranks(d, m) if spread else AxisRanks.of_group("data", world, dist.group.WORLD)
+        d, _, model = layout(args)
+        ranks = mesh_ranks(d, model)
         out = functools.partial(print, flush=True) if rank == 0 else (lambda *a, **k: None)
         train(args, ranks, dev, out)
     finally:
@@ -238,16 +240,16 @@ def main(argv=None) -> None:
     if args.ranks is not None:
         if not args.mesh:
             ap.error("--ranks spreads the data axis over processes: name it with --mesh D or --mesh DxM")
-        d, m, spread = layout(args)
-        if args.ranks != d and not spread:
+        d, m, model = layout(args)
+        if args.ranks != d * model:
             ap.error(f"--ranks {args.ranks} must equal the data axis of --mesh {args.mesh} ({d}), or D·M ({d * m}) "
                      "with --mesh DxM to spread the model axis too")
-        if spread:
+        if model > 1:
             from repro_torch.distributed.tensor_parallel import check_model_axis
 
             cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch, dtype=torch.bfloat16)
             try:
-                check_model_axis(cfg, m)
+                check_model_axis(cfg, model)
             except ValueError as exc:
                 ap.error(f"--mesh {args.mesh} --ranks {args.ranks}: {exc}")
         if args.global_batch % (d * args.microbatches):

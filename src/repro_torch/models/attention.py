@@ -10,9 +10,12 @@ and a sliding-window ring cache are one code path.
 With the model axis over ranks (`distributed.sharding.tensor_parallel`)
 and ``heads`` on it, a rank computes its block of the heads: q, k and v
 column-parallel, ``wo`` row-parallel with a sum over the model ranks
-after it (`TensorParallel.sum_out`). Where ``kv_heads`` stays replicated
-(fewer kv heads than ranks, or a count the axis does not divide) each rank
-projects the kv heads of its own q heads.
+after it (`TensorParallel.leave`: a *sum out*, or under sequence
+parallelism a reduce-scatter onto the rank's block of the sequence, whose
+input came in through the sequence's all-gather, `TensorParallel.enter`).
+Where ``kv_heads`` stays replicated (fewer kv heads than ranks, or a count
+the axis does not divide) each rank projects the kv heads of its own q
+heads.
 """
 
 from __future__ import annotations
@@ -239,7 +242,6 @@ def attention_apply(
     that their cotangents add in the one-process order before the sum over
     the ranks). Returns (out, new_cache).
     """
-    b, s, _ = x.shape
     hd = cfg.hd
     n_rep = cfg.n_heads // cfg.n_kv_heads
 
@@ -247,12 +249,13 @@ def attention_apply(
     tp = tensor_parallel()
     split = tp is not None and tp.splits("heads")
     pick = None
-    if split:
-        # column-parallel over this rank's q heads; the replicated inputs'
-        # cotangents add over the model ranks
+    if tp is not None and (split or tp.seq):
+        # column-parallel over this rank's q heads (or every head, each rank
+        # whole); the replicated inputs' cotangents add over the model ranks
         if cache is not None:
             raise ValueError("attention over the model ranks runs the training forward, not a cached decode")
-        x = tp.copy_in(x)
+        x = tp.enter(x, split)
+    if split:
         if not tp.splits("kv_heads"):
             # every rank holds every kv head: project those of its q heads;
             # the kv weights' gradients add over the model ranks
@@ -261,6 +264,7 @@ def attention_apply(
             wk, wv = tp.copy_in(wk)[:, lo:hi], tp.copy_in(wv)[:, lo:hi]
             pick = (h0 - lo * n_rep, h1 - lo * n_rep)
 
+    b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     src = x if kv_source is None else kv_source
     k = torch.einsum("bsd,dhk->bshk", src, wk)
@@ -317,8 +321,8 @@ def attention_apply(
 
     out = constrain(out, "batch", None, "heads", None)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    if split:  # row-parallel: every rank's partial sum over its heads
-        y = tp.sum_out(y)
+    if tp is not None:  # row-parallel: every rank's partial sum over its heads
+        y = tp.leave(y, split)
     return y, new_cache
 
 

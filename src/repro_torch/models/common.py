@@ -156,10 +156,18 @@ def rmsnorm_axes():
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
-    # the square stays in x.dtype; only the mean accumulates in float32
+    """The square stays in x.dtype; only the mean accumulates in float32.
+    Under sequence parallelism ``x`` is this rank's block of the sequence,
+    so the scale's gradient is summed over the model ranks (it passes
+    through `TensorParallel.copy_in`): each rank then holds the whole
+    gradient, and the scale stays the same on every rank."""
+    scale = params["scale"]
+    tp = tensor_parallel()
+    if tp is not None and tp.seq:
+        scale = tp.copy_in(scale, "norm_scale")
     var = torch.mean(x.square(), dim=-1, keepdim=True, dtype=torch.float32)
     inv = torch.rsqrt(var + eps).to(x.dtype)
-    return x * inv * params["scale"]
+    return x * inv * scale
 
 
 # ---------------------------------------------------------------------------
@@ -329,10 +337,12 @@ def chunked_scan(step, h0, xs, *, chunk: int = 128):
 def unembed(x, table):
     """Logits via the (tied) embedding table: (B,S,D) @ (V,D)^T. With
     ``vocab`` on the model axis over ranks, ``table`` is this rank's block
-    of rows and the logits are that block's."""
+    of rows and the logits are that block's; under sequence parallelism
+    ``x`` is this rank's block of the sequence, gathered whole here, so
+    the logits cover the whole sequence."""
     tp = tensor_parallel()
-    if tp is not None and tp.splits("vocab"):
-        x = tp.copy_in(x)
+    if tp is not None:
+        x = tp.enter(x, tp.splits("vocab"))
     logits = torch.einsum("bsd,vd->bsv", x, table)
     return constrain(logits, "batch", None, "vocab")
 

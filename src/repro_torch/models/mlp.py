@@ -33,15 +33,16 @@ def mlp_axes(cfg: ModelConfig):
 def mlp_apply(params, x, cfg: ModelConfig):
     """With ``mlp`` on the model axis over ranks, ``w_gate`` and ``w_up``
     are column-parallel and ``w_down`` row-parallel, one sum over the model
-    ranks after it."""
+    ranks after it (under sequence parallelism the region takes the
+    gathered sequence and leaves the rank's block of the sum)."""
     tp = tensor_parallel()
     split = tp is not None and tp.splits("mlp")
-    if split:
-        x = tp.copy_in(x)
+    if tp is not None:
+        x = tp.enter(x, split)
     if cfg.act == "swiglu":
         h = F.silu(torch.einsum("bsd,df->bsf", x, params["w_gate"])) * torch.einsum("bsd,df->bsf", x, params["w_up"])
     else:
         h = gelu(torch.einsum("bsd,df->bsf", x, params["w_up"]))
     h = constrain(h, "batch", None, "mlp")
     y = torch.einsum("bsf,fd->bsd", h, params["w_down"])
-    return tp.sum_out(y) if split else y
+    return y if tp is None else tp.leave(y, split)

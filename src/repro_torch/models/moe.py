@@ -25,7 +25,12 @@ expert: every expert's columns of ``w_gate``/``w_up`` and rows of
 every model rank, so the capacity drop and the aux terms are the
 one-process step's; each rank computes its part of the output (its
 experts' slots, or its slice of every expert's width, plus its slice of
-the shared experts), and one sum over the ranks ends the layer.
+the shared experts), and one sum over the ranks ends the layer. Under
+sequence parallelism the layer takes the rank's block of the sequence:
+one all-gather gives the whole sequence to the router, stage 1 and the
+aux terms (still replicated, so the capacity drop is the one-process
+step's) and to the experts, and the sum leaves the rank's block of the
+output (a reduce-scatter).
 """
 
 from __future__ import annotations
@@ -153,14 +158,22 @@ def moe_apply(params, x, cfg: ModelConfig):
     combine reads them (each rank's combine sees its own part of the
     output, so each holds part of their cotangents). The router reads
     ``x`` itself: its cotangent is whole on every rank already, and the
-    load-balance terms read the replicated softmax."""
+    load-balance terms read the replicated softmax. Under sequence
+    parallelism ``x`` is the rank's block of the sequence, and the two
+    reads are the two outputs of one all-gather
+    (`TensorParallel.seq_gather_pair`)."""
     m = cfg.moe
-    b, s, d = x.shape
     k = m.top_k
-    cap = _capacity(s, m)
     tp = tensor_parallel()
     ep = tp is not None and tp.splits("experts")
     split = ep or (tp is not None and tp.splits("expert_mlp"))
+    x_in = x
+    if tp is not None and tp.seq:
+        x_in, x = tp.seq_gather_pair(x) if split else (tp.seq_share(x),) * 2
+    elif split:
+        x_in = tp.copy_in(x)
+    b, s, d = x.shape
+    cap = _capacity(s, m)
 
     # --- router (per token), float32
     logits = torch.einsum("bsd,de->bse", x.float(), params["router"])
@@ -172,7 +185,6 @@ def moe_apply(params, x, cfg: ModelConfig):
     # --- stage 1: per-sequence counting sort into gapped expert bins
     slot_token, a_slot, fits = _dispatch_row(expert_ids, n_experts=m.n_experts, cap=cap, s=s, k=k)
 
-    x_in = tp.copy_in(x) if split else x
     n_exp, slot_of = m.n_experts, a_slot
     if ep:  # this rank's experts: its block of slots, every other slot its zero row
         lo, hi = tp.range(m.n_experts)
@@ -205,8 +217,8 @@ def moe_apply(params, x, cfg: ModelConfig):
         sh = params["shared"]
         hs = F.silu(torch.einsum("bsd,df->bsf", x_in, sh["w_gate"])) * torch.einsum("bsd,df->bsf", x_in, sh["w_up"])
         y = y + torch.einsum("bsf,fd->bsd", hs, sh["w_down"])
-    if split:  # every rank's part of the output, added in rank order
-        y = tp.sum_out(y)
+    if tp is not None:  # every rank's part of the output, added in rank order
+        y = tp.leave(y, split)
 
     # load-balance metrics (Switch-style aux loss ingredients); the counts
     # are a scatter-add, which needs no host read (a CUDA bincount does one)

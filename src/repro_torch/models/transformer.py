@@ -19,7 +19,14 @@ recompute under the forward's rule table. With the model axis over ranks
 (`distributed.tensor_parallel`) the layers hold and compute this rank's
 block of the heads, the MLP width and the vocabulary: the embedding looks
 up its block of rows (tied: the same block the head uses), and the logits
-are this rank's block of the vocabulary. Decode
+are this rank's block of the vocabulary. Under sequence parallelism the
+stream is cut once after the embedding (and a multimodal prefix) into the
+rank's block of the sequence; the positions stay the whole sequence's,
+which the regions gather, and the head gathers the normed stream, so the
+logits cover the whole sequence. Under the ``fsdp`` rule over the data
+ranks (`distributed.fsdp`) each layer's leaves are this rank's slices,
+gathered whole inside the period's remat region (so the recompute gathers
+them again) and where the tail and encoder layers run. Decode
 carries stacked per-period caches the same way; the decode state's
 ``index`` is a 0-d int32 tensor on the device, never read on the host.
 """
@@ -32,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain, recompute_context, tensor_parallel
+from repro_torch.distributed.sharding import constrain, fsdp, recompute_context, tensor_parallel
 from repro_torch.distributed.sharding import map_axes as _map_axes
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
@@ -210,6 +217,16 @@ def _period(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _layer_params(tree, path: tuple, i: int | None = None):
+    """A layer's parameters: the subtree ``tree`` of the parameters at
+    ``path``, at period ``i`` of a stack; under the ``fsdp`` rule over the
+    data ranks each cut leaf gathered whole (`FSDP.take`)."""
+    fs = fsdp()
+    if fs is not None:
+        return fs.take(tree, path, i)
+    return tree if i is None else _period(tree, i)
+
+
 def _embed(params, tokens, cfg: ModelConfig):
     x = embed_lookup(params["embed"]["table"], tokens, cfg.vocab_size).to(cfg.dtype)
     if cfg.name.startswith("gemma"):
@@ -235,8 +252,8 @@ def encode(params, frames, cfg: ModelConfig):
     x = frames + _sinusoidal(f, cfg.d_model, frames.dtype, frames.device)
     spec = LayerSpec("attn", "mlp")
     for i in range(cfg.encoder_layers):
-        x, _, _ = _block_apply(_period(params["encoder"]["layers"], i), x, spec, cfg, positions=pos, cache=None,
-                               cache_index=None, causal=False, enc_out=None)
+        x, _, _ = _block_apply(_layer_params(params["encoder"]["layers"], ("encoder", "layers"), i), x, spec, cfg,
+                               positions=pos, cache=None, cache_index=None, causal=False, enc_out=None)
     return rmsnorm(params["encoder"]["norm"], x, cfg.norm_eps)
 
 
@@ -259,16 +276,18 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeddings=None, frames=
     x = _embed(params, tokens, cfg)
     if prefix_embeddings is not None:
         x = torch.cat([prefix_embeddings.to(cfg.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    tp = tensor_parallel()
+    if tp is not None and tp.seq:
+        x = tp.seq_split(x)  # this rank's block of the sequence from here to the head
     x = constrain(x, "batch", "seq", "embed")
 
     enc_out = encode(params, frames, cfg) if frames is not None else None
-    tp = tensor_parallel()
     if enc_out is not None and tp is not None and tp.splits("heads"):
         enc_out = tp.copy_in(enc_out)  # every cross-attention's part of its cotangent, summed over the ranks
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def period_body(x, i):
-        lps = _period(params["layers"], i)
+        lps = _layer_params(params["layers"], ("layers",), i)
         lb, dr = _zero_aux(x.device)
         for j, spec in enumerate(cfg.pattern):
             x, _, a = _block_apply(lps[j], x, spec, cfg, positions=positions, cache=None, cache_index=None,
@@ -284,8 +303,8 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeddings=None, frames=
             x, lb, dr = period_body(x, i)
         lb_sum, dr_sum = lb_sum + lb, dr_sum + dr
     for j, spec in enumerate(cfg.tail):
-        x, _, a = _block_apply(params["tail"][j], x, spec, cfg, positions=positions, cache=None, cache_index=None,
-                               causal=True, enc_out=enc_out)
+        x, _, a = _block_apply(_layer_params(params["tail"][j], ("tail", j)), x, spec, cfg, positions=positions,
+                               cache=None, cache_index=None, causal=True, enc_out=enc_out)
         lb_sum, dr_sum = lb_sum + a[0], dr_sum + a[1]
     if aux is not None:
         n_moe = max(1, sum(1 for s in cfg.pattern if s.ffn == "moe") * cfg.n_periods

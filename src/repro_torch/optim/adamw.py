@@ -61,20 +61,23 @@ def adamw_init(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree, *, model=None, sharded=None) -> torch.Tensor:
-    """The float32 norm of every leaf. Over the model axis (``model``, a
-    `distributed.tensor_parallel.TensorParallel`; ``sharded``, a list of
-    flags in leaf order, True where the leaf is this rank's block of a
-    leaf cut over the model ranks) each cut leaf's sum of squares is the
-    sum of every rank's, added in rank order (one gather for all of them);
-    a replicated leaf counts once. Each leaf is summed in its logical
-    order whatever its strides (a gradient autograd gives strided sums as
-    its contiguous copy does, which the rank paths reduce)."""
+def global_norm(tree, *, cuts=()) -> torch.Tensor:
+    """The float32 norm of every leaf. Over ranks (``cuts``: a pair for
+    each mesh axis, in the order summed, of its collectives, a
+    `distributed.fsdp.FSDP` or `distributed.tensor_parallel.TensorParallel`,
+    and flags in leaf order, True where the leaf is this rank's block of a
+    leaf cut over that axis) each cut leaf's sum of squares is its block's,
+    and the blocks' sums are added over the axis's ranks in rank order
+    (`sum`, counted as ``norm``, one gather an axis for all of them). A
+    leaf cut over two axes is so counted once, and a leaf cut over none
+    counts once as it is. Each leaf is summed in its logical order whatever
+    its strides (a gradient autograd gives strided sums as its contiguous
+    copy does, which the rank paths reduce)."""
     squares = [torch.sum(torch.square(g.reshape(-1).to(torch.float32))) for g in _leaves(tree)]
-    if model is not None:
-        cut = [i for i, s in enumerate(sharded) if s]
+    for ranks, flags in cuts:
+        cut = [i for i, s in enumerate(flags) if s]
         if cut:
-            total = model.sum(torch.stack([squares[i] for i in cut]), "norm")
+            total = ranks.sum(torch.stack([squares[i] for i in cut]), "norm")
             for j, i in enumerate(cut):
                 squares[i] = total[j]
     return torch.sqrt(sum(squares))
@@ -88,10 +91,10 @@ def _clip(g, scale) -> torch.Tensor:
     return (g.to(torch.float32) * scale).to(g.dtype)
 
 
-def clip_by_global_norm(grads, max_norm: float, *, model=None, sharded=None):
+def clip_by_global_norm(grads, max_norm: float, *, cuts=()):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
-    before clipping); ``model``, ``sharded``: `global_norm`'s."""
-    norm = global_norm(grads, model=model, sharded=sharded)
+    before clipping); ``cuts``: `global_norm`'s."""
+    norm = global_norm(grads, cuts=cuts)
     scale = _clip_scale(norm, max_norm)
     return _map(lambda g: _clip(g, scale), grads), norm
 
@@ -111,15 +114,15 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig, lr_scale=1.0):
 _CHUNK = 1 << 24
 
 
-def adamw_update_(grads, state: dict, params, cfg: AdamWConfig, lr_scale=1.0, *, model=None, sharded=None) -> dict:
+def adamw_update_(grads, state: dict, params, cfg: AdamWConfig, lr_scale=1.0, *, cuts=()) -> dict:
     """One AdamW step in the reference's arithmetic and order, written into
     ``params``, ``state["mu"]``, ``state["nu"]`` and ``state["count"]``.
     The clip by the global norm is applied a slice at a time as the slice
-    is updated, so no clipped copy of the gradients is made. Over the
-    model axis, ``model`` and ``sharded`` are `global_norm`'s. Returns the
-    metrics."""
+    is updated, so no clipped copy of the gradients is made. Over ranks
+    (``cuts``: `global_norm`'s) each rank updates its blocks, elementwise.
+    Returns the metrics."""
     with torch.no_grad():
-        gnorm = global_norm(grads, model=model, sharded=sharded)
+        gnorm = global_norm(grads, cuts=cuts)
         scale = _clip_scale(gnorm, cfg.grad_clip)
         state["count"].add_(1)
         count = state["count"]

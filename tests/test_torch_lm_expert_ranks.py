@@ -198,12 +198,18 @@ def test_expert_axis_step_matches_one_process(runs, arch, mesh):
     # the router's gradient is whole on every model rank, so every replicated leaf stays the same bits
     rep = [_load(runs, f"replicated.{arch}.{mesh}.m{r}") for r in range(m)]
     assert all(_equal_trees(rep[0], other) for other in rep[1:]), (arch, mesh)
-    # each step crossed every layer's boundaries: a sum after each attention and MoE block and the embedding, and
-    # the sums in of the attention's input, the experts' input and the combine's gates
-    n_layers = check.config(arch).total_layers
-    assert got["counts"]["sum_out"] >= check.STEPS * (2 * n_layers + 1)
-    assert got["counts"]["copy_in"] >= check.STEPS * (3 * n_layers + 1)
-    assert got["counts"]["norm"] == check.STEPS
+    # each step crossed every layer's boundaries: a sum after each attention and MoE block (under the sequence
+    # split a reduce-scatter onto the rank's block, whose backward gathers the cotangent once a boundary a step),
+    # and once a boundary a step the sums in of the attention's input, the experts' input and the head's (the
+    # backward of the sequence's all-gather) and of the combine's gates: 3L+1 sums in, as without the split
+    cfg = check.config(arch)
+    n, n_layers = check.STEPS, cfg.total_layers
+    n_moe = sum(1 for s in cfg.pattern if s.ffn == "moe") * cfg.n_periods + sum(1 for s in cfg.tail if s.ffn == "moe")
+    counts = got["counts"]
+    assert counts["seq_scatter"] >= n * 2 * n_layers and counts["seq_scatter_grad"] >= n * 2 * n_layers
+    assert counts["seq_gather_grad"] >= n * (2 * n_layers + 1)
+    assert counts["copy_in"] >= n * n_moe and counts["seq_gather_grad"] + counts["copy_in"] >= n * (3 * n_layers + 1)
+    assert counts["norm"] == check.STEPS
 
 
 @pytest.mark.parametrize("arch,mesh", REF_CASES)

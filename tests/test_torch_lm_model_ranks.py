@@ -52,6 +52,7 @@ from repro.optim import AdamWConfig, ScheduleConfig  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.distributed.ranks import check_axis_request  # noqa: E402
+from repro_torch.distributed.sharding import rules_for  # noqa: E402
 from repro_torch.distributed.tensor_parallel import block_range, check_model_axis  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import params_to_numpy  # noqa: E402
@@ -174,9 +175,22 @@ def test_model_axis_step_matches_one_process(runs, arch, mesh):
         assert _equal_trees(_load(runs, f"train.{arch}.{mesh}.row{r}")["state"], got["state"]), (arch, mesh, r)
     # each step crossed the Megatron boundaries over the model group: a sum after every attention and MLP block
     # and the embedding, forward and again in the recompute, and a sum of every column-parallel input's cotangent
-    assert got["counts"]["sum_out"] >= check.STEPS * (2 * get_smoke_config(arch).total_layers + 1)
-    assert got["counts"]["copy_in"] >= check.STEPS * (2 * get_smoke_config(arch).total_layers + 1)
-    assert got["counts"]["norm"] == check.STEPS
+    # (the head's too), once a boundary a step. Where the table puts the sequence on the model axis (all but
+    # whisper) the sums out are reduce-scatters onto the rank's block of the sequence, whose backward gathers the
+    # cotangent once a boundary a step; the inputs come in through the sequence's all-gather, whose backward is
+    # the sum; the stream is cut once and every norm's scale has its gradient summed
+    cfg = get_smoke_config(arch)
+    n, layers = check.STEPS, cfg.total_layers
+    counts = got["counts"]
+    seq = rules_for(cfg, mode="train", multi_pod=False, data_axis=d, model_axis=check.MESHES[mesh][1])["seq"]
+    if seq:
+        assert counts["seq_scatter"] >= n * 2 * layers and counts["seq_scatter_grad"] >= n * 2 * layers
+        assert counts["seq_gather_grad"] >= n * (2 * layers + 1)
+        assert counts["seq_split_grad"] == n and counts["norm_scale"] == n * (2 * layers + 1)
+    else:
+        assert counts["sum_out"] >= n * (2 * layers + 1)
+        assert counts["copy_in"] >= n * (2 * layers + 1)
+    assert counts["norm"] == check.STEPS
 
 
 @pytest.mark.parametrize("mesh", list(check.MESHES))
